@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+H100: ``python3 chip_smoke.py`` from the repo root.
+
+Phases, each of which raises on failure (the script catches none):
+
+1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build the CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+3. the ragged paged-attention kernel against its plain PyTorch version at
+   smollm-360m's widths (H=15, KV=5, hd=64, BS=16) on mixed prefill+decode
+   lanes with padding lanes and empty entries: float32 (atol 2e-5) and
+   bfloat16 (atol 2e-2);
+4. a small-input reference: reduced smollm-360m in float32 served on the
+   card and on the CPU (the plain path): one fused step's logits agree
+   (atol 1e-3) and the greedy streams are identical;
+5. serving: full-width smollm-360m (32 layers, bf16, random weights from a
+   seeded generator on the card), 16 requests with 128-1024-token prompts
+   (every fourth prompt longer than 512 opens with a shared 256-token
+   prefix), 32 new tokens each, max_batch 16, 16-token KV blocks in a
+   4096-block pool.  The kernel's launch count
+   must equal steps x 32, the allocator's invariants must hold and the
+   pool must drain.  Layer 0's attention inputs of one mixed step and one
+   decode-only step are captured on the way;
+6. the kernel against the plain version on the captured inputs (bf16,
+   atol 2e-2), then times: the kernel (CUDA events over back-to-back
+   launches) beside the plain version and the bound (the K/V rows of the
+   step's keys, q, out and the lists at 3.35 TB/s, or operations at the
+   bf16/f32 peak).
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Without a card the script exits
+nonzero before printing either.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+KERNEL = "paged_attention_ragged"
+SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def compare(torch, got, want, atol, what):
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"  {what}: max_abs_err {err:.3e} (atol {atol:g})")
+    if not err <= atol:
+        raise AssertionError(f"{what}: kernel disagrees with the plain "
+                             f"version: {err} > {atol}")
+    return err
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+class Capture:
+    """Clone layer 0's attention inputs (and output) for the first mixed
+    and the first decode-only step the engine runs."""
+
+    def __init__(self, engine, api):
+        self.engine, self.api = engine, api
+        self.want = None
+        self.got = {}
+        self._render = engine._render
+        self._op = api.paged_attention_ragged_op
+        engine._render = self.render
+        api.paged_attention_ragged_op = self.op
+
+    def render(self, plan):
+        kind = ("mixed" if plan.decode and plan.prefill else
+                "decode" if plan.decode else None)
+        self.want = kind if kind and kind not in self.got else None
+        return self._render(plan)
+
+    def op(self, *args, **kw):
+        out = self._op(*args, **kw)
+        if self.want is not None:
+            self.got[self.want] = ([a.clone() for a in args], out.clone())
+            self.want = None
+        return out
+
+    def close(self):
+        self.engine._render = self._render
+        self.api.paged_attention_ragged_op = self._op
+
+
+def bound(inputs, torch):
+    """(bound_ms, bound_by) of one ragged call: the K/V rows of the keys
+    each live sequence holds (``kv_len`` rows, not whole pages) + q of the
+    real lanes + out + the int32 lists, over HBM rate, against 4*hd
+    operations per (head, valid key) pair over the dtype's peak."""
+    q, pool, bl, _, _, cu_q, cu_kv, ss = inputs
+    T, H, HD = q.shape
+    KV2 = pool.shape[2]
+    elt = q.element_size()
+    cu_q, cu_kv, ss = cu_q.cpu().numpy(), cu_kv.cpu().numpy(), ss.cpu().numpy()
+    S = len(ss)
+    rows = keys = 0
+    for j in range(S):
+        nq, kvl = cu_q[j + 1] - cu_q[j], cu_kv[j + 1] - cu_kv[j]
+        if not 0 <= ss[j] < S or nq <= 0:
+            continue
+        rows += int(kvl)
+        first = kvl - nq + 1                  # keys seen by the first lane
+        keys += int(nq * first + nq * (nq - 1) // 2)
+    nbytes = (rows * KV2 * HD * elt + int(cu_q[-1]) * H * HD * elt
+              + T * H * HD * elt + 4 * (3 * len(bl) + 3 * S + 2))
+    ops = 4 * HD * H * keys
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[str(q.dtype)]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_kernel_ms(torch, api, kernel_lib, inputs, reps=50):
+    """Device time per call of the two kernels behind the wrapper,
+    launched back to back through the C entry point."""
+    q, pool, bl, br, bp, cu_q, cu_kv, ss = inputs
+    T, H, HD = q.shape
+    NB, BS, KV2, _ = pool.shape
+    Tb, S = bl.shape[0], ss.shape[0]
+    out = torch.empty_like(q)
+    scratch = torch.empty((api.ragged_scratch_ints(S, Tb),),
+                          dtype=torch.int32, device=q.device)
+    fn = kernel_lib.paged_attention_ragged
+    argv = (q.data_ptr(), pool.data_ptr(), out.data_ptr(), bl.data_ptr(),
+            br.data_ptr(), bp.data_ptr(), cu_q.data_ptr(), cu_kv.data_ptr(),
+            ss.data_ptr(), scratch.data_ptr(), T, H, KV2 // 2, HD, NB, BS, Tb,
+            S, 0 if q.dtype == torch.float32 else 1, HD ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    for _ in range(3):
+        if fn(*argv) != 0:
+            raise RuntimeError("kernel launch failed while timing")
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn(*argv)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_plain_ms(torch, api, inputs, reps=3):
+    api.paged_attention_ragged(*inputs)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        api.paged_attention_ragged(*inputs)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def reference_check(torch, np, cfg_mod, build_model, engine_mod):
+    """Reduced float32 smollm-360m on the card and on the CPU: one fused
+    step's logits on the same rendered lists, and whole greedy streams."""
+    cfg = cfg_mod.get_config("smollm-360m").reduced(dtype="float32")
+    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=4, max_batch=4,
+                                prefill_chunk=16)
+    params_cpu = build_model(cfg, device="cpu").init(0)
+
+    def engine(dev):
+        eng = engine_mod.ServingEngine(
+            build_model(cfg, device=dev), to_device(params_cpu, dev), cfg,
+            serve, num_blocks=64, device=dev)
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit(engine_mod.Request(
+                req_id=i, prompt=rng.integers(0, cfg.vocab_size, (5 + 4 * i,),
+                                              dtype=np.int32),
+                max_new_tokens=8, arrival=float(i)))
+        return eng
+
+    streams, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = engine(dev)
+        for _ in range(2):
+            eng.step()
+        lists, tokens, _, _ = eng._render(eng.scheduler.schedule())
+        logits[dev], _ = eng.model.decode_tokens_paged(
+            eng.params, eng.pools,
+            {k: torch.from_numpy(v).to(dev) for k, v in lists.items()},
+            torch.from_numpy(tokens).to(dev))
+        eng = engine(dev)
+        eng.run_until_done()
+        streams[dev] = {r.req_id: list(r.output) for r in eng.finished}
+    err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
+    log(f"  reduced f32 fused step, card vs CPU: logits max_abs_err "
+        f"{err:.3e} (atol 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError(f"card logits disagree with the CPU: {err}")
+    if streams["cuda"] != streams["cpu"]:
+        raise AssertionError(f"greedy streams differ: {streams}")
+    log(f"  greedy streams identical on card and CPU "
+        f"({len(streams['cuda'])} requests x 8 tokens)")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    from repro_torch import config as cfg_mod
+    from repro_torch.core import attention_api as api
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa_kernel
+    from repro_torch.kernels.paged_attention.cases import (
+        ARG_ORDER, ragged_case)
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import engine as engine_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # 1. the card -------------------------------------------------------------
+    log("== 1. card")
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+        f"python {sys.version.split()[0]}  "
+        f"capability {torch.cuda.get_device_capability(0)}")
+
+    # 2. build ----------------------------------------------------------------
+    log("== 2. build")
+    t0 = time.perf_counter()
+    r = build.build(KERNEL)
+    log(f"  {KERNEL}: nvcc {r['seconds']:.2f}s cache_hit={r['cache_hit']} "
+        f"-> {build.library_path(KERNEL).relative_to(ROOT)}")
+    for line in r["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"    {line.strip()}")
+    kernel_lib = pa_kernel.library()
+    log(f"  build + load {time.perf_counter() - t0:.2f}s")
+
+    # 3. kernel vs plain at full width ---------------------------------------
+    log("== 3. kernel vs plain, smollm-360m widths, synthetic lanes")
+    full = dict(num_heads=15, num_kv=5, head_dim=64, block_size=16,
+                num_blocks=256)
+    case = dict(seqs=[(3, 1, 300), (0, 37, 37), (5, 1, 17), (1, 120, 250),
+                      (2, 1, 1), (4, 64, 700), (8, 0, 0), (8, 0, 0)],
+                num_lanes=256, num_entries=160, shuffle=True)
+    c = ragged_case(np.random.default_rng(0), **full, **case)
+    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        args = [torch.from_numpy(c[k]).to(dev) for k in ARG_ORDER]
+        args[:2] = [a.to(dtype) for a in args[:2]]
+        got = api.paged_attention_ragged_op(*args)
+        torch.cuda.synchronize()
+        compare(torch, got, api.paged_attention_ragged(*args), atol,
+                f"{str(dtype)[6:]} T=256 S=8 Tb=160")
+        if torch.any(got[int(c["cu_q_lens"][-1]):] != 0):
+            raise AssertionError("padding lanes must read 0")
+
+    # 4. small-input reference: card vs CPU -----------------------------------
+    log("== 4. reduced smollm-360m f32: card vs CPU")
+    reference_check(torch, np, cfg_mod, build_model, engine_mod)
+
+    # 5. serving at full width --------------------------------------------------
+    log("== 5. serving smollm-360m (32 layers, bf16, random weights)")
+    cfg = cfg_mod.get_config("smollm-360m")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  params {n_params / 1e6:.1f}M  dtype {model.dtype}")
+    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                max_batch=SERVE_BATCH)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab_size, (256,), dtype=np.int32)
+
+    def requests(n, lo, hi, new):
+        """n requests; every fourth opens with the same 256-token prefix."""
+        out = []
+        for i in range(n):
+            length = int(rng.integers(lo, hi))
+            p = rng.integers(0, cfg.vocab_size, (length,), dtype=np.int32)
+            if i % 4 == 0 and length > 2 * len(shared):
+                p[:len(shared)] = shared
+            out.append(engine_mod.Request(req_id=i, prompt=p,
+                                          max_new_tokens=new))
+        return out
+
+    warm = engine_mod.ServingEngine(model, params, cfg, serve,
+                                    num_blocks=256, device=dev)
+    for r in requests(2, 64, 65, 4):
+        warm.submit(r)
+    warm.run_until_done()
+    del warm
+    engine = engine_mod.ServingEngine(model, params, cfg, serve,
+                                      num_blocks=SERVE_BLOCKS, device=dev)
+    reqs = requests(16, 128, 1025, SERVE_NEW)
+    log(f"  prompts: {sorted(len(r.prompt) for r in reqs)}")
+    kernel_op = api.paged_attention_ragged_op    # holds the launch count
+    capture = Capture(engine, api)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_op.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_op.launches
+    capture.close()
+    m = engine.metrics()
+    log(f"  steps {m['steps']}  output tokens {m['output_tokens']}  wall "
+        f"{wall:.3f}s  output tok/s {m['output_tokens'] / wall:.1f}  "
+        f"lane tokens/step {m['lane_tokens_per_step']:.1f}")
+    log(f"  TTFT p50 {m['p50_ttft_s'] * 1e3:.1f} / p99 "
+        f"{m['p99_ttft_s'] * 1e3:.1f} ms  TPOT p50 "
+        f"{m['p50_tpot_s'] * 1e3:.2f} / p99 {m['p99_tpot_s'] * 1e3:.2f} ms")
+    log(f"  prefix hit rate {m['prefix_hit_rate']:.3f}  cow copies "
+        f"{m['cow_copies']}  preemptions {m['preemptions']}  phases "
+        + "  ".join(f"{k} {v:.3f}s" for k, v in sorted(m['phase_s'].items())))
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB;  kernel launches {launches} = steps x layers "
+        f"{m['steps']} x {cfg.num_layers}")
+    if launches != m["steps"] * cfg.num_layers or launches == 0:
+        raise AssertionError(f"kernel launches {launches} != steps x layers")
+    if m["finished"] != len(reqs):
+        raise AssertionError(f"finished {m['finished']} of {len(reqs)}")
+    for r in engine.finished:
+        if len(r.output) != SERVE_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.req_id}: bad output {r.output}")
+    engine.alloc.check_invariants(drained=True)
+    log("  allocator invariants hold; pool drained "
+        f"({engine.alloc.num_free}/{engine.alloc.num_blocks} blocks free)")
+    for kind in ("mixed", "decode"):
+        if kind not in capture.got:
+            raise AssertionError(f"no {kind} step captured")
+
+    # 6. captured inputs: kernel vs plain, and times ---------------------------
+    log("== 6. layer-0 inputs of real steps: kernel vs plain, times")
+    record = None
+    for kind in ("decode", "mixed"):
+        inputs, out_run = capture.got[kind]
+        again = api.paged_attention_ragged_op(*inputs)
+        torch.cuda.synchronize()
+        if not torch.equal(again, out_run):
+            raise AssertionError(f"{kind}: kernel is not deterministic")
+        if not torch.isfinite(again).all():
+            raise AssertionError(f"{kind}: non-finite attention output")
+        q, _, bl, _, _, cu_q, _, ss = inputs
+        what = (f"{kind} step T={q.shape[0]} real lanes "
+                f"{int(cu_q[-1])} S={ss.shape[0]} Tb={bl.shape[0]}")
+        err = compare(torch, again, api.paged_attention_ragged(*inputs),
+                      2e-2, f"bf16 {what}")
+        ms = time_kernel_ms(torch, api, kernel_lib, inputs)
+        plain_ms = time_plain_ms(torch, api, inputs)
+        bound_ms, bound_by = bound(inputs, torch)
+        log(f"  {kind}: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by})  -> {bound_ms / ms:.1%} of "
+            f"bound  [{card}]")
+        record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
+    # 7. where a decode step's time goes ---------------------------------------
+    log("== 7. profile of decode-only steps (16 requests, 512-token prompts)")
+    profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev)
+
+    log(json.dumps({"kernels": [{
+        "name": KERNEL, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{KERNEL}.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:471",
+        "launches": launches, **record, "library_ms": None}]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev):
+    """torch.profiler over three decode-only engine steps: device time by
+    kernel, and the device's busy share of the steps' wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = engine_mod.ServingEngine(model, params, cfg, serve, num_blocks=1024,
+                                   device=dev)
+    rng = np.random.default_rng(1)
+    for i in range(SERVE_BATCH):
+        eng.submit(engine_mod.Request(
+            req_id=i, prompt=rng.integers(0, cfg.vocab_size, (512,),
+                                          dtype=np.int32),
+            max_new_tokens=16))
+    while any(r.state.name != "DECODING" for r in eng.active.values()) \
+            or eng.waiting:
+        eng.step()
+    for _ in range(2):                           # warm decode steps
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows, host = [], []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            host.append((e.self_cpu_time_total, e.count, e.key))
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    log(f"  3 decode steps: wall {wall_us / 3e3:.3f} ms/step under the "
+        f"profiler; device busy {busy / 3e3:.3f} ms/step "
+        f"({busy / wall_us:.1%} of wall)" if busy else
+        "  device time: not measured (the profiler saw no device activity)")
+    log("  device time by kernel:")
+    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"    {dev_us / 3e3:9.4f} ms/step  {count // 3:5d} calls/step  "
+            f"{key[:90]}")
+    log("  host time by op (self CPU, profiler on):")
+    for cpu_us, count, key in sorted(host, reverse=True)[:10]:
+        log(f"    {cpu_us / 3e3:9.4f} ms/step  {count // 3:5d} calls/step  "
+            f"{key[:90]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

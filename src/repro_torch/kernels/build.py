@@ -1,0 +1,69 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles, for ``sm_90a``, into a shared library with
+a plain C interface: ``build/kernels/<name>-<hash>.so`` at the repo root,
+where ``<hash>`` covers the source and the flags, so a changed source
+rebuilds and an unchanged one is a cache hit.  Nothing is compiled when a
+module is imported: :func:`load` builds at first use, and :func:`build`
+returns the compile time and log (``chip_smoke.py`` prints them).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> dict:
+    """Build ``csrc/<name>.cu`` unless its library is already cached.
+
+    Returns ``{"cache_hit", "seconds", "log"}``; ``log`` is what ``nvcc``
+    printed (``-Xptxas -v``: registers, shared memory, spills).  Raises
+    ``RuntimeError`` with the compiler output if the build fails.
+    """
+    lib = library_path(name)
+    if lib.exists():
+        return {"cache_hit": True, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return {"cache_hit": False, "seconds": time.perf_counter() - t0,
+            "log": proc.stdout}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        build(name)
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]

@@ -1,0 +1,35 @@
+"""Parameters of the JAX model -> the port's parameters, through numpy.
+
+The caller turns the JAX pytree into nested dicts of numpy arrays (for
+example ``jax.tree.map(np.asarray, params)``); this module imports no JAX.
+bfloat16 arrays pass through float32, since torch cannot read numpy's
+bfloat16 extension type, and come back to bfloat16 on the device.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+
+
+def _to_torch(arr: Any, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)   # a writable copy
+
+
+def params_from_numpy(tree: Dict, device="cuda") -> Dict:
+    """Nested dicts of numpy arrays -> the same dicts of torch tensors."""
+    dev = device_lib.resolve(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _to_torch(node, dev)
+
+    return conv(tree)
