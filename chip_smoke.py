@@ -21,11 +21,29 @@ Phases, each of which raises on failure (the script catches none):
    must equal steps x 32, the allocator's invariants must hold and the
    pool must drain.  Layer 0's attention inputs of one mixed step and one
    decode-only step are captured on the way;
-6. the kernel against the plain version on the captured inputs (bf16,
-   atol 2e-2), then times: the kernel (CUDA events over back-to-back
-   launches) beside the plain version and the bound (the K/V rows of the
-   step's keys, q, out and the lists at 3.35 TB/s, or operations at the
-   bf16/f32 peak).
+6. the kernel against the plain version on the captured inputs of the
+   decode step and the mixed step (bf16, atol 2e-2), then times of each:
+   the kernel (CUDA events over back-to-back launches) beside the plain
+   version and the bound (the K/V rows of the step's keys, q, out and the
+   lists at 3.35 TB/s, or operations at the bf16/f32 peak);
+7. torch.profiler over three decode-only steps;
+8. the BatchedTable embedding-bag kernel against its plain version at
+   RM1's and RM2's full widths (10 M x 128 with L = 10, 20 M x 64 with
+   L = 20; tables past 2^31 bytes), 4096 x T bags with uniform ids, ids
+   in the table's top rows, a wrapped negative id and an id past the end:
+   float32 (atol 1e-5) and bfloat16 (atol 2e-2), NaN bags where expected;
+9. a small-input reference: rm2 with 4096 rows per table in float32, one
+   forward on the card and on the CPU (the plain path), logits atol 1e-4;
+10. DLRM inference at full width: ``repro_torch.bench.recsys_e2e`` runs
+   rm1 and rm2 (1 M rows per table, float32, seeded random weights on the
+   card), SingleTable and BatchedTable, batch 16 to 4096.  The embedding
+   kernel's launch count must equal the BatchedTable forwards run, and
+   every logit must be finite;
+11. the embedding kernel at the main path's B = 4096 inputs of rm1 and
+   rm2: its time (CUDA events over back-to-back launches) beside the plain
+   version, ``F.embedding_bag`` on the same inputs (timed as a yardstick,
+   never used by the port) and the bound (the distinct rows gathered, the
+   ids and the output at 3.35 TB/s).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
@@ -34,6 +52,7 @@ nonzero before printing either.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +64,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 KERNEL = "paged_attention_ragged"
+EMB_KERNEL = "batched_embedding"
+EMB_BATCH = 4096
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 
 
@@ -72,6 +93,8 @@ def compare(torch, got, want, atol, what):
 def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -150,29 +173,31 @@ def time_kernel_ms(torch, api, kernel_lib, inputs, reps=50):
             ss.data_ptr(), scratch.data_ptr(), T, H, KV2 // 2, HD, NB, BS, Tb,
             S, 0 if q.dtype == torch.float32 else 1, HD ** -0.5,
             torch.cuda.current_stream().cuda_stream)
-    for _ in range(3):
-        if fn(*argv) != 0:
-            raise RuntimeError("kernel launch failed while timing")
+    return events_ms(torch, lambda: launch_ok(fn(*argv)), reps, warmup=3)
+
+
+def launch_ok(err):
+    if err != 0:
+        raise RuntimeError(f"kernel launch failed while timing: {err}")
+
+
+def events_ms(torch, fn, reps, warmup=1):
+    """Device milliseconds per call of ``fn``: CUDA events around ``reps``
+    back-to-back calls after ``warmup`` untimed ones."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
-        fn(*argv)
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
 def time_plain_ms(torch, api, inputs, reps=3):
-    api.paged_attention_ragged(*inputs)
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        api.paged_attention_ragged(*inputs)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return events_ms(torch, lambda: api.paged_attention_ragged(*inputs), reps)
 
 
 def reference_check(torch, np, cfg_mod, build_model, engine_mod):
@@ -227,6 +252,8 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from repro_torch import config as cfg_mod
     from repro_torch.core import attention_api as api
+    from repro_torch.core import embedding_api as emb_api
+    from repro_torch.kernels import batched_embedding as emb_kernel
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa_kernel
     from repro_torch.kernels.paged_attention.cases import (
@@ -249,14 +276,20 @@ def main() -> int:
     # 2. build ----------------------------------------------------------------
     log("== 2. build")
     t0 = time.perf_counter()
-    r = build.build(KERNEL)
-    log(f"  {KERNEL}: nvcc {r['seconds']:.2f}s cache_hit={r['cache_hit']} "
-        f"-> {build.library_path(KERNEL).relative_to(ROOT)}")
-    for line in r["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    {line.strip()}")
+    for name, r in build.build_all([KERNEL, EMB_KERNEL]).items():
+        log(f"  {name}: done {r['seconds']:.2f}s into the parallel build, "
+            f"cache_hit={r['cache_hit']} "
+            f"-> {build.library_path(name).relative_to(ROOT)}")
+        for line in r["log"].splitlines():
+            entry = re.search(r"Compiling entry function '_ZN\w+?_cu_"
+                              r"[0-9a-f]+\d+(\w+?)E?v?P", line)
+            if entry:
+                log(f"    {entry.group(1)}:")
+            elif "registers" in line or "spill" in line:
+                log(f"      {line.strip()}")
     kernel_lib = pa_kernel.library()
-    log(f"  build + load {time.perf_counter() - t0:.2f}s")
+    emb_lib = emb_kernel.library()
+    log(f"  build (parallel) + load {time.perf_counter() - t0:.2f}s")
 
     # 3. kernel vs plain at full width ---------------------------------------
     log("== 3. kernel vs plain, smollm-360m widths, synthetic lanes")
@@ -357,7 +390,7 @@ def main() -> int:
 
     # 6. captured inputs: kernel vs plain, and times ---------------------------
     log("== 6. layer-0 inputs of real steps: kernel vs plain, times")
-    record = None
+    steps = {}
     for kind in ("decode", "mixed"):
         inputs, out_run = capture.got[kind]
         again = api.paged_attention_ragged_op(*inputs)
@@ -377,17 +410,48 @@ def main() -> int:
         log(f"  {kind}: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
             f"{bound_ms:.4f} ms ({bound_by})  -> {bound_ms / ms:.1%} of "
             f"bound  [{card}]")
-        record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
+        steps[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
     # 7. where a decode step's time goes ---------------------------------------
     log("== 7. profile of decode-only steps (16 requests, 512-token prompts)")
     profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev)
 
+    del engine, capture
+    torch.cuda.empty_cache()
+
+    # 8. embedding kernel vs plain at full width -----------------------------
+    log("== 8. embedding-bag kernel vs plain, rm1/rm2 full widths")
+    emb_errs = [embedding_check(torch, cfg_mod.get_config(arch), emb_api, dev)
+                for arch in ("rm1", "rm2")]
+
+    # 9. small-input reference: card vs CPU -----------------------------------
+    log("== 9. rm2 with 4096 rows per table, f32: card vs CPU")
+    dlrm_reference_check(torch, cfg_mod, build_model, dev)
+
+    # 10. DLRM inference at full width ------------------------------------------
+    log("== 10. DLRM inference, rm1/rm2 at 1 M rows per table, f32")
+    emb_launches = dlrm_inference(torch, emb_api, dev)
+
+    # 11. embedding kernel times at the main path's B = 4096 inputs -----------
+    log(f"== 11. embedding-bag kernel times, B={EMB_BATCH}")
+    emb = {arch: embedding_times(torch, cfg_mod.get_config(arch), build_model,
+                                 emb_api, emb_lib, dev, card)
+           for arch in ("rm1", "rm2")}
+    emb_err = max([e["max_abs_err"] for e in emb.values()] + emb_errs)
+
+    ragged_top = dict(steps["mixed"], max_abs_err=max(
+        s["max_abs_err"] for s in steps.values()))
     log(json.dumps({"kernels": [{
         "name": KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{KERNEL}.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:471",
-        "launches": launches, **record, "library_ms": None}]}))
+        "launches": launches, **ragged_top, "library_ms": None,
+        "decode": steps["decode"], "mixed": steps["mixed"]}, {
+        "name": EMB_KERNEL, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
+        "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
+        "launches": emb_launches, **emb["rm2"], "max_abs_err": emb_err,
+        "rm1": emb["rm1"], "rm2": emb["rm2"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -397,8 +461,6 @@ def main() -> int:
 def profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev):
     """torch.profiler over three decode-only engine steps: device time by
     kernel, and the device's busy share of the steps' wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     eng = engine_mod.ServingEngine(model, params, cfg, serve, num_blocks=1024,
                                    device=dev)
     rng = np.random.default_rng(1)
@@ -412,12 +474,20 @@ def profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev):
         eng.step()
     for _ in range(2):                           # warm decode steps
         eng.step()
+    profile_calls(torch, eng.step, 3, "decode steps", "step")
+
+
+def profile_calls(torch, fn, n, what, unit):
+    """torch.profiler over ``n`` calls of ``fn``: wall time per call, the
+    device's busy share of it, device time by kernel and host time by op."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            eng.step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows, host = [], []
@@ -431,18 +501,166 @@ def profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev):
         if dev_us > 0:
             rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows)
-    log(f"  3 decode steps: wall {wall_us / 3e3:.3f} ms/step under the "
-        f"profiler; device busy {busy / 3e3:.3f} ms/step "
+    per = 1e3 * n                       # us in all -> ms per call
+    log(f"  {n} {what}: wall {wall_us / per:.3f} ms/{unit} under the "
+        f"profiler; device busy {busy / per:.3f} ms/{unit} "
         f"({busy / wall_us:.1%} of wall)" if busy else
         "  device time: not measured (the profiler saw no device activity)")
     log("  device time by kernel:")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
-        log(f"    {dev_us / 3e3:9.4f} ms/step  {count // 3:5d} calls/step  "
-            f"{key[:90]}")
+        log(f"    {dev_us / per:9.4f} ms/{unit}  {count // n:5d} calls/{unit}"
+            f"  {key[:90]}")
     log("  host time by op (self CPU, profiler on):")
     for cpu_us, count, key in sorted(host, reverse=True)[:10]:
-        log(f"    {cpu_us / 3e3:9.4f} ms/step  {count // 3:5d} calls/step  "
-            f"{key[:90]}")
+        log(f"    {cpu_us / per:9.4f} ms/{unit}  {count // n:5d} calls/{unit}"
+            f"  {key[:90]}")
+
+
+def embedding_check(torch, cfg, emb_api, dev):
+    """The embedding kernel against its plain version on the config's whole
+    table (T x 1 M rows): uniform ids, ids in the last table's top 1000
+    rows (64-bit offsets), global id -1 (wraps to the last row) and one id
+    past the end (a NaN bag).  float32 and bfloat16; returns the largest
+    error."""
+    T, R, D, L = (cfg.num_tables, cfg.num_embeddings, cfg.embedding_dim,
+                  cfg.gathers_per_table)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    table = torch.randn((T * R, D), generator=gen, device=dev).mul_(D ** -0.5)
+    offs = torch.arange(T, dtype=torch.int32, device=dev) * R
+    idx = torch.randint(0, R, (EMB_BATCH, T, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:64, T - 1] = torch.randint(R - 1000, R, (64, L), generator=gen,
+                                    device=dev, dtype=torch.int32)
+    idx[64, 0, 0] = -1                 # global -1: the table's last row
+    idx[65, T - 1, L - 1] = R          # global T*R: past the end
+    errs = []
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        t = table.to(dtype)
+        got = emb_api.embedding_bag(t, offs, idx)
+        torch.cuda.synchronize()
+        want = emb_api.batched_table_lookup(t, offs, idx)
+        nan = torch.isnan(got).any(dim=-1)
+        if not torch.equal(nan, torch.isnan(want).any(dim=-1)) or \
+                nan.nonzero().tolist() != [[65, T - 1]]:
+            raise AssertionError(f"{cfg.name}: NaN bags "
+                                 f"{nan.nonzero().tolist()} != [[65, {T - 1}]]")
+        gib = t.numel() * t.element_size() / 2 ** 30
+        errs.append(compare(torch, got[~nan], want[~nan], atol,
+                            f"{cfg.name} {str(dtype)[6:]} table {T * R}x{D} "
+                            f"({gib:.2f} GiB) bags {EMB_BATCH}x{T} L={L}"))
+        del t, got, want
+    log(f"  {cfg.name}: the bag past the end is NaN, the wrapped id agrees")
+    return max(errs)
+
+
+def dlrm_reference_check(torch, cfg_mod, build_model, dev):
+    """rm2 at 4096 rows per table in float32: one forward of 256 samples on
+    the card and on the CPU from the same weights and batch, BatchedTable
+    and SingleTable."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticRecSysDataset
+
+    cfg = dataclasses.replace(cfg_mod.get_config("rm2"), num_embeddings=4096)
+    params_cpu = build_model(cfg, device="cpu").init(0)
+    batch = SyntheticRecSysDataset(cfg, 256).batch_at(0)
+    for use_batched in (True, False):
+        logits = {}
+        for d in ("cpu", dev):
+            model = build_model(cfg, device=d, use_batched=use_batched)
+            logits[str(d)] = model.forward(
+                to_device(params_cpu, d),
+                {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            ).cpu()
+        compare(torch, logits[str(dev)], logits["cpu"], 1e-4,
+                f"rm2 4096 rows use_batched={use_batched}: logits card vs CPU")
+
+
+def dlrm_inference(torch, emb_api, dev):
+    """The recsys_e2e sweep at full width; returns the embedding kernel's
+    launch count over it, which must equal the BatchedTable forwards."""
+    from repro_torch.bench import recsys_e2e
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    emb_api.embedding_bag.launches = 0
+    t0 = time.perf_counter()
+    rows = recsys_e2e.run(dev)
+    torch.cuda.synchronize()
+    launches = emb_api.embedding_bag.launches
+    wall = time.perf_counter() - t0
+    forwards = sum(r["calls"] for r in rows if r["use_batched"])
+    log(f"  sweep wall {wall:.2f}s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel "
+        f"launches {launches} = BatchedTable forwards {forwards}")
+    ms = {(r["arch"], r["batch"], r["use_batched"]): r["ms"] for r in rows}
+    for arch, batch, _ in sorted(k for k in ms if k[2]):
+        single, batched = ms[arch, batch, False], ms[arch, batch, True]
+        log(f"  {arch} B={batch:5d}: SingleTable {single:.4f} ms  "
+            f"BatchedTable {batched:.4f} ms  speedup {single / batched:.2f}x")
+    for r in rows:
+        if not r["finite"] or r["shape"] != (r["batch"],):
+            raise AssertionError(f"{r['name']}: logits {r['shape']}, "
+                                 f"finite={r['finite']}")
+    if launches != forwards or launches == 0:
+        raise AssertionError(f"embedding kernel launches {launches} != "
+                             f"BatchedTable forwards {forwards}")
+    return launches
+
+
+def embedding_times(torch, cfg, build_model, emb_api, emb_lib, dev, card):
+    """Times of the embedding kernel on the main path's B = 4096 inputs (the
+    same seeded weights and batch as phase 10): the kernel through its C
+    entry point, the plain version, ``F.embedding_bag`` (the yardstick),
+    and the bound; then a profile of the whole forward on those inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.data.pipeline import SyntheticRecSysDataset
+
+    params = build_model(cfg, device=dev).init(0)
+    table, offs = params["embedding"], params["table_offsets"]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticRecSysDataset(cfg, EMB_BATCH).batch_at(0).items()}
+    idx = batch["indices"]
+    B, T, L = idx.shape
+    R, D = table.shape
+    gids = (idx + offs[None, :, None]).reshape(-1)
+    out = torch.empty((B * T, D), dtype=table.dtype, device=dev)
+    argv = (table.data_ptr(), gids.data_ptr(), out.data_ptr(), B * T, L, D, R,
+            0, torch.cuda.current_stream().cuda_stream)
+    ms = events_ms(torch, lambda: launch_ok(emb_lib.batched_embedding(*argv)),
+                   100, warmup=3)
+    want = emb_api.batched_table_lookup(table, offs, idx)
+    err = compare(torch, out.view(B, T, D), want, 1e-5,
+                  f"{cfg.name} f32 B={B} (main-path inputs)")
+    plain_ms = events_ms(
+        torch, lambda: emb_api.batched_table_lookup(table, offs, idx), 5)
+    bags = gids.view(-1, L)
+    library = F.embedding_bag(bags, table, mode="sum")
+    compare(torch, library.view(B, T, D), want, 1e-4,
+            f"{cfg.name} F.embedding_bag (yardstick) vs plain")
+    library_ms = events_ms(
+        torch, lambda: F.embedding_bag(bags, table, mode="sum"), 20)
+    rows = torch.unique(gids).numel()
+    elt = table.element_size()
+    nbytes = rows * D * elt + 4 * gids.numel() + B * T * D * elt
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = B * T * L * D / PEAK_OPS[str(table.dtype)]
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    log(f"  {cfg.name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"F.embedding_bag {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+        f"({rows} distinct rows of {gids.numel()}, {nbytes / 1e6:.1f} MB) "
+        f"-> {bound_ms / ms:.1%} of bound  [{card}]")
+    model = build_model(cfg, device=dev)
+    model.forward(params, batch)
+    profile_calls(torch, lambda: model.forward(params, batch), 5,
+                  f"{cfg.name} BatchedTable forwards at B={EMB_BATCH}",
+                  "forward")
+    del params
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms)
 
 
 def _leaves(tree):

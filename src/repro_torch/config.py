@@ -1,15 +1,16 @@
-"""Configuration for the port: models, attention and serving.
+"""Configuration for the port: models, attention, serving and DLRM.
 
-A copy of the fields of ``repro.config`` that the serving slice reads, with
-the same names and defaults, so configs and ``ServeConfig``s translate one
-to one.  Configs register under their ``--arch`` id via :func:`register`.
+A copy of the fields of ``repro.config`` that the port reads, with the same
+names and defaults, so configs and ``ServeConfig``s translate one to one.
+Configs register under their ``--arch`` id via :func:`register`.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
+RECSYS = "recsys"
 
 @dataclass(frozen=True)
 class AttentionConfig:
@@ -75,6 +76,37 @@ class ServeConfig:
     devices: int = 0
     roles: str = ""
     host_blocks: int = 0
+
+
+@dataclass(frozen=True)
+class DLRMConfig:
+    """DLRM-DCNv2 config (paper Table 3, RM1/RM2)."""
+
+    name: str
+    num_tables: int
+    num_embeddings: int            # rows per table
+    embedding_dim: int             # vector width (bytes swept in benchmarks)
+    gathers_per_table: int         # pooling factor (bag size)
+    bottom_mlp: Tuple[int, ...]
+    top_mlp: Tuple[int, ...]
+    cross_rank: int                # DCNv2 low-rank dim
+    cross_layers: int
+    dense_features: int = 13
+    family: str = RECSYS
+
+    def num_params(self) -> int:
+        emb = self.num_tables * self.num_embeddings * self.embedding_dim
+        mlp = 0
+        dims = (self.dense_features,) + self.bottom_mlp
+        for a, b in zip(dims[:-1], dims[1:]):
+            mlp += a * b + b
+        # DCNv2 interaction input: concat([bottom_out, emb_1..emb_T])
+        inter_in = self.bottom_mlp[-1] + self.num_tables * self.embedding_dim
+        dims = (inter_in,) + self.top_mlp
+        for a, b in zip(dims[:-1], dims[1:]):
+            mlp += a * b + b
+        cross = self.cross_layers * 2 * inter_in * self.cross_rank
+        return emb + mlp + cross
 
 
 _REGISTRY: Dict[str, Any] = {}

@@ -1,2 +1,2 @@
 """Architecture registry of the port (importing registers every config)."""
-from repro_torch.configs import smollm_360m  # noqa: F401
+from repro_torch.configs import rm1, rm2, smollm_360m  # noqa: F401

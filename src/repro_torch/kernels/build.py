@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles, for ``sm_90a``, into a shared library with
 a plain C interface: ``build/kernels/<name>-<hash>.so`` at the repo root,
 where ``<hash>`` covers the source and the flags, so a changed source
 rebuilds and an unchanged one is a cache hit.  Nothing is compiled when a
-module is imported: :func:`load` builds at first use, and :func:`build`
-returns the compile time and log (``chip_smoke.py`` prints them).
+module is imported: :func:`load` builds at first use, and :func:`build_all`
+starts one ``nvcc`` per source at once and returns each compile time and
+log (``chip_smoke.py`` prints them).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,28 +38,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> dict:
-    """Build ``csrc/<name>.cu`` unless its library is already cached.
+def build_all(names: Sequence[str]) -> Dict[str, dict]:
+    """Build every ``csrc/<name>.cu`` of ``names`` whose library is not
+    cached, one ``nvcc`` per source, all started together.
 
-    Returns ``{"cache_hit", "seconds", "log"}``; ``log`` is what ``nvcc``
-    printed (``-Xptxas -v``: registers, shared memory, spills).  Raises
-    ``RuntimeError`` with the compiler output if the build fails.
+    Returns ``{name: {"cache_hit", "seconds", "log"}}``: ``seconds`` from
+    the start of the parallel build until that source's ``nvcc`` was
+    collected (in the order of ``names``), and ``log`` what ``nvcc``
+    printed (``-Xptxas -v``: registers, shared memory, spills).
+    Raises ``RuntimeError`` with the compiler output if a build fails.
     """
-    lib = library_path(name)
-    if lib.exists():
-        return {"cache_hit": True, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    out: Dict[str, dict] = {}
+    running = {}
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, lib)
-    return {"cache_hit": False, "seconds": time.perf_counter() - t0,
-            "log": proc.stdout}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            out[name] = {"cache_hit": True, "seconds": 0.0, "log": ""}
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        running[name] = (lib, tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (lib, tmp, proc) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = {"cache_hit": False, "seconds": time.perf_counter() - t0,
+                     "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def build(name: str) -> dict:
+    """Build ``csrc/<name>.cu`` unless its library is already cached (see
+    :func:`build_all`)."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -43,6 +43,8 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import repro_torch.serving.engine, repro_torch.launch.serve
 import repro_torch.models.bridge, repro_torch.kernels.build
+import repro_torch.bench.recsys_e2e, repro_torch.bench.embedding_tables
+import repro_torch.kernels.batched_embedding
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """
@@ -69,6 +71,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(model, params, cfg, ServeConfig(model=cfg.name),
                       num_blocks=8)
+
+
+def test_dlrm_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.bench import embedding_tables, recsys_e2e
+    from repro_torch.models.api import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("rm1", "rm2"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(arch)
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model(arch, use_batched=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        recsys_e2e.main(["--rows", "64"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        embedding_tables.main([])
+    assert build_model("rm2", device="cpu").device.type == "cpu"
 
 
 def _run_smoke(cwd):

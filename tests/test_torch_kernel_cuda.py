@@ -1,14 +1,16 @@
-"""The hand-written CUDA ragged paged-attention kernel against its plain
-PyTorch version, on the card.  Marked ``cuda``: without a card with
-``nvcc`` these skip.  No JAX here, so the file also runs on a machine
-that has none:
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card: ragged paged attention and the BatchedTable embedding bag.
+Marked ``cuda``: without a card with ``nvcc`` these skip.  No JAX here, so
+the file also runs on a machine that has none:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernel_cuda.py
 
-Tolerances: float32 atol 2e-5 (the kernel's online softmax sums in
-another order than the plain version's one-pass softmax); bfloat16 atol
+Tolerances, attention: float32 atol 2e-5 (the kernel's online softmax sums
+in another order than the plain version's one-pass softmax); bfloat16 atol
 2e-2 (the plain version rounds scores to bfloat16, the kernel keeps them
-in float32).
+in float32).  Embedding bag: float32 atol 1e-5 and bfloat16 atol 2e-2
+(both sum in float32 in the order of the bag; the bound is for the card's
+rounding of the last bf16 digit).
 """
 import os
 import shutil
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.core import attention_api as api
+from repro_torch.core import embedding_api as emb_api
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.cases import (
     ARG_ORDER, SMALL, SMALL_CASES, ragged_case)
@@ -82,3 +85,102 @@ def test_kernel_refuses_bad_inputs(card):
                                       *args[2:])
     with pytest.raises(ValueError):
         api.paged_attention_ragged_op(args[0], args[1].cpu(), *args[2:])
+
+
+# (rows per table, D, B, T, L): RM1's and RM2's widths at small R, the
+# embedding sweep's narrowest and widest rows, one id per bag, and the
+# kernel's narrowest row (16 bytes: bf16 D=8) and widest (2048 bytes: f32
+# D=512).
+EMB_CASES = [(1000, 128, 64, 10, 10), (1000, 64, 64, 20, 20),
+             (512, 16, 8, 4, 20), (512, 256, 8, 4, 20), (100, 128, 3, 2, 1),
+             (64, 8, 8, 2, 5), (64, 512, 4, 2, 3)]
+EMB_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
+
+
+def _emb_inputs(dev, R, D, B, T, L, dtype, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tbl = torch.randn((R * T, D), generator=gen, device=dev).to(dtype)
+    offs = torch.arange(T, dtype=torch.int32, device=dev) * R
+    idx = torch.randint(0, R, (B, T, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return tbl, offs, idx
+
+
+def _emb_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,atol", EMB_DTYPES)
+@pytest.mark.parametrize("case", EMB_CASES)
+def test_embedding_kernel_matches_plain_version(card, case, dtype, atol):
+    tbl, offs, idx = _emb_inputs(card, *case, dtype)
+    if idx.shape[2] > 2:
+        idx[:, :, 2] = idx[:, :, 0]            # a duplicate id in each bag
+    before = emb_api.embedding_bag.launches
+    got = emb_api.embedding_bag(tbl, offs, idx)
+    torch.cuda.synchronize()
+    assert emb_api.embedding_bag.launches == before + 1
+    assert got.dtype == dtype and got.shape == (*idx.shape[:2], tbl.shape[1])
+    want = emb_api.batched_table_lookup(tbl, offs, idx)
+    assert _emb_err(got, want) <= atol
+
+
+@pytest.mark.parametrize("dtype,atol", EMB_DTYPES)
+def test_embedding_kernel_out_of_range_ids(card, dtype, atol):
+    R, D, B, T, L = 50, 64, 6, 3, 4
+    tbl, offs, idx = _emb_inputs(card, R, D, B, T, L, dtype, seed=1)
+    Rt = R * T
+    idx[0, 0, 1] = Rt                   # past the end: NaN
+    idx[1, 2, 0] = -2 * R - 1           # global -1: the last row
+    idx[2, 0, 3] = -Rt                  # global -Rt: row 0
+    idx[3, 1, 2] = -Rt - R - 1          # below -Rt: NaN
+    idx[4, 2, 0] = 2 ** 31 - 1 - 2 * R  # the largest id: NaN
+    got = emb_api.embedding_bag(tbl, offs, idx)
+    want = emb_api.batched_table_lookup(tbl, offs, idx)
+    torch.cuda.synchronize()
+    nan = torch.isnan(got).all(dim=-1)
+    assert torch.equal(nan, torch.isnan(want).all(dim=-1))
+    assert torch.equal(torch.isnan(got).any(dim=-1), nan)
+    assert sorted(map(tuple, nan.nonzero().tolist())) == [
+        (0, 0), (3, 1), (4, 2)]
+    assert _emb_err(got[~nan], want[~nan]) <= atol
+
+
+def test_embedding_kernel_addresses_past_2_31_bytes(card):
+    """A 9 M x 64 float32 table (2.3 GB): ids near its top read the right
+    rows, which a 32-bit row offset would not."""
+    R, D, B, L = 9_000_000, 64, 64, 20
+    tbl = torch.empty((R, D), device=card)
+    tbl[:R // 2] = 1.0
+    tbl[R // 2:] = torch.arange(R - R // 2, device=card,
+                                dtype=torch.float32)[:, None] / R
+    gen = torch.Generator(device=card)
+    gen.manual_seed(2)
+    idx = torch.randint(R - 100_000, R, (B, 1, L), generator=gen,
+                        device=card, dtype=torch.int32)
+    offs = torch.zeros((1,), dtype=torch.int32, device=card)
+    got = emb_api.embedding_bag(tbl, offs, idx)
+    want = emb_api.batched_table_lookup(tbl, offs, idx)
+    torch.cuda.synchronize()
+    assert _emb_err(got, want) <= 1e-5
+    direct = tbl[idx.long().view(-1)].view(B, 1, L, D).sum(dim=2)
+    assert _emb_err(got, direct) <= 1e-4
+    assert (got > 1.0).all()            # no row of the lower half was read
+
+
+def test_embedding_kernel_refuses_bad_inputs(card):
+    tbl, offs, idx = _emb_inputs(card, 10, 64, 2, 3, 4, torch.float32)
+    with pytest.raises(TypeError):
+        emb_api.embedding_bag(tbl, offs, idx.long())
+    with pytest.raises(TypeError):
+        emb_api.embedding_bag(tbl.half(), offs, idx)
+    with pytest.raises(ValueError):
+        emb_api.embedding_bag(tbl, offs, idx.cpu())
+    with pytest.raises(ValueError):                 # 24-byte rows
+        emb_api.embedding_bag(tbl[:, :6].contiguous(), offs, idx)
+    with pytest.raises(ValueError):                 # 4096-byte rows
+        emb_api.embedding_bag(tbl.repeat(1, 16), offs, idx)
+    flat = torch.zeros(30 * 64 + 1, device=card)
+    with pytest.raises(ValueError):                 # 4-byte aligned only
+        emb_api.embedding_bag(flat[1:].view(30, 64), offs, idx)
