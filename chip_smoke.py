@@ -5,7 +5,8 @@ H100: ``python3 chip_smoke.py`` from the repo root.
 Phases, each of which raises on failure (the script catches none):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build the four CUDA sources of ``src/repro_torch/kernels/csrc`` with
+   nvcc, one process per source, all started together;
 3. the ragged paged-attention kernel against its plain PyTorch version at
    smollm-360m's widths (H=15, KV=5, hd=64, BS=16) on mixed prefill+decode
    lanes with padding lanes and empty entries: float32 (atol 2e-5) and
@@ -44,6 +45,41 @@ Phases, each of which raises on failure (the script catches none):
    version, ``F.embedding_bag`` on the same inputs (timed as a yardstick,
    never used by the port) and the bound (the distinct rows gathered, the
    ids and the output at 3.35 TB/s).
+12. the chunked paged-attention kernel against its plain version at
+   smollm-360m's widths: owners interleaved within a tile, an empty
+   request, runs longer than a tile, padding lanes, the pool given as the
+   fused pool's strided views, ``q_chunk`` 16 and 4, ``prefetch_depth`` 0
+   and 2: float32 (atol 2e-5) and bfloat16 (atol 2e-2); then phase 3's
+   lanes through the chunked and the ragged kernel, which must agree
+   bitwise (the max difference is printed where they do not);
+13. the decode kernel against ``paged_attention_opt`` (plain) at the same
+   widths, with a request that has no entry (it must read 0), padding
+   entries, and a sorted and a shuffled BlockList; same tolerances;
+14. a small-input reference: reduced smollm-360m in float32, card against
+   CPU: the chunked engine's greedy streams are identical on both and to
+   phase 4's ragged streams; ``decode_step_paged`` logits on the card
+   match the CPU (atol 1e-3) and the card's ``forward`` (atol 3e-3);
+15. serving with ``attn_impl="chunked"``: phase 5's 16 requests at full
+   width.  The greedy streams must equal phase 5's, the chunked kernel's
+   launch count steps x 32, and the pool must drain.  Layer 0's inputs of
+   one mixed and one decode-only step are captured.  Then the workload
+   runs four more times, ragged and chunked in turns, for their TPOT;
+16. the paper path at full width: ``decode_step_paged`` over split pools
+   for 16 requests, 128 prompt tokens fed one per step, then 32 greedy
+   tokens; the decode kernel's launch count must be steps x 32.  Per-step
+   ms; layer 0's inputs of the last step are captured;
+17. ``repro_torch.bench.paged_attention_bench`` at the reference's full
+   sizes (paper Fig 17 a-c): base, opt-plain and opt-kernel ms and the
+   bytes ratio per padding fraction and per batch, the chunked kernel's
+   us per token per chunk, and chunked against ragged on the fused-pool
+   workloads;
+18. the chunked and decode kernels' times on the inputs captured in
+   phases 15 and 16 (CUDA events over back-to-back launches) beside their
+   plain versions and their bounds (the K/V rows the owners hold, q, out
+   and the lists at 3.35 TB/s, or operations at the dtype's peak).
+
+Each path (phases 5, 10, 15, 16) runs with every kernel's launch count set
+to 0 just before it and read just after.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
@@ -65,6 +101,27 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 KERNEL = "paged_attention_ragged"
 EMB_KERNEL = "batched_embedding"
+CHUNKED_KERNEL = "paged_attention_chunked"
+DECODE_KERNEL = "paged_attention_decode"
+SOURCES = [KERNEL, CHUNKED_KERNEL, DECODE_KERNEL, EMB_KERNEL]
+PAPER_PROMPT, PAPER_NEW = 128, 32
+FULL_WIDTHS = dict(num_heads=15, num_kv=5, head_dim=64, block_size=16,
+                   num_blocks=256)
+RAGGED_CASE = dict(seqs=[(3, 1, 300), (0, 37, 37), (5, 1, 17),
+                         (1, 120, 250), (2, 1, 1), (4, 64, 700), (8, 0, 0),
+                         (8, 0, 0)],
+                   num_lanes=256, num_entries=160, shuffle=True)
+# owners interleaved in a tile, an empty request (slot 2), runs longer than
+# a tile, padding lanes (owner 6)
+CHUNKED_CASE = dict(kv_lens=[300, 37, 0, 250, 17, 700],
+                    lanes=[(0, 299), (3, 130), (0, 298), (4, 16), (2, 0),
+                           (5, 650)] + [(1, p) for p in range(37)]
+                    + [(3, p) for p in range(130, 250)]
+                    + [(5, p) for p in range(636, 700)] + [(6, 0)] * 16,
+                    num_entries=160, shuffle=True)
+DECODE_CASE = dict(seq_lens=[300, 1, 0, 250, 16, 17, 700, 33],
+                   num_entries=160)
+DTYPES = (("float32", 2e-5), ("bfloat16", 2e-2))
 EMB_BATCH = 4096
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 
@@ -98,18 +155,32 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-class Capture:
-    """Clone layer 0's attention inputs (and output) for the first mixed
-    and the first decode-only step the engine runs."""
+def _clone(t):
+    """A copy with the same strides (a split view of the fused pool stays
+    strided, so a timed kernel reads memory as it did in the run)."""
+    if t.is_contiguous():
+        return t.clone()
+    c = t.new_empty_strided(t.size(), t.stride())
+    return c.copy_(t)
 
-    def __init__(self, engine, api):
-        self.engine, self.api = engine, api
+
+class Capture:
+    """Clone layer 0's inputs, keyword arguments and output of the op
+    ``api.<attr>``: for the first mixed and the first decode-only step the
+    engine runs (``engine`` given), or for a call armed by :meth:`arm`."""
+
+    def __init__(self, api, attr, engine=None):
+        self.api, self.attr, self.engine = api, attr, engine
         self.want = None
         self.got = {}
-        self._render = engine._render
-        self._op = api.paged_attention_ragged_op
-        engine._render = self.render
-        api.paged_attention_ragged_op = self.op
+        self._op = getattr(api, attr)
+        setattr(api, attr, self.op)
+        if engine is not None:
+            self._render = engine._render
+            engine._render = self.render
+
+    def arm(self, kind):
+        self.want = kind
 
     def render(self, plan):
         kind = ("mixed" if plan.decode and plan.prefill else
@@ -120,16 +191,25 @@ class Capture:
     def op(self, *args, **kw):
         out = self._op(*args, **kw)
         if self.want is not None:
-            self.got[self.want] = ([a.clone() for a in args], out.clone())
+            self.got[self.want] = ([_clone(a) for a in args], dict(kw),
+                                   out.clone())
             self.want = None
         return out
 
     def close(self):
-        self.engine._render = self._render
-        self.api.paged_attention_ragged_op = self._op
+        if self.engine is not None:
+            self.engine._render = self._render
+        setattr(self.api, self.attr, self._op)
 
 
-def bound(inputs, torch):
+def reset_counts(counted):
+    """Every kernel wrapper's launch count to 0 (``counted`` holds the
+    wrappers themselves: a Capture puts a function in their place)."""
+    for op in counted:
+        op.launches = 0
+
+
+def ragged_bound(torch, inputs):
     """(bound_ms, bound_by) of one ragged call: the K/V rows of the keys
     each live sequence holds (``kv_len`` rows, not whole pages) + q of the
     real lanes + out + the int32 lists, over HBM rate, against 4*hd
@@ -150,30 +230,61 @@ def bound(inputs, torch):
         keys += int(nq * first + nq * (nq - 1) // 2)
     nbytes = (rows * KV2 * HD * elt + int(cu_q[-1]) * H * HD * elt
               + T * H * HD * elt + 4 * (3 * len(bl) + 3 * S + 2))
-    ops = 4 * HD * H * keys
+    return roofline(nbytes, 4 * HD * H * keys, q.dtype)
+
+
+def roofline(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the dtype's peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[str(q.dtype)]
+    t_ops = ops / PEAK_OPS[str(dtype)]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def time_kernel_ms(torch, api, kernel_lib, inputs, reps=50):
-    """Device time per call of the two kernels behind the wrapper,
-    launched back to back through the C entry point."""
-    q, pool, bl, br, bp, cu_q, cu_kv, ss = inputs
+def chunked_bound(torch, inputs):
+    """(bound_ms, bound_by) of one chunked call: the K/V rows each owner
+    of a real lane holds, q of the real lanes, out of all lanes and the
+    int32 lists, against 4*hd operations per (head, valid key) pair."""
+    q, pk, _, bl, _, _, kv_lens, treq, tpos = inputs
     T, H, HD = q.shape
-    NB, BS, KV2, _ = pool.shape
-    Tb, S = bl.shape[0], ss.shape[0]
-    out = torch.empty_like(q)
-    scratch = torch.empty((api.ragged_scratch_ints(S, Tb),),
-                          dtype=torch.int32, device=q.device)
-    fn = kernel_lib.paged_attention_ragged
-    argv = (q.data_ptr(), pool.data_ptr(), out.data_ptr(), bl.data_ptr(),
-            br.data_ptr(), bp.data_ptr(), cu_q.data_ptr(), cu_kv.data_ptr(),
-            ss.data_ptr(), scratch.data_ptr(), T, H, KV2 // 2, HD, NB, BS, Tb,
-            S, 0 if q.dtype == torch.float32 else 1, HD ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
-    return events_ms(torch, lambda: launch_ok(fn(*argv)), reps, warmup=3)
+    KV = pk.shape[2]
+    import numpy as np
+
+    kvl = kv_lens.cpu().numpy().astype(np.int64)
+    treq, tpos = treq.cpu().numpy(), tpos.cpu().numpy().astype(np.int64)
+    real = (treq >= 0) & (treq < len(kvl))
+    owners = np.unique(treq[real])
+    rows = int(kvl[owners].sum())
+    keys = int(np.minimum(tpos[real] + 1, kvl[treq[real]]).clip(0).sum())
+    elt = q.element_size()
+    nbytes = (rows * 2 * KV * HD * elt + int(real.sum()) * H * HD * elt
+              + T * H * HD * elt + 4 * (3 * len(bl) + len(kvl) + 2 * T))
+    return roofline(nbytes, 4 * HD * H * keys, q.dtype)
+
+
+def decode_bound(torch, inputs):
+    """(bound_ms, bound_by) of one decode call: each request's K/V rows, q,
+    out and the int32 lists, against 4*hd operations per (head, key)."""
+    q, pk, _, bl, _, _, seq_lens = inputs
+    B, H, HD = q.shape
+    KV = pk.shape[2]
+    rows = int(seq_lens.clamp_min(0).sum().item())
+    elt = q.element_size()
+    nbytes = (rows * 2 * KV * HD * elt + 2 * B * H * HD * elt
+              + 4 * (3 * len(bl) + B))
+    return roofline(nbytes, 4 * HD * H * rows, q.dtype)
+
+
+def time_kernel_ms(op, inputs, kw=None, reps=50):
+    """Device time per call of the kernels behind the wrapper ``op``,
+    launched back to back through the C entry point (the wrapper's checks
+    and allocations run once, outside the timed launches)."""
+    import torch
+
+    launch = op.prepare(*inputs, **(kw or {}))
+    return events_ms(torch, lambda: launch_ok(launch.fn(*launch.argv)),
+                     reps, warmup=3)
 
 
 def launch_ok(err):
@@ -196,16 +307,14 @@ def events_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def time_plain_ms(torch, api, inputs, reps=3):
-    return events_ms(torch, lambda: api.paged_attention_ragged(*inputs), reps)
-
-
-def reference_check(torch, np, cfg_mod, build_model, engine_mod):
+def reference_check(torch, np, cfg_mod, build_model, engine_mod,
+                    attn_impl="ragged"):
     """Reduced float32 smollm-360m on the card and on the CPU: one fused
-    step's logits on the same rendered lists, and whole greedy streams."""
+    step's logits on the same rendered lists, and whole greedy streams
+    (returned)."""
     cfg = cfg_mod.get_config("smollm-360m").reduced(dtype="float32")
     serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=4, max_batch=4,
-                                prefill_chunk=16)
+                                prefill_chunk=16, attn_impl=attn_impl)
     params_cpu = build_model(cfg, device="cpu").init(0)
 
     def engine(dev):
@@ -229,19 +338,352 @@ def reference_check(torch, np, cfg_mod, build_model, engine_mod):
         logits[dev], _ = eng.model.decode_tokens_paged(
             eng.params, eng.pools,
             {k: torch.from_numpy(v).to(dev) for k, v in lists.items()},
-            torch.from_numpy(tokens).to(dev))
+            torch.from_numpy(tokens).to(dev), attn_impl=attn_impl)
         eng = engine(dev)
         eng.run_until_done()
         streams[dev] = {r.req_id: list(r.output) for r in eng.finished}
     err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
-    log(f"  reduced f32 fused step, card vs CPU: logits max_abs_err "
-        f"{err:.3e} (atol 1e-3)")
+    log(f"  reduced f32 fused step ({attn_impl}), card vs CPU: logits "
+        f"max_abs_err {err:.3e} (atol 1e-3)")
     if not err <= 1e-3:
         raise AssertionError(f"card logits disagree with the CPU: {err}")
     if streams["cuda"] != streams["cpu"]:
         raise AssertionError(f"greedy streams differ: {streams}")
     log(f"  greedy streams identical on card and CPU "
         f"({len(streams['cuda'])} requests x 8 tokens)")
+    return streams["cuda"]
+
+
+def step_lists(torch, alloc, n, max_total, dev):
+    """The paper path's per-step lists for requests ``0..n-1``: the next
+    token's slots (reserved) and the flat BlockList, on ``dev``."""
+    slots = alloc.write_slots(list(range(n)))
+    bl, br, bp, lens = alloc.build_block_list(list(range(n)), max_total)
+    return {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        block_list=bl, block_req=br, block_pos=bp, seq_lens=lens,
+        slots=slots).items()}
+
+
+def paper_reference_check(torch, np, cfg_mod, build_model, dev):
+    """Reduced float32 smollm-360m: decode_step_paged over 12 tokens of 2
+    requests on the card and on the CPU, and the card's forward."""
+    from repro_torch.core.paged_kv import BlockAllocator, make_pool
+
+    cfg = cfg_mod.get_config("smollm-360m").reduced(dtype="float32")
+    a = cfg.attention
+    params_cpu = build_model(cfg, device="cpu").init(0)
+    B, S, BS = 2, 12, 4
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S),
+                                             dtype=np.int32)
+    logits = {}
+    for d in ("cpu", dev):
+        model = build_model(cfg, device=d)
+        params = to_device(params_cpu, d)
+        pk, pv = make_pool(cfg.num_layers, 16, BS, a.num_kv_heads,
+                           a.head_dim, torch.float32, d)
+        pools = {"k": pk, "v": pv}
+        alloc = BlockAllocator(num_blocks=16, block_size=BS)
+        for r in range(B):
+            alloc.allocate(r, 0)
+        outs = []
+        for t in range(S):
+            lists = step_lists(torch, alloc, B, 8, d)
+            lg, pools = model.decode_step_paged(
+                params, pools, lists, torch.from_numpy(toks[:, t]).to(d),
+                num_lanes=B)
+            outs.append(lg)
+            for r in range(B):
+                alloc.commit_token(r)
+        logits[str(d)] = torch.stack(outs, 1).cpu()
+    fwd, _ = model.forward(params, torch.from_numpy(toks).to(dev))
+    compare(torch, logits[str(dev)], logits["cpu"], 1e-3,
+            "reduced f32 decode_step_paged logits, card vs CPU")
+    compare(torch, logits[str(dev)], fwd.cpu(), 3e-3,
+            "reduced f32 decode_step_paged vs forward on the card")
+
+
+def chunked_check(torch, np, api, ragged_case, dev):
+    """Phase 12; returns (largest error against the plain version, largest
+    difference from the ragged kernel on phase 3's lanes)."""
+    from repro_torch.core.paged_kv import fused_kv_views
+    from repro_torch.kernels.paged_attention.cases import (
+        ARG_ORDER, CHUNKED_ARG_ORDER, chunked_case)
+
+    c = chunked_case(np.random.default_rng(0), **FULL_WIDTHS,
+                     **CHUNKED_CASE)
+    kvl = np.append(c["kv_lens"], 0)
+    dead = torch.from_numpy(
+        kvl[np.minimum(c["token_req"], len(c["kv_lens"]))] == 0).to(dev)
+    errs = []
+    for name, atol in DTYPES:
+        dtype = getattr(torch, name)
+        q = torch.from_numpy(c["q"]).to(dev, dtype)
+        pool = torch.from_numpy(c["kv_pool"]).to(dev, dtype)
+        args = [q, *fused_kv_views(pool),
+                *[torch.from_numpy(c[k]).to(dev) for k in CHUNKED_ARG_ORDER]]
+        want = api.paged_attention_chunked(*args)
+        outs = []
+        for q_chunk, depth in ((16, 0), (16, 2), (4, 2)):
+            got = api.paged_attention_chunked_op(*args, q_chunk=q_chunk,
+                                                 prefetch_depth=depth)
+            torch.cuda.synchronize()
+            errs.append(compare(
+                torch, got, want, atol,
+                f"{name} T={q.shape[0]} B={len(c['kv_lens'])} "
+                f"Tb={len(c['block_list'])} q_chunk={q_chunk} "
+                f"prefetch_depth={depth}"))
+            if torch.any(got[dead] != 0):
+                raise AssertionError("padding lanes and the empty request "
+                                     "must read 0")
+            outs.append(got)
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError("q_chunk or prefetch_depth changed the "
+                                 "result")
+    log("  padding lanes and the empty request read 0; q_chunk and "
+        "prefetch_depth change no bit of the result")
+    c = ragged_case(np.random.default_rng(0), **FULL_WIDTHS, **RAGGED_CASE)
+    diffs = []
+    for name, _ in DTYPES:
+        dtype = getattr(torch, name)
+        args = [torch.from_numpy(c[k]).to(dev) for k in ARG_ORDER]
+        args[:2] = [a.to(dtype) for a in args[:2]]
+        q, pool, bl, br, bp, cu_q, cu_kv, ss = args
+        ragged = api.paged_attention_ragged_op(*args)
+        treq, tpos, kvl = api.ragged_lane_metadata(cu_q, cu_kv, ss,
+                                                   q.shape[0], ss.shape[0])
+        chunked = api.paged_attention_chunked_op(q, *fused_kv_views(pool),
+                                                 bl, br, bp, kvl, treq, tpos)
+        torch.cuda.synchronize()
+        diff = (chunked.float() - ragged.float()).abs().max().item()
+        log(f"  {name} phase-3 lanes, chunked vs ragged kernel: "
+            + ("bitwise equal" if torch.equal(chunked, ragged) else
+               f"NOT bitwise equal, max_abs_diff {diff:.3e}"))
+        diffs.append(diff)
+    return max(errs), max(diffs)
+
+
+def decode_check(torch, np, api, dev):
+    """Phase 13; returns the largest error against the plain version."""
+    from repro_torch.kernels.paged_attention.cases import (
+        DECODE_ARG_ORDER, decode_case)
+
+    errs = []
+    for shuffle in (False, True):
+        c = decode_case(np.random.default_rng(1), **FULL_WIDTHS,
+                        **DECODE_CASE, shuffle=shuffle)
+        empty = torch.from_numpy(c["seq_lens"] == 0).to(dev)
+        for name, atol in DTYPES:
+            args = [torch.from_numpy(c[k]).to(dev) for k in DECODE_ARG_ORDER]
+            args[:3] = [a.to(getattr(torch, name)) for a in args[:3]]
+            got = api.paged_attention_op(*args)
+            torch.cuda.synchronize()
+            order = "shuffled" if shuffle else "sorted"
+            errs.append(compare(
+                torch, got, api.paged_attention_opt(*args), atol,
+                f"{name} B={len(c['seq_lens'])} Tb={len(c['block_list'])} "
+                f"{order} BlockList"))
+            if torch.any(got[empty] != 0):
+                raise AssertionError("a request with no entry must read 0")
+            q, pk, pv, bl, br, bp, lens = args
+            chunked = api.paged_attention_chunked_op(
+                q, pk, pv, bl, br, bp, lens,
+                torch.arange(q.shape[0], dtype=torch.int32, device=dev),
+                lens - 1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, chunked):
+                log("    decode vs chunked kernel: NOT bitwise equal, "
+                    f"max_abs_diff "
+                    f"{(got.float() - chunked.float()).abs().max():.3e}")
+    log("  the request with no entry reads 0")
+    return max(errs)
+
+
+def serve_chunked(torch, np, cfg_mod, engine_mod, api, counted, model,
+                  params, cfg, prompts, served, dev):
+    """Phase 15: phase 5's requests through attn_impl="chunked"; returns
+    the chunked kernel's launches and the captured layer-0 inputs."""
+    def engine(attn_impl, num_blocks):
+        serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                    max_batch=SERVE_BATCH,
+                                    attn_impl=attn_impl)
+        return engine_mod.ServingEngine(model, params, cfg, serve,
+                                        num_blocks=num_blocks, device=dev)
+
+    def run(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, p in prompts:
+            eng.submit(engine_mod.Request(req_id=i, prompt=p,
+                                          max_new_tokens=SERVE_NEW))
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    warm = engine("chunked", 256)
+    for i, p in prompts[:2]:
+        warm.submit(engine_mod.Request(req_id=i, prompt=p[:64],
+                                       max_new_tokens=4))
+    warm.run_until_done()
+    del warm
+    chunked = engine("chunked", SERVE_BLOCKS)
+    op = api.paged_attention_chunked_op         # holds the launch count
+    capture = Capture(api, "paged_attention_chunked_op", chunked)
+    reset_counts(counted)
+    wall = run(chunked)
+    launches = op.launches
+    ragged = counted[0].launches
+    capture.close()
+    m = chunked.metrics()
+    log(f"  steps {m['steps']}  output tokens {m['output_tokens']}  wall "
+        f"{wall:.3f}s  output tok/s {m['output_tokens'] / wall:.1f}")
+    log(f"  TTFT p50 {m['p50_ttft_s'] * 1e3:.1f} / p99 "
+        f"{m['p99_ttft_s'] * 1e3:.1f} ms  TPOT p50 "
+        f"{m['p50_tpot_s'] * 1e3:.2f} / p99 {m['p99_tpot_s'] * 1e3:.2f} ms  "
+        f"attn_impl {m['attn_impl']} q_chunk {m['q_chunk']}")
+    log(f"  chunked kernel launches {launches} = steps x layers "
+        f"{m['steps']} x {cfg.num_layers}; ragged launches {ragged}")
+    if launches != m["steps"] * cfg.num_layers or launches == 0 or ragged:
+        raise AssertionError(f"chunked launches {launches} != steps x "
+                             f"layers, or ragged launches {ragged} != 0")
+    streams = {r.req_id: list(r.output) for r in chunked.finished}
+    if streams != served:
+        diff = [i for i in served if streams.get(i) != served[i]]
+        raise AssertionError(f"chunked greedy streams differ from phase "
+                             f"5's ragged run for requests {diff}")
+    log(f"  greedy streams identical to phase 5's ragged run "
+        f"({len(streams)} requests x {SERVE_NEW} tokens)")
+    chunked.alloc.check_invariants(drained=True)
+    log("  allocator invariants hold; pool drained")
+    for kind in ("mixed", "decode"):
+        if kind not in capture.got:
+            raise AssertionError(f"no {kind} step captured")
+    del chunked
+    # the same workload again, ragged and chunked in turns, for TPOT: the
+    # step is host-bound and hosts drift, so only neighbours compare
+    for attn_impl in ("ragged", "chunked", "chunked", "ragged"):
+        eng = engine(attn_impl, SERVE_BLOCKS)
+        wall = run(eng)
+        m = eng.metrics()
+        log(f"  in turns, {attn_impl:7s}: wall {wall:.3f}s  TPOT p50 "
+            f"{m['p50_tpot_s'] * 1e3:.2f} / p99 "
+            f"{m['p99_tpot_s'] * 1e3:.2f} ms  TTFT p50 "
+            f"{m['p50_ttft_s'] * 1e3:.1f} ms")
+        del eng
+    return launches, capture.got
+
+
+def paper_path(torch, np, api, counted, model, params, cfg, dev):
+    """Phase 16: decode_step_paged over split pools; returns the decode
+    kernel's launches and the last step's captured layer-0 inputs."""
+    from repro_torch.core.paged_kv import BlockAllocator, make_pool
+
+    B, BS, a = SERVE_BATCH, SERVE_BS, cfg.attention
+    steps = PAPER_PROMPT + PAPER_NEW - 1   # the last token is not fed back
+    nb = B * -(-steps // BS)
+    pk, pv = make_pool(cfg.num_layers, nb, BS, a.num_kv_heads, a.head_dim,
+                       model.dtype, dev)
+    pools = {"k": pk, "v": pv}
+    alloc = BlockAllocator(num_blocks=nb, block_size=BS)
+    for r in range(B):
+        alloc.allocate(r, 0)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, PAPER_PROMPT), dtype=np.int32)).to(dev)
+    op = api.paged_attention_op                 # holds the launch count
+    capture = Capture(api, "paged_attention_op")
+    generated = []
+    tok = prompt[:, 0]
+    torch.cuda.synchronize()
+    reset_counts(counted)
+    t0 = time.perf_counter()
+    for t in range(steps):
+        if t == steps - 1:
+            capture.arm("decode")
+        lists = step_lists(torch, alloc, B, nb, dev)
+        logits, pools = model.decode_step_paged(params, pools, lists, tok,
+                                                num_lanes=B)
+        for r in range(B):
+            alloc.commit_token(r)
+        if t + 1 < PAPER_PROMPT:
+            tok = prompt[:, t + 1]
+        else:
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            generated.append(tok)
+        if t + 1 == PAPER_PROMPT:
+            torch.cuda.synchronize()
+            t_prompt = time.perf_counter()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = op.launches
+    capture.close()
+    out = torch.stack(generated, 1).cpu()
+    log(f"  {steps} steps: {1e3 * (t_end - t0) / steps:.2f} ms/step; prompt "
+        f"steps {1e3 * (t_prompt - t0) / PAPER_PROMPT:.2f} ms/step, greedy "
+        f"steps {1e3 * (t_end - t_prompt) / (steps - PAPER_PROMPT):.2f} "
+        f"ms/step (host clock, synchronised)")
+    log(f"  decode kernel launches {launches} = steps x layers {steps} x "
+        f"{cfg.num_layers}; {nb}-block split pools, BlockList of {nb}")
+    if launches != steps * cfg.num_layers:
+        raise AssertionError(f"decode launches {launches} != steps x layers")
+    if out.shape != (B, PAPER_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"bad greedy tokens {tuple(out.shape)}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    log(f"  {B} x {PAPER_NEW} greedy tokens in range, logits finite")
+    if "decode" not in capture.got:
+        raise AssertionError("no decode step captured")
+    return launches, capture.got
+
+
+def fig17(torch, dev, card):
+    """Phase 17: the Fig 17 benchmark at the reference's full sizes."""
+    from repro_torch.bench import paged_attention_bench as bench
+
+    t0 = time.perf_counter()
+    rows = bench.run(dev)
+    log(f"  Fig 17 benchmark {time.perf_counter() - t0:.1f}s  [{card}]")
+    if any(r.get("kernel_ms", 0) is None for r in rows):
+        raise AssertionError("a decode kernel time is missing")
+    for r in rows:
+        if "frac" in r:
+            log(f"  pad {r['frac']:.0%}: base {r['base_ms']:.4f} ms  "
+                f"opt-plain {r['opt_ms']:.4f} ms  opt-kernel "
+                f"{r['kernel_ms']:.4f} ms  bytes ratio "
+                f"{r['bytes_ratio']:.2f}  opt-kernel speedup over base "
+                f"{r['base_ms'] / r['kernel_ms']:.2f}x")
+        elif "batch" in r:
+            log(f"  B={r['batch']} S={r['seq']}: base {r['base_ms']:.4f} ms"
+                f"  opt-plain {r['opt_ms']:.4f} ms  opt-kernel "
+                f"{r['kernel_ms']:.4f} ms")
+        elif "chunk" in r:
+            log(f"  chunked C={r['chunk']} ({r['tokens']} tokens): kernel "
+                f"{r['ms']:.4f} ms = {r['us_per_token']:.3f} us/token;"
+                f" plain {r['plain_ms']:.4f} ms")
+        elif "us_fused" in r:
+            log(f"  {r['name']}: ragged {r['us_fused']:.1f} us, chunked "
+                f"{r['us_split']:.1f} us, bitwise {r['bitwise']} "
+                f"(max_abs_diff {r['max_abs_diff']:.3e})")
+
+
+def kernel_times(torch, op, inputs, kw, out_run, bound_ms_by, what, card):
+    """The kernel behind ``op`` on captured inputs: rerun (deterministic,
+    finite), against its plain version (bf16, atol 2e-2), and its time
+    beside the plain version's and the bound."""
+    again = op(*inputs, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(again, out_run):
+        raise AssertionError(f"{what}: kernel is not deterministic")
+    if not torch.isfinite(again).all():
+        raise AssertionError(f"{what}: non-finite attention output")
+    err = compare(torch, again, op.plain(*inputs, **kw), 2e-2, f"bf16 {what}")
+    ms = time_kernel_ms(op, inputs, kw)
+    plain_ms = events_ms(torch, lambda: op.plain(*inputs, **kw), 3)
+    bound_ms, bound_by = bound_ms_by
+    log(f"  {what}: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+        f"{bound_ms:.4f} ms ({bound_by})  -> {bound_ms / ms:.1%} of bound  "
+        f"[{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def main() -> int:
@@ -261,6 +703,9 @@ def main() -> int:
     from repro_torch.models.api import build_model
     from repro_torch.serving import engine as engine_mod
 
+    # the launch counts, held here: a Capture replaces a module attribute
+    counted = (api.paged_attention_ragged_op, api.paged_attention_chunked_op,
+               api.paged_attention_op, emb_api.embedding_bag)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -276,7 +721,7 @@ def main() -> int:
     # 2. build ----------------------------------------------------------------
     log("== 2. build")
     t0 = time.perf_counter()
-    for name, r in build.build_all([KERNEL, EMB_KERNEL]).items():
+    for name, r in build.build_all(SOURCES).items():
         log(f"  {name}: done {r['seconds']:.2f}s into the parallel build, "
             f"cache_hit={r['cache_hit']} "
             f"-> {build.library_path(name).relative_to(ROOT)}")
@@ -287,18 +732,14 @@ def main() -> int:
                 log(f"    {entry.group(1)}:")
             elif "registers" in line or "spill" in line:
                 log(f"      {line.strip()}")
-    kernel_lib = pa_kernel.library()
+    for source in (KERNEL, CHUNKED_KERNEL, DECODE_KERNEL):
+        pa_kernel.library(source)
     emb_lib = emb_kernel.library()
     log(f"  build (parallel) + load {time.perf_counter() - t0:.2f}s")
 
     # 3. kernel vs plain at full width ---------------------------------------
     log("== 3. kernel vs plain, smollm-360m widths, synthetic lanes")
-    full = dict(num_heads=15, num_kv=5, head_dim=64, block_size=16,
-                num_blocks=256)
-    case = dict(seqs=[(3, 1, 300), (0, 37, 37), (5, 1, 17), (1, 120, 250),
-                      (2, 1, 1), (4, 64, 700), (8, 0, 0), (8, 0, 0)],
-                num_lanes=256, num_entries=160, shuffle=True)
-    c = ragged_case(np.random.default_rng(0), **full, **case)
+    c = ragged_case(np.random.default_rng(0), **FULL_WIDTHS, **RAGGED_CASE)
     for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         args = [torch.from_numpy(c[k]).to(dev) for k in ARG_ORDER]
         args[:2] = [a.to(dtype) for a in args[:2]]
@@ -311,7 +752,8 @@ def main() -> int:
 
     # 4. small-input reference: card vs CPU -----------------------------------
     log("== 4. reduced smollm-360m f32: card vs CPU")
-    reference_check(torch, np, cfg_mod, build_model, engine_mod)
+    ragged_streams = reference_check(torch, np, cfg_mod, build_model,
+                                     engine_mod)
 
     # 5. serving at full width --------------------------------------------------
     log("== 5. serving smollm-360m (32 layers, bf16, random weights)")
@@ -348,10 +790,10 @@ def main() -> int:
     reqs = requests(16, 128, 1025, SERVE_NEW)
     log(f"  prompts: {sorted(len(r.prompt) for r in reqs)}")
     kernel_op = api.paged_attention_ragged_op    # holds the launch count
-    capture = Capture(engine, api)
+    capture = Capture(api, "paged_attention_ragged_op", engine)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel_op.launches = 0
+    reset_counts(counted)
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
@@ -387,31 +829,20 @@ def main() -> int:
     for kind in ("mixed", "decode"):
         if kind not in capture.got:
             raise AssertionError(f"no {kind} step captured")
+    served = {r.req_id: list(r.output) for r in engine.finished}
+    prompts = [(r.req_id, r.prompt) for r in reqs]
 
     # 6. captured inputs: kernel vs plain, and times ---------------------------
     log("== 6. layer-0 inputs of real steps: kernel vs plain, times")
     steps = {}
     for kind in ("decode", "mixed"):
-        inputs, out_run = capture.got[kind]
-        again = api.paged_attention_ragged_op(*inputs)
-        torch.cuda.synchronize()
-        if not torch.equal(again, out_run):
-            raise AssertionError(f"{kind}: kernel is not deterministic")
-        if not torch.isfinite(again).all():
-            raise AssertionError(f"{kind}: non-finite attention output")
+        inputs, kw, out_run = capture.got[kind]
         q, _, bl, _, _, cu_q, _, ss = inputs
-        what = (f"{kind} step T={q.shape[0]} real lanes "
-                f"{int(cu_q[-1])} S={ss.shape[0]} Tb={bl.shape[0]}")
-        err = compare(torch, again, api.paged_attention_ragged(*inputs),
-                      2e-2, f"bf16 {what}")
-        ms = time_kernel_ms(torch, api, kernel_lib, inputs)
-        plain_ms = time_plain_ms(torch, api, inputs)
-        bound_ms, bound_by = bound(inputs, torch)
-        log(f"  {kind}: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
-            f"{bound_ms:.4f} ms ({bound_by})  -> {bound_ms / ms:.1%} of "
-            f"bound  [{card}]")
-        steps[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+        steps[kind] = kernel_times(
+            torch, api.paged_attention_ragged_op, inputs, kw, out_run,
+            ragged_bound(torch, inputs),
+            f"{kind} step T={q.shape[0]} real lanes {int(cu_q[-1])} "
+            f"S={ss.shape[0]} Tb={bl.shape[0]}", card)
     # 7. where a decode step's time goes ---------------------------------------
     log("== 7. profile of decode-only steps (16 requests, 512-token prompts)")
     profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev)
@@ -430,6 +861,7 @@ def main() -> int:
 
     # 10. DLRM inference at full width ------------------------------------------
     log("== 10. DLRM inference, rm1/rm2 at 1 M rows per table, f32")
+    reset_counts(counted)
     emb_launches = dlrm_inference(torch, emb_api, dev)
 
     # 11. embedding kernel times at the main path's B = 4096 inputs -----------
@@ -439,14 +871,84 @@ def main() -> int:
            for arch in ("rm1", "rm2")}
     emb_err = max([e["max_abs_err"] for e in emb.values()] + emb_errs)
 
+    # 12. chunked kernel vs plain, and vs the ragged kernel --------------------
+    log("== 12. chunked kernel vs plain, smollm-360m widths, synthetic lanes")
+    chunked_err, ragged_diff = chunked_check(torch, np, api, ragged_case,
+                                             dev)
+
+    # 13. decode kernel vs plain ------------------------------------------------
+    log("== 13. decode kernel vs paged_attention_opt, smollm-360m widths")
+    decode_err = decode_check(torch, np, api, dev)
+
+    # 14. small-input reference: card vs CPU -----------------------------------
+    log("== 14. reduced smollm-360m f32: chunked engine and decode_step_paged,"
+        " card vs CPU")
+    chunked_streams = reference_check(torch, np, cfg_mod, build_model,
+                                      engine_mod, attn_impl="chunked")
+    if chunked_streams != ragged_streams:
+        raise AssertionError("chunked greedy streams differ from ragged: "
+                             f"{chunked_streams} != {ragged_streams}")
+    log("  chunked streams identical to phase 4's ragged streams")
+    paper_reference_check(torch, np, cfg_mod, build_model, dev)
+
+    # 15. serving with attn_impl="chunked" at full width ------------------------
+    log("== 15. serving smollm-360m with attn_impl='chunked' (phase 5's "
+        "requests)")
+    c_launches, c_capture = serve_chunked(
+        torch, np, cfg_mod, engine_mod, api, counted, model, params, cfg,
+        prompts, served, dev)
+
+    # 16. the paper path at full width -------------------------------------------
+    log(f"== 16. decode_step_paged at full width: 16 requests, "
+        f"{PAPER_PROMPT} prompt tokens one per step, {PAPER_NEW} greedy")
+    d_launches, d_capture = paper_path(torch, np, api, counted, model, params,
+                                       cfg, dev)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # 17. Fig 17 benchmark at the reference's full sizes -----------------------
+    log("== 17. bench.paged_attention_bench (paper Fig 17 a-c), full sizes")
+    fig17(torch, dev, card)
+
+    # 18. new kernels' times on the captured inputs ----------------------------
+    log("== 18. chunked and decode kernels on the captured layer-0 inputs")
+    chunked_steps = {}
+    for kind in ("decode", "mixed"):
+        inputs, kw, out_run = c_capture[kind]
+        chunked_steps[kind] = kernel_times(
+            torch, api.paged_attention_chunked_op, inputs, kw, out_run,
+            chunked_bound(torch, inputs),
+            f"chunked {kind} step T={inputs[0].shape[0]} "
+            f"B={inputs[6].shape[0]} Tb={inputs[3].shape[0]}", card)
+    inputs, kw, out_run = d_capture["decode"]
+    decode_top = kernel_times(
+        torch, api.paged_attention_op, inputs, kw, out_run,
+        decode_bound(torch, inputs),
+        f"decode_step_paged last step B={inputs[0].shape[0]} "
+        f"Tb={inputs[3].shape[0]}", card)
+
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
+    chunked_top = dict(chunked_steps["mixed"], max_abs_err=max(
+        [s["max_abs_err"] for s in chunked_steps.values()] + [chunked_err]))
     log(json.dumps({"kernels": [{
         "name": KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{KERNEL}.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:471",
         "launches": launches, **ragged_top, "library_ms": None,
         "decode": steps["decode"], "mixed": steps["mixed"]}, {
+        "name": CHUNKED_KERNEL, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{CHUNKED_KERNEL}.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:293",
+        "launches": c_launches, **chunked_top, "library_ms": None,
+        "max_abs_diff_vs_ragged": ragged_diff,
+        "decode": chunked_steps["decode"], "mixed": chunked_steps["mixed"]}, {
+        "name": DECODE_KERNEL, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{DECODE_KERNEL}.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
+        "launches": d_launches, **dict(decode_top, max_abs_err=max(
+            decode_top["max_abs_err"], decode_err)),
+        "library_ms": None}, {
         "name": EMB_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
         "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
@@ -584,7 +1086,6 @@ def dlrm_inference(torch, emb_api, dev):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    emb_api.embedding_bag.launches = 0
     t0 = time.perf_counter()
     rows = recsys_e2e.run(dev)
     torch.cuda.synchronize()

@@ -20,6 +20,7 @@ class AttentionConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    causal: bool = True
 
 
 @dataclass(frozen=True)
@@ -57,9 +58,11 @@ class ModelConfig:
 class ServeConfig:
     """Serving knobs; names and defaults as in ``repro.config.ServeConfig``.
 
-    The port serves the draftless synchronous path only: ``overlap``,
-    ``spec``, ``devices > 1``, ``roles``, ``host_blocks`` and
-    ``attn_impl="chunked"`` are refused by the engine.
+    The port serves the draftless synchronous path, with
+    ``attn_impl="ragged"`` or ``"chunked"`` (``q_chunk`` and
+    ``prefetch_depth`` tune the chunked kernel); ``overlap``, ``spec``,
+    ``devices > 1``, ``roles`` and ``host_blocks`` are refused by the
+    engine.
     """
 
     model: str
@@ -72,7 +75,9 @@ class ServeConfig:
     eviction: str = "lru"
     spec: str = "off"
     overlap: bool = False
-    attn_impl: str = "ragged"
+    prefetch_depth: int = 0        # chunked kernel: page staging depth
+    q_chunk: int = 16              # chunked kernel: lanes per query tile
+    attn_impl: str = "ragged"      # ragged | chunked
     devices: int = 0
     roles: str = ""
     host_blocks: int = 0

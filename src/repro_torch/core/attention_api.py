@@ -1,24 +1,39 @@
-"""Ragged paged attention over the fused KV pool: the plain PyTorch version
-and the wrapper of the hand-written CUDA kernel (port of the ragged half
-of ``repro.core.attention_api``).
+"""Paged attention: the plain PyTorch versions and the wrappers of the
+hand-written CUDA kernels (port of ``repro.core.attention_api``).
 
-* :func:`ragged_lane_metadata` derives per-lane ``(token_req, token_pos,
-  kv_lens)`` from the ``cu_q_lens``/``cu_kv_lens``/``seq_slot`` prefix sums.
-* :func:`_chunked_partials` is the per-lane flash partial math over a flat
-  BlockList; :func:`paged_attention_ragged` normalises it.  Together they
-  are the plain version: the CPU path, and what the kernel is held to.
-* :func:`paged_attention_ragged_op` is the wrapper the model calls.  For a
-  CUDA tensor it launches the kernel (``kernels/csrc/
-  paged_attention_ragged.cu``) or raises; for a CPU tensor it takes the
-  plain version.  Nothing falls back.
+Plain versions, the CPU path and what the kernels are held to:
 
-Shapes: q (T, H, HD); kv_pool (NB, BS, 2*KV, HD) with ``[K0,V0,K1,V1,...]``
-on the head axis; BlockList arrays (Tb,); cu_q_lens/cu_kv_lens (S+1,);
-seq_slot (S,).  GQA maps q head ``h`` to kv head ``h // (H // KV)``.
+* :func:`paged_attention_base`: vLLM_base, the padded (B, MAXB) BlockTable
+  gathered whole, pad blocks included.
+* :func:`paged_attention_opt`: vLLM_opt, the flat BlockList of effectual
+  blocks with a segment softmax per request (decode shape, one query per
+  request).
+* :func:`paged_attention_chunked`: flat token lanes (decode tokens and
+  prompt-chunk tokens mixed) over split K/V pools.
+* :func:`paged_attention_ragged`: the same lanes described by
+  ``cu_q_lens``/``cu_kv_lens``/``seq_slot`` over the fused pool.
+  :func:`ragged_lane_metadata` derives per-lane ``(token_req, token_pos,
+  kv_lens)`` from the prefix sums, and both run the lane-chunked per-lane
+  flash math of :func:`_chunked_partials`, so chunked and ragged are
+  bitwise equal on the same lanes, as in the reference.
+
+Wrappers the model calls, each chosen by the device of ``q``: for a CUDA
+tensor it launches its kernel or raises; for a CPU tensor it takes its
+plain version.  Nothing falls back.  Each counts its launches in
+``launches``.
+
+* :data:`paged_attention_ragged_op`: ``kernels/csrc/paged_attention_ragged.cu``.
+* :data:`paged_attention_chunked_op`: ``kernels/csrc/paged_attention_chunked.cu``.
+* :data:`paged_attention_op`: ``kernels/csrc/paged_attention_decode.cu``.
+
+Shapes: q (T, H, HD) (decode: (B, H, HD)); kv_pool (NB, BS, 2*KV, HD)
+with ``[K0,V0,K1,V1,...]`` on the head axis; split pools (NB, BS, KV, HD);
+BlockList arrays (Tb,); cu_q_lens/cu_kv_lens (S+1,); seq_slot (S,).  GQA
+maps q head ``h`` to kv head ``h // (H // KV)``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +44,9 @@ NEG_INF = -1e30
 # tensor to about this many elements.  Each lane's softmax is independent,
 # so chunking the lanes leaves every lane's arithmetic unchanged.
 _PLAIN_SCORE_ELEMS = 1 << 26
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+_MAX_GROUP = 64             # q heads per kv head: a tile's 64 rows
 
 
 def ragged_lane_metadata(cu_q_lens, cu_kv_lens, seq_slot, num_lanes: int,
@@ -64,6 +82,98 @@ def ragged_lane_metadata(cu_q_lens, cu_kv_lens, seq_slot, num_lanes: int,
     return token_req, token_pos, kv_lens[:num_slots]
 
 
+def _q_grouped(q, num_kv: int):
+    B, H, HD = q.shape
+    return q.reshape(B, num_kv, H // num_kv, HD)
+
+
+def paged_attention_base(q, pool_k, pool_v, block_table, seq_lens,
+                         *, sm_scale: Optional[float] = None):
+    """vLLM_base: the padded BlockTable (B, MAXB), pad blocks gathered too.
+
+    q (B, H, HD); pools (NB, BS, KV, HD); seq_lens (B,).  Keys at
+    positions >= seq_len are masked; softmax in f32, weights cast to the
+    pool's dtype for the PV product.
+    """
+    B, H, HD = q.shape
+    NB, BS, KV, _ = pool_k.shape
+    MAXB = block_table.shape[1]
+    scale = sm_scale if sm_scale is not None else HD ** -0.5
+    idx = block_table.reshape(-1).long()
+    k = pool_k[idx].reshape(B, MAXB, BS, KV, HD)     # the redundant gather
+    v = pool_v[idx].reshape(B, MAXB, BS, KV, HD)
+    qg = _q_grouped(q, KV)
+    scores = torch.einsum("bkgd,bmskd->bkgms", qg, k).float() * scale
+    pos = (torch.arange(MAXB, device=q.device)[:, None] * BS
+           + torch.arange(BS, device=q.device)[None, :])      # (MAXB, BS)
+    mask = pos[None] < seq_lens.long()[:, None, None]
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    w = torch.softmax(scores.reshape(B, KV, qg.shape[2], -1), dim=-1)
+    w = w.reshape(scores.shape).to(v.dtype)
+    out = torch.einsum("bkgms,bmskd->bkgd", w, v)
+    return out.reshape(B, H, HD)
+
+
+def _segment(values, seg, num_segments: int, reduce: str):
+    """Reduce ``values`` (T, ...) over segment ids ``seg`` (T,) into
+    (num_segments, ...); empty segments read -inf (amax) or 0 (sum)."""
+    shape = (num_segments,) + tuple(values.shape[1:])
+    index = seg.long().reshape((-1,) + (1,) * (values.dim() - 1))
+    index = index.expand_as(values)
+    if reduce == "amax":
+        out = torch.full(shape, float("-inf"), dtype=values.dtype,
+                         device=values.device)
+        return out.scatter_reduce(0, index, values, "amax")
+    return torch.zeros(shape, dtype=values.dtype,
+                       device=values.device).index_add_(0, seg.long(), values)
+
+
+def _opt_partials(q, pool_k, pool_v, block_list, block_req, block_pos,
+                  seq_lens, num_reqs: int, scale: float):
+    """Per-request (max, sumexp, weighted-V) from a flat BlockList:
+    (B, KV, G), (B, KV, G), (B, KV, G, HD).  Pad entries (``block_req``
+    outside ``[0, num_reqs)``) land in a spare segment that is dropped."""
+    B, H, HD = q.shape
+    NB, BS, KV, _ = pool_k.shape
+    bl = block_list.long().clamp(0, NB - 1)
+    k = pool_k[bl]                                        # (T, BS, KV, HD)
+    v = pool_v[bl]
+    breq = block_req.long()
+    req = breq.clamp(0, B - 1)
+    qg = _q_grouped(q, KV)[req]                           # (T, KV, G, HD)
+    scores = torch.einsum("tkgd,tskd->tkgs", qg, k).float() * scale
+    pos = (block_pos.long()[:, None] * BS
+           + torch.arange(BS, device=q.device)[None])     # (T, BS)
+    real = (breq >= 0) & (breq < num_reqs)
+    valid = (pos < seq_lens.long()[req][:, None]) & real[:, None]
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    seg = torch.where(real, breq, B)                      # pad -> dropped
+    m = _segment(scores.amax(dim=-1), seg, B + 1, "amax")[:B]
+    m = m.clamp_min(NEG_INF)
+    p = torch.exp(scores - m[seg.clamp(0, B - 1)][..., None])
+    p = torch.where(valid[:, None, None], p, 0.0)
+    l = _segment(p.sum(dim=-1), seg, B + 1, "sum")[:B]
+    o_t = torch.einsum("tkgs,tskd->tkgd", p.to(v.dtype), v).float()
+    o = _segment(o_t, seg, B + 1, "sum")[:B]
+    return m, l, o
+
+
+def paged_attention_opt(q, pool_k, pool_v, block_list, block_req, block_pos,
+                        seq_lens, *, sm_scale: Optional[float] = None):
+    """vLLM_opt: the flat BlockList, only effectual blocks touched.
+
+    q (B, H, HD) one query per request; pools (NB, BS, KV, HD); BlockList
+    arrays (Tb,) keyed by request; seq_lens (B,).  A request with no entry
+    reads 0.
+    """
+    B, H, HD = q.shape
+    scale = sm_scale if sm_scale is not None else HD ** -0.5
+    m, l, o = _opt_partials(q, pool_k, pool_v, block_list, block_req,
+                            block_pos, seq_lens, B, scale)
+    out = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, H, HD).to(q.dtype)
+
+
 def _chunked_partials(q, pool_k, pool_v, block_list, block_req, block_pos,
                       kv_lens, token_req, token_pos, scale: float):
     """Per-lane flash partials ``(m, l, o)`` — (T, KV, G), (T, KV, G),
@@ -73,11 +183,10 @@ def _chunked_partials(q, pool_k, pool_v, block_list, block_req, block_pos,
     T, H, HD = q.shape
     NB, BS, KV, _ = pool_k.shape
     B = kv_lens.shape[0]
-    G = H // KV
     bl = block_list.long().clamp(0, NB - 1)
     k = pool_k[bl]                                      # (Tb, BS, KV, HD)
     v = pool_v[bl]
-    qg = q.reshape(T, KV, G, HD)
+    qg = q.reshape(T, KV, H // KV, HD)
     scores = torch.einsum("tkgd,uskd->tkgus", qg, k).float() * scale
     arange = torch.arange(BS, device=q.device, dtype=torch.int32)
     key_pos = block_pos[:, None].to(torch.int32) * BS + arange[None]
@@ -98,22 +207,23 @@ def _chunked_partials(q, pool_k, pool_v, block_list, block_req, block_pos,
     return m, l, o
 
 
-def paged_attention_ragged(q, kv_pool, block_list, block_req, block_pos,
-                           cu_q_lens, cu_kv_lens, seq_slot,
-                           *, sm_scale: Optional[float] = None):
-    """The plain version: ragged prefill+decode attention in PyTorch ops.
+def paged_attention_chunked(q, pool_k, pool_v, block_list, block_req,
+                            block_pos, kv_lens, token_req, token_pos,
+                            *, sm_scale: Optional[float] = None):
+    """The plain version of chunked paged attention over flat token lanes.
 
-    Lane metadata from :func:`ragged_lane_metadata`, the math of
-    :func:`_chunked_partials` on split views of the fused pool, output
-    ``o / max(l, 1e-30)`` in q's dtype (lanes with no valid key give 0).
+    q (T, H, HD); pools (NB, BS, KV, HD) (strided views are fine);
+    BlockList arrays (Tb,) keyed by slot; kv_lens (B,) valid keys per slot
+    after this step's append; token_req/token_pos (T,) each lane's owner
+    (``>= B``: a padding lane) and position.  A lane attends to its owner's
+    keys with ``key_pos <= token_pos`` and ``key_pos < kv_lens[owner]``;
+    lanes with no valid key read 0.  Lanes are taken a chunk at a time
+    (:data:`_PLAIN_SCORE_ELEMS`), which leaves each lane's arithmetic as
+    it is.
     """
     T, H, HD = q.shape
-    S = seq_slot.shape[0]
-    Tb, BS = block_list.shape[0], kv_pool.shape[1]
+    Tb, BS = block_list.shape[0], pool_k.shape[1]
     scale = sm_scale if sm_scale is not None else HD ** -0.5
-    pool_k, pool_v = paged_kv.fused_kv_views(kv_pool)
-    token_req, token_pos, kv_lens = ragged_lane_metadata(
-        cu_q_lens, cu_kv_lens, seq_slot, T, S)
     out = torch.empty_like(q)
     step = max(1, _PLAIN_SCORE_ELEMS // max(1, H * Tb * BS))
     for s in range(0, T, step):
@@ -126,99 +236,271 @@ def paged_attention_ragged(q, kv_pool, block_list, block_req, block_pos,
     return out
 
 
-def _check_cuda_inputs(q, kv_pool, ints):
-    dev = q.device
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q dtype {q.dtype}: the kernel takes float32 or "
+def paged_attention_ragged(q, kv_pool, block_list, block_req, block_pos,
+                           cu_q_lens, cu_kv_lens, seq_slot,
+                           *, sm_scale: Optional[float] = None):
+    """The plain version of ragged prefill+decode attention: lane metadata
+    from :func:`ragged_lane_metadata`, then :func:`paged_attention_chunked`
+    on split views of the fused pool (lanes with no valid key give 0)."""
+    T = q.shape[0]
+    S = seq_slot.shape[0]
+    pool_k, pool_v = paged_kv.fused_kv_views(kv_pool)
+    token_req, token_pos, kv_lens = ragged_lane_metadata(
+        cu_q_lens, cu_kv_lens, seq_slot, T, S)
+    return paged_attention_chunked(q, pool_k, pool_v, block_list, block_req,
+                                   block_pos, kv_lens, token_req, token_pos,
+                                   sm_scale=sm_scale)
+
+
+# ----------------------------------------------------------------- wrappers
+def _check_q_and_pools(q, pools: Dict[str, torch.Tensor], num_kv: int):
+    """dtype, shape, device and 16-byte alignment of q and the pools (the
+    kernels load 16 bytes at a time).  q must be contiguous; a pool may be
+    strided, with a contiguous head dim."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q dtype {q.dtype}: the kernels take float32 or "
                         "bfloat16")
-    if kv_pool.dtype != q.dtype:
-        raise TypeError(f"kv_pool dtype {kv_pool.dtype} != q dtype {q.dtype}")
-    if q.dim() != 3 or kv_pool.dim() != 4:
-        raise ValueError(f"q {tuple(q.shape)} must be (T, H, HD) and kv_pool "
-                         f"{tuple(kv_pool.shape)} (NB, BS, 2*KV, HD)")
+    if q.dim() != 3 or not q.is_contiguous():
+        raise ValueError(f"q {tuple(q.shape)} must be a contiguous "
+                         "(T, H, HD) tensor")
     H, HD = q.shape[1], q.shape[2]
-    KV2 = kv_pool.shape[2]
-    if kv_pool.shape[3] != HD or KV2 % 2 or H % (KV2 // 2):
-        raise ValueError(f"q {tuple(q.shape)} and kv_pool "
-                         f"{tuple(kv_pool.shape)} disagree on heads")
-    if HD not in (16, 32, 64, 128) or H // (KV2 // 2) > 64:
-        raise ValueError(f"head_dim {HD} / group {H // (KV2 // 2)}: the "
-                         "kernel takes head_dim 16/32/64/128 and <= 64 q "
-                         "heads per kv head")
-    for name, t in (("q", q), ("kv_pool", kv_pool)) + tuple(ints.items()):
+    if HD not in _HEAD_DIMS or H % num_kv or H // num_kv > _MAX_GROUP:
+        raise ValueError(f"q {tuple(q.shape)} over {num_kv} kv heads: the "
+                         f"kernels take head_dim {_HEAD_DIMS} and <= "
+                         f"{_MAX_GROUP} q heads per kv head")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q),) + tuple(pools.items()):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:-1]):
+            raise ValueError(f"{name} must be 16-byte aligned, with strides "
+                             "of whole 16-byte vectors")
+    for name, t in pools.items():
+        if t.dim() != 4 or t.shape[3] != HD or t.stride(3) != 1:
+            raise ValueError(f"{name} {tuple(t.shape)} must be (NB, BS, "
+                             f"heads, {HD}) with a contiguous head dim")
+
+
+def _check_ints(dev, ints: Dict[str, torch.Tensor]):
+    for name, t in ints.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("kv_pool", kv_pool)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             "loads 16 bytes at a time)")
-    for name, t in ints.items():
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise TypeError(f"{name} must be a 1-D int32 tensor, got "
-                            f"{t.dtype} {tuple(t.shape)}")
-    Tb, S = ints["block_list"].shape[0], ints["seq_slot"].shape[0]
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous 1-D int32 tensor, "
+                            f"got {t.dtype} {tuple(t.shape)}")
+    Tb = ints["block_list"].shape[0]
     if ints["block_req"].shape[0] != Tb or ints["block_pos"].shape[0] != Tb:
         raise ValueError("block_list/block_req/block_pos lengths differ")
-    if (ints["cu_q_lens"].shape[0] != S + 1
-            or ints["cu_kv_lens"].shape[0] != S + 1):
-        raise ValueError("cu_q_lens/cu_kv_lens must have len(seq_slot) + 1 "
-                         "entries")
-    if not 1 <= S <= 1024:
-        raise ValueError(f"{S} sequence entries: the kernel takes 1..1024")
 
 
-def ragged_scratch_ints(num_seqs: int, num_entries: int) -> int:
-    """int32 scratch the kernel needs: per-sequence page lists (block and
-    position) of up to ``num_entries`` pages each, then their counts."""
-    return 2 * num_seqs * num_entries + num_seqs
+def _check_split_pools(q, pool_k, pool_v):
+    if pool_k.shape != pool_v.shape or pool_k.stride() != pool_v.stride():
+        raise ValueError(f"pool_k {tuple(pool_k.shape)} {pool_k.stride()} "
+                         f"and pool_v {tuple(pool_v.shape)} "
+                         f"{pool_v.stride()} differ")
+    _check_q_and_pools(q, {"pool_k": pool_k, "pool_v": pool_v},
+                       pool_k.shape[2] if pool_k.dim() == 4 else 1)
 
 
-class _RaggedAttentionOp:
-    """Ragged paged attention, chosen by the device of ``q``.
+class Launch(NamedTuple):
+    """One prepared kernel launch: ``fn(*argv)`` returns the CUDA error
+    code (0 = ok) and writes ``out``; ``scratch`` must outlive the call."""
+    fn: Callable[..., int]
+    argv: Tuple
+    out: torch.Tensor
+    scratch: torch.Tensor
 
-    CUDA: checks dtypes, shapes, devices and contiguity, allocates the
-    output and the kernel's scratch with ``torch.empty``, launches on the
-    current stream and adds one to :attr:`launches`.  CPU: the plain
-    :func:`paged_attention_ragged`.
-    """
+
+class _KernelOp:
+    """A kernel wrapper chosen by the device of ``q``: CUDA checks the
+    inputs, allocates the output and the kernel's scratch with
+    ``torch.empty``, launches on the current stream and adds one to
+    :attr:`launches`; CPU runs the plain version.  Subclasses give
+    ``plain`` and ``prepare``."""
+
+    name = ""
 
     def __init__(self):
         self.launches = 0           # kernel launches, a plain integer
 
-    def __call__(self, q, kv_pool, block_list, block_req, block_pos,
-                 cu_q_lens, cu_kv_lens, seq_slot, *,
-                 sm_scale: Optional[float] = None):
+    def plain(self, *args, **kw):
+        raise NotImplementedError
+
+    def prepare(self, *args, **kw) -> Launch:
+        raise NotImplementedError
+
+    def __call__(self, q, *args, **kw):
         if q.device.type != "cuda":
-            return paged_attention_ragged(q, kv_pool, block_list, block_req,
-                                          block_pos, cu_q_lens, cu_kv_lens,
-                                          seq_slot, sm_scale=sm_scale)
+            return self.plain(q, *args, **kw)
+        launch = self.prepare(q, *args, **kw)
+        err = launch.fn(*launch.argv)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: "
+                               f"cudaError {err}")
+        self.launches += 1
+        return launch.out
+
+
+def _scale(sm_scale, HD) -> float:
+    return float(sm_scale if sm_scale is not None else HD ** -0.5)
+
+
+def ragged_scratch_ints(num_seqs: int, num_entries: int) -> int:
+    """int32 scratch the ragged kernel needs: per-sequence page lists
+    (block and position) of up to ``num_entries`` pages each, then their
+    counts."""
+    return 2 * num_seqs * num_entries + num_seqs
+
+
+class _RaggedAttentionOp(_KernelOp):
+    """Ragged paged attention over the fused pool; plain version
+    :func:`paged_attention_ragged`.  The fused pool must be contiguous."""
+
+    name = "paged_attention_ragged"
+
+    def plain(self, *args, **kw):
+        return paged_attention_ragged(*args, **kw)
+
+    def prepare(self, q, kv_pool, block_list, block_req, block_pos,
+                cu_q_lens, cu_kv_lens, seq_slot, *,
+                sm_scale: Optional[float] = None) -> Launch:
         from repro_torch.kernels import paged_attention as kernel
 
+        if kv_pool.dim() != 4 or kv_pool.shape[2] % 2:
+            raise ValueError(f"kv_pool {tuple(kv_pool.shape)} must be "
+                             "(NB, BS, 2*KV, HD)")
+        if not kv_pool.is_contiguous():
+            raise ValueError("kv_pool must be contiguous")
+        _check_q_and_pools(q, {"kv_pool": kv_pool}, kv_pool.shape[2] // 2)
         ints = {"block_list": block_list, "block_req": block_req,
                 "block_pos": block_pos, "cu_q_lens": cu_q_lens,
                 "cu_kv_lens": cu_kv_lens, "seq_slot": seq_slot}
-        _check_cuda_inputs(q, kv_pool, ints)
+        _check_ints(q.device, ints)
         T, H, HD = q.shape
         NB, BS, KV2, _ = kv_pool.shape
         Tb, S = block_list.shape[0], seq_slot.shape[0]
-        scale = float(sm_scale if sm_scale is not None else HD ** -0.5)
+        if cu_q_lens.shape[0] != S + 1 or cu_kv_lens.shape[0] != S + 1:
+            raise ValueError("cu_q_lens/cu_kv_lens must have len(seq_slot) "
+                             "+ 1 entries")
+        if not 1 <= S <= 1024:
+            raise ValueError(f"{S} sequence entries: the kernel takes "
+                             "1..1024")
         out = torch.empty_like(q)
         scratch = torch.empty((ragged_scratch_ints(S, Tb),),
                               dtype=torch.int32, device=q.device)
-        err = kernel.library().paged_attention_ragged(
-            q.data_ptr(), kv_pool.data_ptr(), out.data_ptr(),
-            block_list.data_ptr(), block_req.data_ptr(), block_pos.data_ptr(),
-            cu_q_lens.data_ptr(), cu_kv_lens.data_ptr(), seq_slot.data_ptr(),
-            scratch.data_ptr(), T, H, KV2 // 2, HD, NB, BS, Tb, S,
-            0 if q.dtype == torch.float32 else 1, scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"paged_attention_ragged kernel launch "
-                               f"failed: cudaError {err}")
-        self.launches += 1
-        return out
+        argv = (q.data_ptr(), kv_pool.data_ptr(), out.data_ptr(),
+                block_list.data_ptr(), block_req.data_ptr(),
+                block_pos.data_ptr(), cu_q_lens.data_ptr(),
+                cu_kv_lens.data_ptr(), seq_slot.data_ptr(),
+                scratch.data_ptr(), T, H, KV2 // 2, HD, NB, BS, Tb, S,
+                _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        fn = kernel.library(kernel.SOURCE).paged_attention_ragged
+        return Launch(fn, argv, out, scratch)
+
+
+class _ChunkedAttentionOp(_KernelOp):
+    """Chunked paged attention over flat token lanes and split pools
+    (strided views of the fused pool are read in place); plain version
+    :func:`paged_attention_chunked`.
+
+    ``q_chunk`` is the kernel's lane tile, capped at 64 // G lanes (a
+    tile's 64 rows).  ``prefetch_depth`` chose the TPU kernel's page DMA
+    ring; the CUDA kernel stages each 64-key tile through shared memory and
+    ignores it.  Neither changes a result.
+    """
+
+    name = "paged_attention_chunked"
+
+    def plain(self, q, *args, q_chunk: int = 16, prefetch_depth: int = 0,
+              **kw):
+        _check_tunables(q_chunk, prefetch_depth)
+        return paged_attention_chunked(q, *args, **kw)
+
+    def prepare(self, q, pool_k, pool_v, block_list, block_req, block_pos,
+                kv_lens, token_req, token_pos, *,
+                sm_scale: Optional[float] = None, q_chunk: int = 16,
+                prefetch_depth: int = 0) -> Launch:
+        from repro_torch.kernels import paged_attention as kernel
+
+        _check_tunables(q_chunk, prefetch_depth)
+        _check_split_pools(q, pool_k, pool_v)
+        ints = {"block_list": block_list, "block_req": block_req,
+                "block_pos": block_pos, "kv_lens": kv_lens,
+                "token_req": token_req, "token_pos": token_pos}
+        _check_ints(q.device, ints)
+        T, H, HD = q.shape
+        NB, BS, KV, _ = pool_k.shape
+        Tb, B = block_list.shape[0], kv_lens.shape[0]
+        if token_req.shape[0] != T or token_pos.shape[0] != T:
+            raise ValueError("token_req/token_pos must have one entry per "
+                             "lane of q")
+        if B < 1:
+            raise ValueError("kv_lens must have at least one slot")
+        out = torch.empty_like(q)
+        scratch = torch.empty((2 * B * Tb + B + T + 1,), dtype=torch.int32,
+                              device=q.device)
+        sb, sr, sh, _ = pool_k.stride()
+        argv = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                out.data_ptr(), block_list.data_ptr(), block_req.data_ptr(),
+                block_pos.data_ptr(), kv_lens.data_ptr(),
+                token_req.data_ptr(), token_pos.data_ptr(),
+                scratch.data_ptr(), T, H, KV, HD, NB, BS, Tb, B,
+                int(q_chunk), sb, sr, sh, _DTYPE_CODE[q.dtype],
+                _scale(sm_scale, HD),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        fn = kernel.library(kernel.CHUNKED_SOURCE).paged_attention_chunked
+        return Launch(fn, argv, out, scratch)
+
+
+def _check_tunables(q_chunk: int, prefetch_depth: int) -> None:
+    if int(q_chunk) < 1:
+        raise ValueError(f"q_chunk must be >= 1, got {q_chunk}")
+    if int(prefetch_depth) < 0:
+        raise ValueError(f"prefetch_depth must be >= 0, got "
+                         f"{prefetch_depth}")
+
+
+class _DecodeAttentionOp(_KernelOp):
+    """Decode-shape BlockList paged attention, one query per request, over
+    split pools; plain version :func:`paged_attention_opt`.  A request with
+    no BlockList entry reads 0."""
+
+    name = "paged_attention_decode"
+
+    def plain(self, *args, **kw):
+        return paged_attention_opt(*args, **kw)
+
+    def prepare(self, q, pool_k, pool_v, block_list, block_req, block_pos,
+                seq_lens, *, sm_scale: Optional[float] = None) -> Launch:
+        from repro_torch.kernels import paged_attention as kernel
+
+        _check_split_pools(q, pool_k, pool_v)
+        ints = {"block_list": block_list, "block_req": block_req,
+                "block_pos": block_pos, "seq_lens": seq_lens}
+        _check_ints(q.device, ints)
+        B, H, HD = q.shape
+        NB, BS, KV, _ = pool_k.shape
+        Tb = block_list.shape[0]
+        if seq_lens.shape[0] != B or B < 1:
+            raise ValueError(f"seq_lens {tuple(seq_lens.shape)} must have "
+                             f"one entry per query of q {tuple(q.shape)}")
+        out = torch.empty_like(q)
+        scratch = torch.empty((2 * B * Tb + B,), dtype=torch.int32,
+                              device=q.device)
+        sb, sr, sh, _ = pool_k.stride()
+        argv = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                out.data_ptr(), block_list.data_ptr(), block_req.data_ptr(),
+                block_pos.data_ptr(), seq_lens.data_ptr(),
+                scratch.data_ptr(), B, H, KV, HD, NB, BS, Tb, sb, sr, sh,
+                _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        fn = kernel.library(kernel.DECODE_SOURCE).paged_attention_decode
+        return Launch(fn, argv, out, scratch)
 
 
 paged_attention_ragged_op = _RaggedAttentionOp()
+paged_attention_chunked_op = _ChunkedAttentionOp()
+paged_attention_op = _DecodeAttentionOp()

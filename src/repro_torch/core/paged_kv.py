@@ -12,7 +12,8 @@ Which cached-free block is evicted comes from a registered eviction policy
 
 Device side: ONE fused head-interleaved pool per layer stack,
 ``(L, NB, BS, 2*KV, HD)`` with K of kv-head ``k`` at row ``2k`` and its V
-at ``2k+1``.  JAX's functional ``.at[].set(mode="drop")`` updates become
+at ``2k+1``, for the serving engine; split K and V pools
+(:func:`make_pool`) for the paper-path decode loop.  JAX's functional ``.at[].set(mode="drop")`` updates become
 in-place torch writes here; the out-of-range padding slots the engine
 renders are masked explicitly, because an out-of-range index on CUDA is a
 memory fault, not a dropped write.
@@ -370,6 +371,21 @@ class BlockAllocator:
                     self._written[blk] = filled
         self._lens[req_id] = pos0 + n
 
+    # Single-token conveniences (the reference's legacy API, used by the
+    # paper-path decode loop and the benchmarks).
+    def reserve_slot(self, req_id: int) -> Tuple[int, int]:
+        blk, off = self.reserve_tokens(req_id, 1)[0]
+        return int(blk), int(off)
+
+    def commit_token(self, req_id: int) -> None:
+        self.commit_tokens(req_id, 1)
+
+    def append_token(self, req_id: int) -> Tuple[int, int]:
+        """reserve + commit in one call."""
+        slot = self.reserve_slot(req_id)
+        self.commit_token(req_id)
+        return slot
+
     def drain_copies(self) -> List[Tuple[int, int]]:
         copies, self.pending_copies = self.pending_copies, []
         return copies
@@ -489,10 +505,80 @@ class BlockAllocator:
     def table(self, req_id: int) -> List[int]:
         return list(self._tables[req_id])
 
+    # -- device layouts ------------------------------------------------------
+    def build_block_table(self, req_ids: List[int], max_blocks: int,
+                          pad_block: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """vLLM_base's padded layout: (B, max_blocks) table + seq_lens (B,).
+
+        Padding entries point at ``pad_block``; the baseline gathers them
+        anyway, which is the redundant-gather cost the paper measures.
+        """
+        B = len(req_ids)
+        tab = np.full((B, max_blocks), pad_block, np.int32)
+        lens = np.zeros((B,), np.int32)
+        for i, r in enumerate(req_ids):
+            t = self._tables[r]
+            if len(t) > max_blocks:
+                raise ValueError(f"request {r} holds {len(t)} blocks, more "
+                                 f"than max_blocks={max_blocks}")
+            tab[i, :len(t)] = t
+            lens[i] = self._lens[r]
+        return tab, lens
+
+    def build_block_list(self, req_ids: List[int],
+                         max_total: Optional[int] = None
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                    np.ndarray]:
+        """vLLM_opt's flat layout: ``(block_list, block_req, block_pos,
+        seq_lens)`` — the pool blocks of ONLY effectual entries (T,), each
+        one's request index in ``[0, B)`` and its position in the request,
+        and seq_lens (B,).  With ``max_total`` the lists are padded to that
+        length with request ``B`` (out of range: dropped by the kernels).
+        """
+        lists: List[int] = []
+        reqs: List[int] = []
+        poss: List[int] = []
+        lens = np.zeros((len(req_ids),), np.int32)
+        for i, r in enumerate(req_ids):
+            t = self._tables[r]
+            lists.extend(t)
+            reqs.extend([i] * len(t))
+            poss.extend(range(len(t)))
+            lens[i] = self._lens[r]
+        if max_total is not None:
+            pad = max_total - len(lists)
+            if pad < 0:
+                raise ValueError(f"{len(lists)} entries exceed "
+                                 f"max_total={max_total}")
+            lists.extend([0] * pad)
+            reqs.extend([len(req_ids)] * pad)
+            poss.extend([0] * pad)
+        return (np.asarray(lists, np.int32), np.asarray(reqs, np.int32),
+                np.asarray(poss, np.int32), lens)
+
+    def write_slots(self, req_ids: List[int]) -> np.ndarray:
+        """(B, 2) [block, offset] where the NEXT token of each request
+        lands; reserves blocks on demand (:meth:`commit_token` after the
+        step)."""
+        out = np.zeros((len(req_ids), 2), np.int32)
+        for i, r in enumerate(req_ids):
+            out[i] = self.reserve_tokens(r, 1)[0]
+        return out
+
 
 # ---------------------------------------------------------------------------
 # Device-side pool ops (torch; the pool is updated in place)
 # ---------------------------------------------------------------------------
+def make_pool(num_layers: int, num_blocks: int, block_size: int,
+              num_kv: int, head_dim: int, dtype=torch.bfloat16,
+              device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split K and V pools, each ``(L, NB, BS, KV, HD)``, zero-filled (the
+    paper path's layout)."""
+    shape = (num_layers, num_blocks, block_size, num_kv, head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
 def make_fused_pool(num_layers: int, num_blocks: int, block_size: int,
                     num_kv: int, head_dim: int, dtype=torch.bfloat16,
                     device="cpu") -> torch.Tensor:
@@ -555,3 +641,22 @@ def copy_pool_blocks(pool: torch.Tensor, srcs, dsts) -> torch.Tensor:
     if dsts.numel():
         pool[:, dsts] = pool[:, srcs]       # advanced index reads a copy
     return pool
+
+
+def gather_prefill_into_pool(pool_layer: torch.Tensor, k_seq: torch.Tensor,
+                             block_table, seq_len: int,
+                             block_size: int) -> torch.Tensor:
+    """Write a prefilled (B, S, KV, HD) K (or V) into its pool blocks, in
+    place.  block_table (B, nb) lists each request's blocks in order; the
+    first ``S // block_size`` of them receive whole blocks."""
+    B, S = k_seq.shape[:2]
+    nb = block_table.shape[1]
+    if nb * block_size < S:
+        raise ValueError(f"{nb} blocks of {block_size} hold fewer than {S} "
+                         "tokens")
+    k_blocks = k_seq.reshape(B, S // block_size, block_size,
+                             *k_seq.shape[2:])
+    idx = torch.as_tensor(block_table)[:, :S // block_size].reshape(-1)
+    pool_layer[idx.long().to(pool_layer.device)] = k_blocks.reshape(
+        (-1,) + tuple(k_blocks.shape[2:])).to(pool_layer.dtype)
+    return pool_layer

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles, for ``sm_90a``, into a shared library with
 a plain C interface: ``build/kernels/<name>-<hash>.so`` at the repo root,
-where ``<hash>`` covers the source and the flags, so a changed source
-rebuilds and an unchanged one is a cache hit.  Nothing is compiled when a
+where ``<hash>`` covers the source, the shared headers ``csrc/*.cuh`` and
+the flags, so a changed source or header rebuilds and an unchanged one is
+a cache hit.  Nothing is compiled when a
 module is imported: :func:`load` builds at first use, and :func:`build_all`
 starts one ``nvcc`` per source at once and returns each compile time and
 log (``chip_smoke.py`` prints them).
@@ -32,9 +33,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
+    """Where ``csrc/<name>.cu`` builds to (content-addressed: the source,
+    every header it may include and the flags)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,7 +1,8 @@
-"""Binding of the hand-written CUDA ragged paged-attention kernel
-(``kernels/csrc/paged_attention_ragged.cu``).  The wrapper that checks and
-launches it, and its plain PyTorch version, live in
-``repro_torch.core.attention_api``."""
+"""Bindings of the hand-written CUDA paged-attention kernels
+(``kernels/csrc/paged_attention_{ragged,chunked,decode}.cu``, which share
+``paged_attention_common.cuh``).  The wrappers that check and launch them,
+and their plain PyTorch versions, live in ``repro_torch.core.attention_api``.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -9,15 +10,25 @@ import ctypes
 from repro_torch.kernels import build
 
 SOURCE = "paged_attention_ragged"
+CHUNKED_SOURCE = "paged_attention_chunked"
+DECODE_SOURCE = "paged_attention_decode"
+
+_p, _i, _i64, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+# C signature of each source's entry point (named like the source).
+_ARGTYPES = {
+    SOURCE: [_p] * 10 + [_i] * 9 + [_f, _p],
+    CHUNKED_SOURCE: [_p] * 11 + [_i] * 9 + [_i64] * 3 + [_i, _f, _p],
+    DECODE_SOURCE: [_p] * 9 + [_i] * 7 + [_i64] * 3 + [_i, _f, _p],
+}
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library with its C signature declared (built on first
-    use; this needs ``nvcc`` and a card)."""
-    lib = build.load(SOURCE)
-    fn = lib.paged_attention_ragged
+def library(source: str = SOURCE) -> ctypes.CDLL:
+    """The kernel library of ``source`` with its C signature declared
+    (built on first use; this needs ``nvcc`` and a card)."""
+    lib = build.load(source)
+    fn = getattr(lib, source)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 10 + [i] * 9 + [ctypes.c_float, p])
+        fn.argtypes = _ARGTYPES[source]
         fn.restype = ctypes.c_int
     return lib

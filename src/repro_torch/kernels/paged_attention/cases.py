@@ -79,3 +79,100 @@ SMALL_CASES = {
 
 ARG_ORDER = ("q", "kv_pool", "block_list", "block_req", "block_pos",
              "cu_q_lens", "cu_kv_lens", "seq_slot")
+
+
+def _block_list(rng, pages, kvls, block_size, num_entries, shuffle):
+    """BlockList arrays of owners ``0..len(kvls)-1`` holding ``kvls`` keys,
+    pages drawn from ``pages`` in order; padding entries carry owner
+    ``len(kvls)``."""
+    B = len(kvls)
+    bl, br, bp = [], [], []
+    for b, kvl in enumerate(kvls):
+        n = -(-kvl // block_size)
+        bl += list(pages[len(bl):len(bl) + n])
+        br += [b] * n
+        bp += list(range(n))
+    if len(bl) > num_entries or len(bl) > len(pages):
+        raise ValueError("case needs more BlockList entries or pool blocks")
+    pad = num_entries - len(bl)
+    bl, br, bp = (np.asarray(bl + [0] * pad, np.int32),
+                  np.asarray(br + [B] * pad, np.int32),
+                  np.asarray(bp + [0] * pad, np.int32))
+    if shuffle:
+        perm = rng.permutation(num_entries)
+        bl, br, bp = bl[perm], br[perm], bp[perm]
+    return bl, br, bp
+
+
+def chunked_case(rng: np.random.Generator, *, num_heads: int, num_kv: int,
+                 head_dim: int, block_size: int, num_blocks: int,
+                 kv_lens: Sequence[int], lanes: Sequence[Tuple[int, int]],
+                 num_entries: int, shuffle: bool = False
+                 ) -> Dict[str, np.ndarray]:
+    """One chunked-attention input set over a fused pool, float32 values.
+
+    ``kv_lens`` gives each slot's keys (0: an empty request); ``lanes``
+    gives ``(owner, position)`` per lane, owners in any order (``>=
+    len(kv_lens)``: a padding lane).  The split pools are the fused pool's
+    :func:`fused_kv_views`.
+    """
+    H, KV, HD, BS = num_heads, num_kv, head_dim, block_size
+    bl, br, bp = _block_list(rng, rng.permutation(num_blocks), kv_lens, BS,
+                             num_entries, shuffle)
+    return {
+        "q": rng.standard_normal((len(lanes), H, HD)).astype(np.float32),
+        "kv_pool": rng.standard_normal(
+            (num_blocks, BS, 2 * KV, HD)).astype(np.float32),
+        "block_list": bl, "block_req": br, "block_pos": bp,
+        "kv_lens": np.asarray(kv_lens, np.int32),
+        "token_req": np.asarray([o for o, _ in lanes], np.int32),
+        "token_pos": np.asarray([p for _, p in lanes], np.int32),
+    }
+
+
+def decode_case(rng: np.random.Generator, *, num_heads: int, num_kv: int,
+                head_dim: int, block_size: int, num_blocks: int,
+                seq_lens: Sequence[int], num_entries: int,
+                shuffle: bool = False) -> Dict[str, np.ndarray]:
+    """One decode-shape input set, float32 values: q (B, H, HD), split
+    pools (NB, BS, KV, HD), a BlockList sorted by request (unless
+    ``shuffle``) with padding entries, seq_lens (B,).  A request of length
+    0 has no entry."""
+    H, KV, HD, BS = num_heads, num_kv, head_dim, block_size
+    bl, br, bp = _block_list(rng, rng.permutation(num_blocks), seq_lens, BS,
+                             num_entries, shuffle)
+    shape = (num_blocks, BS, KV, HD)
+    return {
+        "q": rng.standard_normal((len(seq_lens), H, HD)).astype(np.float32),
+        "pool_k": rng.standard_normal(shape).astype(np.float32),
+        "pool_v": rng.standard_normal(shape).astype(np.float32),
+        "block_list": bl, "block_req": br, "block_pos": bp,
+        "seq_lens": np.asarray(seq_lens, np.int32),
+    }
+
+
+# Chunked lanes at SMALL widths: owners interleaved within a tile (0 2 0 2),
+# an empty request (slot 1, no keys), positions inside and past the chunk,
+# padding lanes (owner 4) in the middle and at the end.
+CHUNKED_CASES = {
+    "interleaved": dict(kv_lens=[9, 0, 13, 6],
+                        lanes=[(0, 7), (2, 12), (0, 8), (2, 11), (3, 5),
+                               (1, 0), (4, 0), (3, 2), (0, 3), (4, 0),
+                               (4, 0)],
+                        num_entries=14, shuffle=True),
+    "runs": dict(kv_lens=[5, 16, 3],
+                 lanes=[(1, p) for p in range(4, 16)] + [(0, 4), (2, 2)]
+                 + [(3, 0)] * 2,
+                 num_entries=10),
+}
+CHUNKED_ARG_ORDER = ("block_list", "block_req", "block_pos", "kv_lens",
+                     "token_req", "token_pos")
+
+# Decode requests at SMALL widths: one of length 0 (no entry, reads 0),
+# lengths off and on block boundaries, padding entries.
+DECODE_CASES = {
+    "sorted": dict(seq_lens=[9, 4, 0, 13, 1], num_entries=12),
+    "shuffled": dict(seq_lens=[16, 3, 7], num_entries=9, shuffle=True),
+}
+DECODE_ARG_ORDER = ("q", "pool_k", "pool_v", "block_list", "block_req",
+                    "block_pos", "seq_lens")

@@ -1,5 +1,6 @@
 """Serving launcher of the port: continuous batching over the paged KV
-cache, attention through the hand-written CUDA kernel on a card —
+cache, attention through a hand-written CUDA kernel on a card (``--attn-impl
+ragged`` or ``chunked``) —
 ``python -m repro_torch.launch.serve --arch smollm-360m --requests 8``.
 
 Weights are random, drawn from a seeded generator on the device.  Pass
@@ -31,6 +32,17 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--attn-impl", default="ragged",
+                   choices=("ragged", "chunked"),
+                   help="attention kernel of every layer: 'ragged' (cu "
+                        "prefix sums over the fused KV pool) or 'chunked' "
+                        "(token lanes over its split views); greedy "
+                        "streams are identical")
+    p.add_argument("--q-chunk", type=int, default=16,
+                   help="lanes per query tile of the chunked kernel")
+    p.add_argument("--prefetch-depth", type=int, default=0,
+                   help="the reference's KV-page DMA ring depth for the "
+                        "chunked kernel; the CUDA kernel ignores it")
     for axis in policy_lib.AXES:
         p.add_argument(f"--{axis}", default=policy_lib.DEFAULTS[axis],
                        choices=policy_lib.names(axis),
@@ -44,7 +56,9 @@ def main(argv=None) -> None:
     params = model.init(args.seed)
     serve = ServeConfig(model=args.arch, kv_block_size=args.block_size,
                         max_batch=args.requests, admission=args.admission,
-                        preemption=args.preemption, eviction=args.eviction)
+                        preemption=args.preemption, eviction=args.eviction,
+                        attn_impl=args.attn_impl, q_chunk=args.q_chunk,
+                        prefetch_depth=args.prefetch_depth)
     total_blocks = args.requests * (
         -(-(args.prompt_len + args.max_new) // args.block_size) + 1)
     engine = ServingEngine(model, params, cfg, serve, num_blocks=total_blocks,
@@ -67,6 +81,8 @@ def main(argv=None) -> None:
     print(f"TTFT p50 {m['p50_ttft_s']*1e3:.1f} / p99 {m['p99_ttft_s']*1e3:.1f} "
           f"ms  TPOT p50 {m['p50_tpot_s']*1e3:.1f} / p99 "
           f"{m['p99_tpot_s']*1e3:.1f} ms")
+    print(f"attn {m['attn_impl']}  q_chunk={m['q_chunk']} "
+          f"prefetch_depth={m['prefetch_depth']}")
     print(f"preemptions {m['preemptions']}  "
           f"prefix hit rate {m['prefix_hit_rate']:.2f}  "
           f"cow copies {m['cow_copies']}")

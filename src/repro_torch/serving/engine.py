@@ -6,16 +6,19 @@ Each :meth:`ServingEngine.step` schedules on the host
 lanes plus BlockList and ragged metadata (:meth:`_render`, the reference's
 power-of-two lane and slot buckets, so the host arrays match the
 reference's exactly), runs ONE fused forward (``decode_tokens_paged``: per
-layer the hand-written ragged paged-attention kernel on a card) and
+layer a hand-written paged-attention kernel on a card) and
 ``sample_batched`` (:meth:`_build`), then commits the sampled tokens
 (:meth:`_resolve`).  ``_build`` and ``_resolve`` run back to back, as the
 reference does with ``overlap=False``.
 
+``ServeConfig.attn_impl`` picks the attention kernel of every layer:
+``"ragged"`` (the default) or ``"chunked"`` (tuned by ``q_chunk`` and
+``prefetch_depth``); greedy streams are identical either way.
+
 Not in the port yet, refused at construction with ``NotImplementedError``:
 the overlapped loop (``overlap=True``), speculative decoding
 (``spec != "off"``), a mesh or ``devices > 1``, the host KV tier
-(``host_blocks > 0``), the prefill role of disaggregated serving and
-``attn_impl="chunked"``.
+(``host_blocks > 0``) and the prefill role of disaggregated serving.
 """
 from __future__ import annotations
 
@@ -66,7 +69,6 @@ def _refuse(serve: ServeConfig, mesh, role: str) -> None:
         f"host_blocks={serve.host_blocks}": serve.host_blocks > 0,
         f"roles={serve.roles!r}": bool(serve.roles),
         f"role={role!r}": role == "prefill",
-        "attn_impl='chunked'": serve.attn_impl == "chunked",
     }
     for what, hit in unsupported.items():
         if hit:
@@ -75,8 +77,9 @@ def _refuse(serve: ServeConfig, mesh, role: str) -> None:
                 "single-device path only")
     if role != "full":
         raise ValueError(f"unknown engine role {role!r}")
-    if serve.attn_impl != "ragged":
-        raise ValueError(f"attn_impl {serve.attn_impl!r}: expected 'ragged'")
+    if serve.attn_impl not in ("ragged", "chunked"):
+        raise ValueError(f"attn_impl {serve.attn_impl!r}: expected 'ragged' "
+                         "or 'chunked'")
 
 
 class ServingEngine:
@@ -114,6 +117,8 @@ class ServingEngine:
             admission=adm, preemption=pre)
         self.finished: List[Request] = []
         self.attn_impl = serve.attn_impl
+        self.q_chunk = int(serve.q_chunk)
+        self.prefetch_depth = int(serve.prefetch_depth)
         # "cuda": the hand-written kernel; "plain": its PyTorch version
         kernel = "cuda" if self.device.type == "cuda" else "plain"
         self._metrics = EngineMetrics(backend=kernel)
@@ -268,7 +273,8 @@ class ServingEngine:
         t2 = time.perf_counter()
         logits, self.pools = self.model.decode_tokens_paged(
             self.params, self.pools, lists, self._upload(tokens_np),
-            num_lanes=plan.num_tokens)
+            num_lanes=plan.num_tokens, attn_impl=self.attn_impl,
+            q_chunk=self.q_chunk, prefetch_depth=self.prefetch_depth)
         nxt_dev = sampling_lib.sample_batched(self._gen, logits, temps,
                                               top_ks, top_ps)
         actions = []
@@ -357,6 +363,8 @@ class ServingEngine:
         m.update({
             "devices": 1,
             "overlap": False,
+            "prefetch_depth": self.prefetch_depth,
+            "q_chunk": self.q_chunk,
             "attn_impl": self.attn_impl,
             "blocks_free": self.alloc.num_free,
             "preemptions": self.scheduler.num_preemptions,

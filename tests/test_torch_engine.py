@@ -159,11 +159,19 @@ def test_filter_logits_matches_jax_and_samples_stay_in_support():
 
 
 @pytest.mark.parametrize("kw", [dict(overlap=True), dict(spec="ngram"),
-                                dict(devices=2), dict(host_blocks=4),
-                                dict(attn_impl="chunked")])
+                                dict(devices=2), dict(host_blocks=4)])
 def test_engine_refuses_what_the_port_leaves_out(models, kw):
     _, (cfg_t, model_t, params_t) = models
     with pytest.raises(NotImplementedError):
         tengine.ServingEngine(model_t, params_t, cfg_t,
                               ServeConfig(model=cfg_t.name, **kw),
+                              num_blocks=8, device="cpu")
+
+
+def test_engine_refuses_an_unknown_attn_impl(models):
+    _, (cfg_t, model_t, params_t) = models
+    with pytest.raises(ValueError, match="attn_impl"):
+        tengine.ServingEngine(model_t, params_t, cfg_t,
+                              ServeConfig(model=cfg_t.name,
+                                          attn_impl="flash"),
                               num_blocks=8, device="cpu")

@@ -45,6 +45,8 @@ import repro_torch.serving.engine, repro_torch.launch.serve
 import repro_torch.models.bridge, repro_torch.kernels.build
 import repro_torch.bench.recsys_e2e, repro_torch.bench.embedding_tables
 import repro_torch.kernels.batched_embedding
+import repro_torch.bench.paged_attention_bench
+import repro_torch.kernels.paged_attention
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """
@@ -88,6 +90,18 @@ def test_dlrm_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         embedding_tables.main([])
     assert build_model("rm2", device="cpu").device.type == "cpu"
+
+
+def test_paper_path_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.bench import paged_attention_bench
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        paged_attention_bench.main(["--quick"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "smollm-360m", "--reduced", "--attn-impl",
+                    "chunked"])
 
 
 def _run_smoke(cwd):

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: ragged paged attention and the BatchedTable embedding bag.
+the card: ragged, chunked and decode paged attention and the BatchedTable
+embedding bag.
 Marked ``cuda``: without a card with ``nvcc`` these skip.  No JAX here, so
 the file also runs on a machine that has none:
 
@@ -8,7 +9,9 @@ the file also runs on a machine that has none:
 Tolerances, attention: float32 atol 2e-5 (the kernel's online softmax sums
 in another order than the plain version's one-pass softmax); bfloat16 atol
 2e-2 (the plain version rounds scores to bfloat16, the kernel keeps them
-in float32).  Embedding bag: float32 atol 1e-5 and bfloat16 atol 2e-2
+in float32); the same for chunked and decode.  Chunked and ragged (and
+decode and chunked) share their per-row device code, so on the same lanes
+they must agree bitwise.  Embedding bag: float32 atol 1e-5 and bfloat16 atol 2e-2
 (both sum in float32 in the order of the bag; the bound is for the card's
 rounding of the last bf16 digit).
 """
@@ -21,9 +24,11 @@ import torch
 
 from repro_torch.core import attention_api as api
 from repro_torch.core import embedding_api as emb_api
+from repro_torch.core.paged_kv import fused_kv_views
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.cases import (
-    ARG_ORDER, SMALL, SMALL_CASES, ragged_case)
+    ARG_ORDER, CHUNKED_ARG_ORDER, CHUNKED_CASES, DECODE_ARG_ORDER,
+    DECODE_CASES, SMALL, SMALL_CASES, chunked_case, decode_case, ragged_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +90,127 @@ def test_kernel_refuses_bad_inputs(card):
                                       *args[2:])
     with pytest.raises(ValueError):
         api.paged_attention_ragged_op(args[0], args[1].cpu(), *args[2:])
+
+
+# smollm-360m's widths: owners interleaved within a tile, an empty request
+# (slot 2), runs longer than a tile, padding lanes.
+FULL_CHUNKED = dict(kv_lens=[300, 37, 0, 250, 17],
+                    lanes=[(0, 299), (3, 130), (0, 298), (4, 16), (2, 0)]
+                    + [(1, p) for p in range(37)]
+                    + [(3, p) for p in range(130, 250)] + [(5, 0)] * 12,
+                    num_entries=64, shuffle=True)
+FULL_DECODE = dict(seq_lens=[300, 1, 0, 250, 16, 17, 700], num_entries=96)
+CHUNKED = [(SMALL, CHUNKED_CASES[n]) for n in sorted(CHUNKED_CASES)]
+CHUNKED.append((FULL, FULL_CHUNKED))
+DECODE = [(SMALL, DECODE_CASES[n]) for n in sorted(DECODE_CASES)]
+DECODE.append((FULL, FULL_DECODE))
+DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+
+
+def _chunked_args(c, dtype, dev):
+    q = torch.from_numpy(c["q"]).to(dev, dtype)
+    pool = torch.from_numpy(c["kv_pool"]).to(dev, dtype)
+    ints = [torch.from_numpy(c[k]).to(dev) for k in CHUNKED_ARG_ORDER]
+    return [q, *fused_kv_views(pool), *ints]
+
+
+@pytest.mark.parametrize("q_chunk,depth", [(16, 0), (4, 2)])
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape,case", CHUNKED)
+def test_chunked_kernel_matches_plain_version(card, shape, case, dtype, atol,
+                                              q_chunk, depth):
+    c = chunked_case(np.random.default_rng(0), **shape, **case)
+    args = _chunked_args(c, dtype, card)
+    before = api.paged_attention_chunked_op.launches
+    got = api.paged_attention_chunked_op(*args, q_chunk=q_chunk,
+                                         prefetch_depth=depth)
+    torch.cuda.synchronize()
+    assert api.paged_attention_chunked_op.launches == before + 1
+    want = api.paged_attention_chunked(*args)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    kvl = np.append(c["kv_lens"], 0)
+    dead = kvl[np.minimum(c["token_req"], len(c["kv_lens"]))] == 0
+    assert torch.all(got[torch.from_numpy(dead).to(card)] == 0)
+    # the tunables change no result
+    again = api.paged_attention_chunked_op(*args)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,case", CASES)
+def test_chunked_kernel_equals_ragged_kernel_bitwise(card, shape, case,
+                                                     dtype):
+    c = ragged_case(np.random.default_rng(0), **shape, **case)
+    q, pool, bl, br, bp, cu_q, cu_kv, ss = _args(c, dtype, card)
+    ragged = api.paged_attention_ragged_op(q, pool, bl, br, bp, cu_q, cu_kv,
+                                           ss)
+    treq, tpos, kvl = api.ragged_lane_metadata(cu_q, cu_kv, ss, q.shape[0],
+                                               ss.shape[0])
+    chunked = api.paged_attention_chunked_op(q, *fused_kv_views(pool), bl,
+                                             br, bp, kvl, treq, tpos)
+    torch.cuda.synchronize()
+    assert torch.equal(ragged, chunked)
+
+
+def _decode_args(c, dtype, dev):
+    return [torch.from_numpy(c[k]).to(dev).to(dtype)
+            if c[k].dtype == np.float32 else torch.from_numpy(c[k]).to(dev)
+            for k in DECODE_ARG_ORDER]
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape,case", DECODE)
+def test_decode_kernel_matches_plain_version(card, shape, case, dtype, atol):
+    c = decode_case(np.random.default_rng(0), **shape, **case)
+    args = _decode_args(c, dtype, card)
+    before = api.paged_attention_op.launches
+    got = api.paged_attention_op(*args)
+    torch.cuda.synchronize()
+    assert api.paged_attention_op.launches == before + 1
+    want = api.paged_attention_opt(*args)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    empty = torch.from_numpy(c["seq_lens"] == 0).to(card)
+    assert torch.all(got[empty] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_equals_chunked_kernel_bitwise(card, dtype):
+    c = decode_case(np.random.default_rng(1), **FULL, **FULL_DECODE)
+    q, pk, pv, bl, br, bp, lens = _decode_args(c, dtype, card)
+    decode = api.paged_attention_op(q, pk, pv, bl, br, bp, lens)
+    B = q.shape[0]
+    chunked = api.paged_attention_chunked_op(
+        q, pk, pv, bl, br, bp, lens,
+        torch.arange(B, dtype=torch.int32, device=card), lens - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(decode, chunked)
+
+
+def test_chunked_and_decode_kernels_refuse_bad_inputs(card):
+    c = chunked_case(np.random.default_rng(0), **SMALL,
+                     **CHUNKED_CASES["runs"])
+    q, pk, pv, *ints = _chunked_args(c, torch.float32, card)
+    with pytest.raises(ValueError):
+        api.paged_attention_chunked_op(q, pk, pv, *ints, q_chunk=0)
+    with pytest.raises(ValueError):
+        api.paged_attention_chunked_op(q, pk, pv, *ints, prefetch_depth=-1)
+    with pytest.raises(TypeError):
+        api.paged_attention_chunked_op(q, pk.half(), pv.half(), *ints)
+    with pytest.raises(ValueError):            # rows 4 bytes apart
+        api.paged_attention_chunked_op(q, pk[..., 1:].contiguous(),
+                                       pv[..., 1:].contiguous(), *ints)
+    with pytest.raises(ValueError):
+        api.paged_attention_chunked_op(q, pk, pv.contiguous(), *ints)
+    with pytest.raises(TypeError):
+        api.paged_attention_chunked_op(q, pk, pv, *ints[:-1],
+                                       ints[-1].long())
+    d = decode_case(np.random.default_rng(0), **SMALL,
+                    **DECODE_CASES["sorted"])
+    args = _decode_args(d, torch.float32, card)
+    with pytest.raises(ValueError):
+        api.paged_attention_op(*args[:-1], args[-1][:-1])
+    with pytest.raises(ValueError):
+        api.paged_attention_op(args[0], args[1].cpu(), *args[2:])
 
 
 # (rows per table, D, B, T, L): RM1's and RM2's widths at small R, the
