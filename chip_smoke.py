@@ -5,7 +5,7 @@ H100: ``python3 chip_smoke.py`` from the repo root.
 Phases, each of which raises on failure (the script catches none):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the four CUDA sources of ``src/repro_torch/kernels/csrc`` with
+2. build the seven CUDA sources of ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together;
 3. the ragged paged-attention kernel against its plain PyTorch version at
    smollm-360m's widths (H=15, KV=5, hd=64, BS=16) on mixed prefill+decode
@@ -76,10 +76,48 @@ Phases, each of which raises on failure (the script catches none):
 18. the chunked and decode kernels' times on the inputs captured in
    phases 15 and 16 (CUDA events over back-to-back launches) beside their
    plain versions and their bounds (the K/V rows the owners hold, q, out
-   and the lists at 3.35 TB/s, or operations at the dtype's peak).
+   and the lists at 3.35 TB/s, or operations at the dtype's peak);
+19. the STREAM kernels against their plain versions, bitwise: ADD, SCALE
+   and TRIAD at ``block_rows`` 8/64/256/1024 on 2^21 elements (the
+   reference's full size) and at 256 on 2^28, float32 and bfloat16, with
+   a scalar that bfloat16 must round;
+20. the gather and scatter kernels against their plain versions, bitwise,
+   at Fig 9's full sizes (4 M rows, 1 M uniform ids, about 115 k of them
+   repeats): rows of 16 to 2048 bytes (the widest table 8.2 GB, past 2^31
+   bytes), 12-byte float32 and 10-byte bfloat16 rows (element loads), ids
+   that wrap, fall past either end (NaN rows, dropped writes) and repeat;
+21. the flash-attention kernel against its plain version at smollm-360m's
+   prefill widths (B 1, S 4096, H 15, KV 5, hd 64; bf16 and f32), Fig
+   17's (B 4, S 2048, H 32, KV 8, hd 128; bf16) and the four shapes of
+   ``tests/test_kernels.py``, causal and not: float32 atol 2e-5; bfloat16
+   atol 2e-2, and every element within 2^-7 (M + |want|) + 1e-4 of the
+   plain version on float32 q and k (M: the same on |v|), which a control
+   (the outputs under 0.25 moved by 8 ulps) must fail; ``bq``/``bk`` 64
+   and 512 must give the same bits;
+22. the microbenchmark path: ``python -m repro_torch.bench.run --only
+   stream,gather_scatter,gemm_roofline --full`` in-process (Fig 8 at the
+   reference's 2^21 elements, Fig 9 at 4 M x 1 M, the GEMM sweep), then
+   the STREAM module at n = 2^28 (1 GiB per array, over 4x the 50 MB L2);
+   each STREAM and gather/scatter wrapper's launch count must equal the
+   calls its rows made;
+23. the flash-attention op at the shapes of phase 21 (causal where the
+   reference's are); its launch count must equal the calls, and every
+   output must be finite;
+24. the three new kernels' times (CUDA events over back-to-back launches
+   through the C entry point) beside their plain versions, one PyTorch
+   call each as the yardstick (``torch.add``/``mul``, ``index_select``/
+   ``index_copy_``, ``scaled_dot_product_attention``; never used by the
+   port) and their bounds: STREAM 3 n elt (2 n elt for SCALE) bytes;
+   gather the distinct rows read, N rows written and the ids; scatter the
+   distinct rows' winning source rows read, the distinct rows written and
+   the ids (the winner scratch's traffic is printed beside it); flash q,
+   k, v and out once, against 4 B H S^2 hd operations (half when causal)
+   at the dtype's peak.  Each kernel is held against its plain version on
+   the inputs it is timed on.
 
-Each path (phases 5, 10, 15, 16) runs with every kernel's launch count set
-to 0 just before it and read just after.
+Each path (phases 5, 10, 15, 16, 22, 23) runs with every kernel's launch
+count set to 0 just before it and read just after.  The card's peaks come
+from ``repro_torch.roofline.analysis.HW``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
@@ -97,13 +135,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+from repro_torch.bench.common import device_ms, kernel_ms  # noqa: E402
+from repro_torch.roofline.analysis import H100  # noqa: E402
+
+HBM_BYTES_PER_S = H100.hbm_bw
+PEAK_OPS = {"torch.bfloat16": H100.peak_bf16, "torch.float32": H100.peak_f32}
 KERNEL = "paged_attention_ragged"
 EMB_KERNEL = "batched_embedding"
 CHUNKED_KERNEL = "paged_attention_chunked"
 DECODE_KERNEL = "paged_attention_decode"
-SOURCES = [KERNEL, CHUNKED_KERNEL, DECODE_KERNEL, EMB_KERNEL]
+STREAM_KERNEL = "stream"
+GS_KERNEL = "gather_scatter"
+FLASH_KERNEL = "flash_attention"
+SOURCES = [KERNEL, CHUNKED_KERNEL, DECODE_KERNEL, EMB_KERNEL, STREAM_KERNEL,
+           GS_KERNEL, FLASH_KERNEL]
 PAPER_PROMPT, PAPER_NEW = 128, 32
 FULL_WIDTHS = dict(num_heads=15, num_kv=5, head_dim=64, block_size=16,
                    num_blocks=256)
@@ -122,8 +167,29 @@ CHUNKED_CASE = dict(kv_lens=[300, 37, 0, 250, 17, 700],
 DECODE_CASE = dict(seq_lens=[300, 1, 0, 250, 16, 17, 700, 33],
                    num_entries=160)
 DTYPES = (("float32", 2e-5), ("bfloat16", 2e-2))
+# flash bf16, besides atol 2e-2: flash_attention_ref rounds the scores to
+# bf16 (its einsum runs in the inputs' dtype), the kernel keeps them in f32
+# as _flash_kernel does.  On f32 q and k the plain version differs from the
+# kernel only where each rounds the weights (2^-8 each) and the output
+# (2^-8 |want| each) to bf16: at most 2^-7 (M + |want|), M the weights'
+# mean of |v|; 1e-4 covers the f32 sums' order
+BF16_REL, BF16_FLOOR = 2 ** -7, 1e-4
 EMB_BATCH = 4096
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
+STREAM_N = (128 * 16384, 2 ** 28)    # the reference's full n; 1 GiB f32
+STREAM_BLOCK_ROWS = (8, 64, 256, 1024)
+FIG9_R, FIG9_N = 4_000_000, 1_000_000
+FIG9_ROWS = ((16, "float32"), (64, "float32"), (128, "float32"),
+             (256, "float32"), (512, "float32"), (2048, "float32"),
+             (12, "float32"), (10, "bfloat16"))
+# (name, B, S, H, KV, hd, dtype, causal): smollm-360m's prefill, Fig 17's
+# widths, then tests/test_kernels.py's four shapes
+FLASH_SHAPES = (("smollm-360m prefill", 1, 4096, 15, 5, 64, "bfloat16", True),
+                ("Fig 17 widths", 4, 2048, 32, 8, 128, "bfloat16", True),
+                ("test 1", 2, 128, 4, 2, 64, "float32", True),
+                ("test 2", 1, 256, 6, 6, 64, "float32", False),
+                ("test 3", 2, 64, 8, 2, 128, "float32", True),
+                ("test 4", 1, 128, 4, 4, 64, "bfloat16", True))
 
 
 def log(msg: str) -> None:
@@ -145,6 +211,38 @@ def compare(torch, got, want, atol, what):
         raise AssertionError(f"{what}: kernel disagrees with the plain "
                              f"version: {err} > {atol}")
     return err
+
+
+def bf16_share(torch, got, q, k, v, causal):
+    """Largest |got - want| / (2^-7 (M + |want|) + 1e-4), ``want`` the
+    plain flash attention on f32 q and k, M the same on |v|; at most 1
+    passes."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    want = flash_attention_ref(q.float(), k.float(), v, causal=causal)
+    m = flash_attention_ref(q.float(), k.float(), v.abs(), causal=causal)
+    want = want.float()
+    return ((got.float() - want).abs()
+            / (BF16_REL * (m.float() + want.abs()) + BF16_FLOOR)).max().item()
+
+
+def compare_flash(torch, got, q, k, v, causal, what):
+    """``got`` against the plain version: f32 atol 2e-5; bf16 atol 2e-2,
+    then :func:`bf16_share` at most 1.  Returns (max_abs_err, share or
+    None)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    want = flash_attention_ref(q, k, v, causal=causal)
+    if got.dtype == torch.float32:
+        return compare(torch, got, want, 2e-5, what), None
+    err = compare(torch, got, want, 2e-2, what)
+    share = bf16_share(torch, got, q, k, v, causal)
+    log(f"    on f32 q, k: largest |err| / (2^-7 (M + |want|) + 1e-4) "
+        f"{share:.4f}")
+    if not share <= 1:
+        raise AssertionError(f"{what}: kernel disagrees with the plain "
+                             f"version on f32 q, k by {share:.3f}x the limit")
+    return err, share
 
 
 def to_device(tree, dev):
@@ -274,37 +372,6 @@ def decode_bound(torch, inputs):
     nbytes = (rows * 2 * KV * HD * elt + 2 * B * H * HD * elt
               + 4 * (3 * len(bl) + B))
     return roofline(nbytes, 4 * HD * H * rows, q.dtype)
-
-
-def time_kernel_ms(op, inputs, kw=None, reps=50):
-    """Device time per call of the kernels behind the wrapper ``op``,
-    launched back to back through the C entry point (the wrapper's checks
-    and allocations run once, outside the timed launches)."""
-    import torch
-
-    launch = op.prepare(*inputs, **(kw or {}))
-    return events_ms(torch, lambda: launch_ok(launch.fn(*launch.argv)),
-                     reps, warmup=3)
-
-
-def launch_ok(err):
-    if err != 0:
-        raise RuntimeError(f"kernel launch failed while timing: {err}")
-
-
-def events_ms(torch, fn, reps, warmup=1):
-    """Device milliseconds per call of ``fn``: CUDA events around ``reps``
-    back-to-back calls after ``warmup`` untimed ones."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def reference_check(torch, np, cfg_mod, build_model, engine_mod,
@@ -676,8 +743,9 @@ def kernel_times(torch, op, inputs, kw, out_run, bound_ms_by, what, card):
     if not torch.isfinite(again).all():
         raise AssertionError(f"{what}: non-finite attention output")
     err = compare(torch, again, op.plain(*inputs, **kw), 2e-2, f"bf16 {what}")
-    ms = time_kernel_ms(op, inputs, kw)
-    plain_ms = events_ms(torch, lambda: op.plain(*inputs, **kw), 3)
+    ms = kernel_ms(op, *inputs, device="cuda", reps=50, **kw)
+    plain_ms = device_ms(lambda: op.plain(*inputs, **kw), device="cuda",
+                         reps=3)
     bound_ms, bound_by = bound_ms_by
     log(f"  {what}: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
         f"{bound_ms:.4f} ms ({bound_by})  -> {bound_ms / ms:.1%} of bound  "
@@ -697,7 +765,13 @@ def main() -> int:
     from repro_torch.core import embedding_api as emb_api
     from repro_torch.kernels import batched_embedding as emb_kernel
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.kernels import gather_scatter as gs_kernel
     from repro_torch.kernels import paged_attention as pa_kernel
+    from repro_torch.kernels import stream as stream_kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.stream import ops as stream_ops
     from repro_torch.kernels.paged_attention.cases import (
         ARG_ORDER, ragged_case)
     from repro_torch.models.api import build_model
@@ -705,7 +779,8 @@ def main() -> int:
 
     # the launch counts, held here: a Capture replaces a module attribute
     counted = (api.paged_attention_ragged_op, api.paged_attention_chunked_op,
-               api.paged_attention_op, emb_api.embedding_bag)
+               api.paged_attention_op, emb_api.embedding_bag,
+               *stream_ops.OPS, *gs_ops.OPS, flash_attention)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -735,6 +810,8 @@ def main() -> int:
     for source in (KERNEL, CHUNKED_KERNEL, DECODE_KERNEL):
         pa_kernel.library(source)
     emb_lib = emb_kernel.library()
+    for kernel in (stream_kernel, gs_kernel, flash_kernel):
+        kernel.library()
     log(f"  build (parallel) + load {time.perf_counter() - t0:.2f}s")
 
     # 3. kernel vs plain at full width ---------------------------------------
@@ -927,6 +1004,39 @@ def main() -> int:
         f"decode_step_paged last step B={inputs[0].shape[0]} "
         f"Tb={inputs[3].shape[0]}", card)
 
+    del c_capture, d_capture
+    torch.cuda.empty_cache()
+
+    # 19. STREAM kernels vs plain ------------------------------------------------
+    log("== 19. STREAM kernels vs plain, bitwise")
+    stream_check(torch, stream_ops, dev)
+
+    # 20. gather/scatter kernels vs plain -----------------------------------------
+    log(f"== 20. gather/scatter kernels vs plain, bitwise, R={FIG9_R} "
+        f"N={FIG9_N}")
+    gs_check(torch, gs_ops, dev)
+
+    # 21. flash-attention kernel vs plain ------------------------------------------
+    log("== 21. flash-attention kernel vs plain")
+    flash_err = flash_check(torch, flash_attention, dev)
+
+    # 22. the microbenchmark path ------------------------------------------------
+    log("== 22. bench.run --only stream,gather_scatter,gemm_roofline --full; "
+        "STREAM at n = 2^28")
+    reset_counts(counted)
+    micro = microbench_path(torch, stream_ops, gs_ops, dev, card)
+
+    # 23. the flash-attention op path ---------------------------------------------
+    log("== 23. the flash_attention op at phase 21's shapes")
+    reset_counts(counted)
+    flash_inputs = flash_path(torch, flash_attention, dev)
+
+    # 24. times of the new kernels ---------------------------------------------------
+    log("== 24. STREAM, gather/scatter and flash-attention kernel times")
+    stream_t = stream_times(torch, stream_ops, dev, card)
+    gs_t = gs_times(torch, gs_ops, dev, card)
+    flash_t = flash_times(torch, flash_attention, flash_inputs, card)
+
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
     chunked_top = dict(chunked_steps["mixed"], max_abs_err=max(
@@ -953,7 +1063,26 @@ def main() -> int:
         "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
         "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
         "launches": emb_launches, **emb["rm2"], "max_abs_err": emb_err,
-        "rm1": emb["rm1"], "rm2": emb["rm2"]}]}))
+        "rm1": emb["rm1"], "rm2": emb["rm2"]}, {
+        "name": STREAM_KERNEL, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{STREAM_KERNEL}.cu",
+        "replaces": "src/repro/kernels/stream/kernel.py:34",
+        "launches": micro["stream"], **stream_t["triad"],
+        "launches_by_op": micro["stream_by_op"], **{
+            op: stream_t[op] for op in ("add", "scale", "triad")}}, {
+        "name": GS_KERNEL, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{GS_KERNEL}.cu",
+        "replaces": "src/repro/kernels/gather_scatter/kernel.py:28",
+        "also_replaces": "src/repro/kernels/gather_scatter/kernel.py:48",
+        "launches": micro["gather_scatter"], **gs_t["sweep"],
+        "launches_by_op": micro["gather_scatter_by_op"],
+        "rows": gs_t["rows"]}, {
+        "name": FLASH_KERNEL, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{FLASH_KERNEL}.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:66",
+        "launches": flash_inputs["launches"],
+        **dict(flash_t["smollm-360m prefill"], max_abs_err=flash_err),
+        "fig17": flash_t["Fig 17 widths"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1130,19 +1259,25 @@ def embedding_times(torch, cfg, build_model, emb_api, emb_lib, dev, card):
     out = torch.empty((B * T, D), dtype=table.dtype, device=dev)
     argv = (table.data_ptr(), gids.data_ptr(), out.data_ptr(), B * T, L, D, R,
             0, torch.cuda.current_stream().cuda_stream)
-    ms = events_ms(torch, lambda: launch_ok(emb_lib.batched_embedding(*argv)),
-                   100, warmup=3)
+
+    def launch():
+        err = emb_lib.batched_embedding(*argv)
+        if err != 0:
+            raise RuntimeError(f"embedding kernel launch failed: {err}")
+
+    ms = device_ms(launch, device="cuda", reps=100)
     want = emb_api.batched_table_lookup(table, offs, idx)
     err = compare(torch, out.view(B, T, D), want, 1e-5,
                   f"{cfg.name} f32 B={B} (main-path inputs)")
-    plain_ms = events_ms(
-        torch, lambda: emb_api.batched_table_lookup(table, offs, idx), 5)
+    plain_ms = device_ms(lambda: emb_api.batched_table_lookup(table, offs,
+                                                              idx),
+                         device="cuda", reps=5)
     bags = gids.view(-1, L)
     library = F.embedding_bag(bags, table, mode="sum")
     compare(torch, library.view(B, T, D), want, 1e-4,
             f"{cfg.name} F.embedding_bag (yardstick) vs plain")
-    library_ms = events_ms(
-        torch, lambda: F.embedding_bag(bags, table, mode="sum"), 20)
+    library_ms = device_ms(lambda: F.embedding_bag(bags, table, mode="sum"),
+                           device="cuda")
     rows = torch.unique(gids).numel()
     elt = table.element_size()
     nbytes = rows * D * elt + 4 * gids.numel() + B * T * D * elt
@@ -1162,6 +1297,345 @@ def embedding_times(torch, cfg, build_model, emb_api, emb_lib, dev, card):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=library_ms)
+
+
+def bits(torch, t):
+    """``t``'s bit pattern, so that NaNs compare too."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def same_bits(torch, got, want, what):
+    """Raises unless ``got`` and ``want`` have the same bits; returns their
+    max_abs_err, which is then 0."""
+    if not torch.equal(bits(torch, got), bits(torch, want)):
+        ok = ~(torch.isnan(got) | torch.isnan(want))
+        err = (got[ok].float() - want[ok].float()).abs().max().item()
+        raise AssertionError(f"{what}: kernel is not bitwise equal to the "
+                             f"plain version (max_abs_err {err:.3e}, NaN "
+                             f"rows may differ too)")
+    return 0.0
+
+
+def stream_check(torch, ops, dev):
+    """Phase 19: every STREAM op and block_rows, bitwise."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for n, block_rows_list, scalar in ((STREAM_N[0], STREAM_BLOCK_ROWS, 0.1),
+                                       (STREAM_N[1], (256,), 3.0)):
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            a = torch.randn(n, generator=gen, device=dev).to(dtype)
+            b = torch.randn(n, generator=gen, device=dev).to(dtype)
+            for block_rows in block_rows_list:
+                for op, args in ((ops.stream_add, (a, b)),
+                                 (ops.stream_scale, (a, scalar)),
+                                 (ops.stream_triad, (a, b, scalar))):
+                    got = op(*args, block_rows)
+                    torch.cuda.synchronize()
+                    same_bits(torch, got, op.plain(*args, block_rows),
+                              f"{op.name} n={n} {name} block_rows="
+                              f"{block_rows}")
+            log(f"  n={n} {name}, block_rows {list(block_rows_list)}: ADD, "
+                f"SCALE and TRIAD (s={scalar}) bitwise equal (max_abs_err "
+                f"0)")
+            del a, b
+
+
+def gs_check(torch, ops, dev):
+    """Phase 20: gather and scatter at Fig 9's full sizes, bitwise, with
+    ids that wrap, fall outside and repeat."""
+    from repro_torch.kernels.gather_scatter import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    R, N = FIG9_R, FIG9_N
+    edge = torch.tensor([-1, -R, R, -R - 1, 2 ** 31 - 1], dtype=torch.int32,
+                        device=dev)
+    for vb, name in FIG9_ROWS:
+        dtype = getattr(torch, name)
+        D = vb // (4 if name == "float32" else 2)
+        table = torch.randn((R, D), generator=gen, device=dev).to(dtype)
+        src = torch.randn((N, D), generator=gen, device=dev).to(dtype)
+        idx = torch.randint(0, R, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx[:5] = edge
+        idx[-1] = idx[5]                    # a repeat the last draw wins
+        repeats = N - torch.unique(idx[5:]).numel()
+        got = ops.vector_gather(table, idx)
+        torch.cuda.synchronize()
+        same_bits(torch, got, ref.gather_ref(table, idx),
+                  f"gather {vb} B {name}")
+        nan = torch.isnan(got).all(dim=1).nonzero().view(-1).tolist()
+        if nan != [2, 3, 4]:
+            raise AssertionError(f"gather {vb} B: NaN rows {nan} != [2, 3, 4]")
+        del got
+        kernel = table.clone()
+        if ops.vector_scatter_(kernel, idx, src) is not kernel:
+            raise AssertionError("vector_scatter_ must return its table")
+        torch.cuda.synchronize()
+        plain = ref.scatter_ref_(table.clone(), idx, src)
+        same_bits(torch, kernel, plain, f"scatter {vb} B {name}")
+        if not torch.equal(kernel[idx[5].long()], src[-1]):
+            raise AssertionError("the last write of a repeated id lost")
+        gib = table.numel() * table.element_size() / 2 ** 30
+        log(f"  {vb:5d} B {name:8s} rows, table {gib:.2f} GiB: gather and "
+            f"scatter bitwise equal; {repeats} repeated ids, 3 NaN rows, 3 "
+            f"dropped writes, 2 wrapped ids")
+        del table, src, kernel, plain
+        torch.cuda.empty_cache()
+
+
+def flash_qkv(torch, dev, B, S, H, KV, hd, dtype, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(
+        getattr(torch, dtype))
+        for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def flash_check(torch, op, dev):
+    """Phase 21; returns the largest error against the plain version."""
+    shapes = FLASH_SHAPES + (("smollm-360m prefill", 1, 4096, 15, 5, 64,
+                              "float32", True),)
+    errs, shares, control = [], [], None
+    for i, (name, B, S, H, KV, hd, dtype, _) in enumerate(shapes):
+        q, k, v = flash_qkv(torch, dev, B, S, H, KV, hd, dtype, 10 + i)
+        for causal in (True, False):
+            got = op(q, k, v, causal=causal, bq=64, bk=64)
+            again = op(q, k, v, causal=causal)          # bq = bk = 512
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: bq/bk changed the result")
+            err, share = compare_flash(
+                torch, got, q, k, v, causal, f"{name} B={B} S={S} H={H} "
+                f"KV={KV} hd={hd} {dtype} causal={causal}")
+            errs.append(err)
+            if share is None:
+                continue
+            shares.append(share)
+            if control is None:
+                # a bf16 fault in small outputs: those under 0.25 moved by
+                # 8 ulps, at most about 2e-2
+                small = (got.float().abs() < 0.25).to(torch.int16)
+                bad = (got.view(torch.int16) + 8 * small).view(torch.bfloat16)
+                control = (
+                    (bad.float() - op.plain(q, k, v, causal=causal).float()
+                     ).abs().max().item(),
+                    bf16_share(torch, bad, q, k, v, causal))
+                log(f"    control (outputs under 0.25 moved by 8 ulps): "
+                    f"max_abs_err {control[0]:.3e}, share {control[1]:.4f}")
+                if not control[1] > 1:
+                    raise AssertionError("the bf16 limit lets the control "
+                                         "through")
+        del q, k, v, got, again
+        torch.cuda.empty_cache()
+    log(f"  bq/bk 64 and 512 give the same bits at every shape; bf16: "
+        f"largest share of the limit {max(shares):.4f}, the control's "
+        f"{control[1]:.4f} (max_abs_err {control[0]:.3e}), rejected")
+    return max(errs)
+
+
+def microbench_path(torch, stream_ops, gs_ops, dev, card):
+    """Phase 22: the harness over the §3 modules at full sizes and STREAM
+    at n = 2^28; returns the launch counts, which must equal the calls the
+    rows made."""
+    from repro_torch.bench import run, stream
+
+    t0 = time.perf_counter()
+    results = run.main(["--only", "stream,gather_scatter,gemm_roofline",
+                        "--full"])
+    rows = [r for res in results for r in res["rows"]]
+    rows += stream.run(dev, quick=False, n=STREAM_N[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ops = (*stream_ops.OPS, *gs_ops.OPS)
+    counts = {op.name: op.launches for op in ops}
+    calls = {op.name: sum(r["calls"] for r in rows if r.get("op") == op.name)
+             for op in ops}
+    log(f"  wall {wall:.1f}s; launches {counts}; calls made {calls}  "
+        f"[{card}]")
+    if counts != calls or not all(counts.values()):
+        raise AssertionError(f"launches {counts} != calls {calls}")
+    for r in rows:
+        if "op" in r and r["launches"] != r["calls"]:
+            raise AssertionError(f"{r['name']}: {r['launches']} launches "
+                                 f"for {r['calls']} calls")
+        if not r["derived"].startswith("predicted") and not (
+                0 < r["ms"] < float("inf")):
+            raise AssertionError(f"{r['name']}: bad time {r['ms']}")
+    for r in rows:
+        dev_ms = r.get("kernel_ms", r.get("device_ms"))
+        if "op" in r and not (dev_ms and 0 < dev_ms < float("inf")):
+            raise AssertionError(f"{r['name']}: no kernel time {dev_ms}")
+        if r.get("op", "").startswith("stream"):
+            log(f"  Fig 8 {r['name']:18s} n={r['n']:9d} block_rows "
+                f"{r['block_rows']:4d}: kernel {dev_ms:.4f} ms  "
+                f"{r['bytes'] / dev_ms / 1e6:7.1f} GB/s  "
+                f"{r['bytes'] / dev_ms / 1e-3 / HBM_BYTES_PER_S:.1%} of HBM;"
+                f" {r['bytes'] / H100.l2_bytes:.2f}x the L2; wrapper "
+                f"{r['ms']:.4f} ms/call")
+        elif "vec_bytes" in r:
+            log(f"  Fig 9 {r['name']:13s}: kernel {dev_ms:.4f} ms  "
+                f"{r['bytes'] / dev_ms / 1e6:7.1f} useful GB/s  "
+                f"{r['bytes'] / dev_ms / 1e-3 / HBM_BYTES_PER_S:.1%} of HBM;"
+                f"  library {r['library_ms']:.4f} ms; wrapper "
+                f"{r['ms']:.4f} ms/call")
+        elif "shape" in r and r["name"].startswith("gemm"):
+            log(f"  GEMM {r['name']:21s}: {dev_ms:.4f} ms  "
+                f"{r['flops'] / dev_ms / 1e9:7.1f} TFLOP/s  roofline "
+                f"{r['roofline_ms']:.4f} ms "
+                f"({r['flops'] / dev_ms / 1e-3 / H100.peak_bf16:.1%} of "
+                f"the bf16 peak); {r['ms']:.4f} ms per call")
+    by = {op.name: op.launches for op in stream_ops.OPS}
+    gs_by = {op.name: op.launches for op in gs_ops.OPS}
+    return {"stream": sum(by.values()), "stream_by_op": by,
+            "gather_scatter": sum(gs_by.values()),
+            "gather_scatter_by_op": gs_by}
+
+
+def flash_path(torch, op, dev):
+    """Phase 23: the op once per shape; returns its launches and the
+    inputs of the two full-width shapes."""
+    keep, calls = {}, 0
+    for i, (name, B, S, H, KV, hd, dtype, causal) in enumerate(FLASH_SHAPES):
+        q, k, v = flash_qkv(torch, dev, B, S, H, KV, hd, dtype, 20 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = op(q, k, v, causal=causal)
+        calls += 1
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if out.shape != q.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"{name}: output {tuple(out.shape)} not "
+                                 "finite or of q's shape")
+        log(f"  {name}: {tuple(q.shape)} over {KV} kv heads, {dtype}, "
+            f"causal={causal}: finite, {ms:.2f} ms (host clock, "
+            "synchronised)")
+        if i < 2:
+            keep[name] = (q, k, v, causal)
+    launches = op.launches
+    log(f"  flash kernel launches {launches} = calls {calls}")
+    if launches != calls:
+        raise AssertionError(f"flash launches {launches} != calls {calls}")
+    return {"launches": launches, "inputs": keep}
+
+
+def stream_times(torch, ops, dev, card):
+    """Phase 24, STREAM at n = 2^28 float32, block_rows 256."""
+    n = STREAM_N[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    a = torch.randn(n, generator=gen, device=dev)
+    b = torch.randn(n, generator=gen, device=dev)
+    s = 3.0
+    out = {}
+    for key, op, args, library, nbytes, flops in (
+            ("add", ops.stream_add, (a, b), lambda: torch.add(a, b),
+             12 * n, n),
+            ("scale", ops.stream_scale, (a, s), lambda: torch.mul(a, s),
+             8 * n, n),
+            ("triad", ops.stream_triad, (a, b, s),
+             lambda: torch.add(b, a, alpha=s), 12 * n, 2 * n)):
+        err = same_bits(torch, op(*args), op.plain(*args),
+                        f"{op.name} n={n}")
+        ms = kernel_ms(op, *args, device="cuda")
+        plain_ms = device_ms(lambda: op.plain(*args), device="cuda", reps=10)
+        library_ms = device_ms(library, device="cuda")
+        bound_ms, bound_by = roofline(nbytes, flops, a.dtype)
+        log(f"  {op.name} n=2^28 f32: kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s)  plain {plain_ms:.4f} ms  "
+            f"library {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({bound_by})  -> {bound_ms / ms:.1%} of bound  [{card}]")
+        out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library_ms)
+    return out
+
+
+def gs_times(torch, ops, dev, card):
+    """Phase 24, gather and scatter at Fig 9's full sizes, float32."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    R, N = FIG9_R, FIG9_N
+    rows = {}
+    for vb in (16, 64, 128, 256, 512, 2048):
+        table = torch.randn((R, vb // 4), generator=gen, device=dev)
+        src = torch.randn((N, vb // 4), generator=gen, device=dev)
+        idx = torch.randint(0, R, (N,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        idx_long = idx.long()
+        distinct = torch.unique(idx).numel()
+        # a repeated id's row need be read once: the gather reads the
+        # distinct table rows, the scatter the winning src row of each
+        for key, op, args, nbytes, library in (
+                ("gather", ops.vector_gather, (table, idx),
+                 distinct * vb + N * vb + 4 * N,
+                 lambda: torch.index_select(table, 0, idx)),
+                ("scatter", ops.vector_scatter_, (table, idx, src),
+                 2 * distinct * vb + 4 * N,
+                 lambda: table.index_copy_(0, idx_long, src))):
+            fresh = (table.clone(), *args[1:])
+            err = same_bits(torch, op(*fresh),
+                            op.plain(table.clone(), *args[1:]),
+                            f"{key} {vb} B (timed inputs)")
+            del fresh
+            ms = kernel_ms(op, *args, device="cuda")
+            plain_ms = device_ms(lambda: op.plain(*args), device="cuda",
+                                 reps=5)
+            library_ms = device_ms(library, device="cuda")
+            bound_ms, bound_by = roofline(nbytes, 0, torch.float32)
+            extra = (f"; winner scratch {(4 * R + 8 * N) / 1e6:.0f} MB "
+                     "beside it" if key == "scatter" else "")
+            log(f"  {key:7s} {vb:5d} B: kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  library {library_ms:.4f} ms  bound "
+                f"{bound_ms:.4f} ms ({nbytes / 1e6:.0f} MB{extra}) -> "
+                f"{bound_ms / ms:.1%} of bound  [{card}]")
+            rows[f"{key}_{vb}B"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+        del table, src
+    sweep = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"  the whole sweep (12 calls): kernel {sweep['ms']:.4f} ms  plain "
+        f"{sweep['plain_ms']:.4f} ms  library {sweep['library_ms']:.4f} ms "
+        f" bound {sweep['bound_ms']:.4f} ms")
+    return {"sweep": dict(sweep, bound_by="bytes", max_abs_err=max(
+        r["max_abs_err"] for r in rows.values())), "rows": rows}
+
+
+def flash_times(torch, op, path, card):
+    """Phase 24, flash attention on phase 23's full-width inputs, beside
+    ``scaled_dot_product_attention`` on the same tensors (a yardstick)."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, (q, k, v, causal) in path["inputs"].items():
+        B, S, H, hd = q.shape
+        got = op(q, k, v, causal=causal)
+        err, _ = compare_flash(torch, got, q, k, v, causal,
+                               f"{name} bf16 (timed inputs)")
+        ms = kernel_ms(op, q, k, v, device="cuda", reps=5, causal=causal)
+        plain_ms = device_ms(lambda: op.plain(q, k, v, causal=causal),
+                             device="cuda", reps=3)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)
+
+        diff = (library().transpose(1, 2).float() - got.float()).abs().max()
+        library_ms = device_ms(library, device="cuda", reps=10)
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        flops = 4 * B * H * S * S * hd // (2 if causal else 1)
+        bound_ms, bound_by = roofline(nbytes, flops, q.dtype)
+        log(f"  {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  "
+            f"plain {plain_ms:.4f} ms  SDPA {library_ms:.4f} ms (max diff "
+            f"from the kernel {diff:.3e})  bound {bound_ms:.4f} ms "
+            f"({bound_by}) -> {bound_ms / ms:.1%} of bound  [{card}]")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms)
+    return out
 
 
 def _leaves(tree):

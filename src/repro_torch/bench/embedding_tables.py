@@ -15,7 +15,7 @@ the batched one counted from the kernel wrapper) and the batched row
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -25,16 +25,23 @@ from repro_torch.core import embedding_api
 
 ROWS = 4_096
 L = 20                                      # pooling factor (RM2)
-DIMS, TABLES, BATCHES = (16, 64, 128, 256), (1, 4, 10, 20, 40), (
-    4, 16, 64, 256, 1024)
+# (dims, tables, batches): the reference's full and quick sweeps
+SIZES = {False: ((16, 64, 128, 256), (1, 4, 10, 20, 40),
+                 (4, 16, 64, 256, 1024)),
+         True: ((64,), (4, 20), (4, 64))}
 
 
-def run(device="cuda", dims: Sequence[int] = DIMS,
-        tables: Sequence[int] = TABLES, batches: Sequence[int] = BATCHES
-        ) -> List[Dict[str, object]]:
+def run(device="cuda", quick: bool = False,
+        dims: Optional[Sequence[int]] = None,
+        tables: Optional[Sequence[int]] = None,
+        batches: Optional[Sequence[int]] = None) -> List[Dict[str, object]]:
     """Time every (D, T, B) point, SingleTable then BatchedTable; returns
-    the rows printed."""
+    the rows printed.  Axes not given take the reference's ``quick`` or
+    full sweep."""
     dev = device_lib.resolve(device)
+    dims = dims or SIZES[quick][0]
+    tables = tables or SIZES[quick][1]
+    batches = batches or SIZES[quick][2]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     where = f"device={device_name(dev)}"

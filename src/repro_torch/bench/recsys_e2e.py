@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,8 +26,10 @@ from repro_torch.data.pipeline import SyntheticRecSysDataset
 from repro_torch.models.api import build_model
 
 ARCHS = ("rm1", "rm2")
-ROWS = 1_000_000                   # rows per table: the configs' full width
-BATCHES = (16, 64, 256, 1024, 4096)
+# (rows per table, batches): the reference's full sizes (the configs' full
+# width) and its quick ones
+SIZES = {False: (1_000_000, (16, 64, 256, 1024, 4096)),
+         True: (10_000, (64,))}
 
 
 def forward_cost(cfg: DLRMConfig, batch: int) -> Tuple[float, float]:
@@ -55,15 +57,20 @@ def forward_cost(cfg: DLRMConfig, batch: int) -> Tuple[float, float]:
     return float(ops), float(nbytes)
 
 
-def run(device="cuda", rows: int = ROWS, archs: Sequence[str] = ARCHS,
-        batches: Sequence[int] = BATCHES) -> List[Dict[str, object]]:
-    """Time every (arch, batch) forward, SingleTable then BatchedTable.
+def run(device="cuda", quick: bool = False, rows: Optional[int] = None,
+        archs: Sequence[str] = ARCHS,
+        batches: Optional[Sequence[int]] = None) -> List[Dict[str, object]]:
+    """Time every (arch, batch) forward, SingleTable then BatchedTable, at
+    the reference's ``quick`` or full sizes where ``rows`` or ``batches``
+    is not given.
 
     Returns one dict per row: ``name``, ``ms``, ``derived``, and ``arch``,
     ``batch``, ``use_batched``, ``calls`` (forwards run, timed or not),
     ``finite`` (the last forward's logits are finite) and ``shape``.
     """
     dev = device_lib.resolve(device)
+    rows = rows or SIZES[quick][0]
+    batches = batches or SIZES[quick][1]
     where = f"device={device_name(dev)}"
     out: List[Dict[str, object]] = []
     for arch in archs:
@@ -97,7 +104,7 @@ def run(device="cuda", rows: int = ROWS, archs: Sequence[str] = ARCHS,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--rows", type=int, default=ROWS,
+    ap.add_argument("--rows", type=int, default=SIZES[False][0],
                     help="rows per embedding table")
     args = ap.parse_args(argv)
     run(args.device, rows=args.rows)

@@ -33,11 +33,12 @@ maps q head ``h`` to kv head ``h // (H // KV)``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core import paged_kv
+from repro_torch.kernels.launch import KernelOp, Launch
 
 NEG_INF = -1e30
 # Lane chunk of the plain version: bounds its (lanes, H, Tb, BS) score
@@ -304,45 +305,6 @@ def _check_split_pools(q, pool_k, pool_v):
                        pool_k.shape[2] if pool_k.dim() == 4 else 1)
 
 
-class Launch(NamedTuple):
-    """One prepared kernel launch: ``fn(*argv)`` returns the CUDA error
-    code (0 = ok) and writes ``out``; ``scratch`` must outlive the call."""
-    fn: Callable[..., int]
-    argv: Tuple
-    out: torch.Tensor
-    scratch: torch.Tensor
-
-
-class _KernelOp:
-    """A kernel wrapper chosen by the device of ``q``: CUDA checks the
-    inputs, allocates the output and the kernel's scratch with
-    ``torch.empty``, launches on the current stream and adds one to
-    :attr:`launches`; CPU runs the plain version.  Subclasses give
-    ``plain`` and ``prepare``."""
-
-    name = ""
-
-    def __init__(self):
-        self.launches = 0           # kernel launches, a plain integer
-
-    def plain(self, *args, **kw):
-        raise NotImplementedError
-
-    def prepare(self, *args, **kw) -> Launch:
-        raise NotImplementedError
-
-    def __call__(self, q, *args, **kw):
-        if q.device.type != "cuda":
-            return self.plain(q, *args, **kw)
-        launch = self.prepare(q, *args, **kw)
-        err = launch.fn(*launch.argv)
-        if err != 0:
-            raise RuntimeError(f"{self.name} kernel launch failed: "
-                               f"cudaError {err}")
-        self.launches += 1
-        return launch.out
-
-
 def _scale(sm_scale, HD) -> float:
     return float(sm_scale if sm_scale is not None else HD ** -0.5)
 
@@ -354,7 +316,7 @@ def ragged_scratch_ints(num_seqs: int, num_entries: int) -> int:
     return 2 * num_seqs * num_entries + num_seqs
 
 
-class _RaggedAttentionOp(_KernelOp):
+class _RaggedAttentionOp(KernelOp):
     """Ragged paged attention over the fused pool; plain version
     :func:`paged_attention_ragged`.  The fused pool must be contiguous."""
 
@@ -401,7 +363,7 @@ class _RaggedAttentionOp(_KernelOp):
         return Launch(fn, argv, out, scratch)
 
 
-class _ChunkedAttentionOp(_KernelOp):
+class _ChunkedAttentionOp(KernelOp):
     """Chunked paged attention over flat token lanes and split pools
     (strided views of the fused pool are read in place); plain version
     :func:`paged_attention_chunked`.
@@ -463,7 +425,7 @@ def _check_tunables(q_chunk: int, prefetch_depth: int) -> None:
                          f"{prefetch_depth}")
 
 
-class _DecodeAttentionOp(_KernelOp):
+class _DecodeAttentionOp(KernelOp):
     """Decode-shape BlockList paged attention, one query per request, over
     split pools; plain version :func:`paged_attention_opt`.  A request with
     no BlockList entry reads 0."""

@@ -47,6 +47,14 @@ import repro_torch.bench.recsys_e2e, repro_torch.bench.embedding_tables
 import repro_torch.kernels.batched_embedding
 import repro_torch.bench.paged_attention_bench
 import repro_torch.kernels.paged_attention
+import repro_torch.roofline.analysis, repro_torch.bench.run
+import repro_torch.bench.stream, repro_torch.bench.gather_scatter
+import repro_torch.bench.gemm_roofline, repro_torch.kernels.launch
+import repro_torch.kernels.stream.ops, repro_torch.kernels.stream.ref
+import repro_torch.kernels.gather_scatter.ops
+import repro_torch.kernels.gather_scatter.ref
+import repro_torch.kernels.flash_attention.ops
+import repro_torch.kernels.flash_attention.ref
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card: ragged, chunked and decode paged attention and the BatchedTable
-embedding bag.
+the card: ragged, chunked and decode paged attention, the BatchedTable
+embedding bag, STREAM, row gather/scatter and dense flash attention.
 Marked ``cuda``: without a card with ``nvcc`` these skip.  No JAX here, so
 the file also runs on a machine that has none:
 
@@ -13,7 +13,14 @@ in float32); the same for chunked and decode.  Chunked and ragged (and
 decode and chunked) share their per-row device code, so on the same lanes
 they must agree bitwise.  Embedding bag: float32 atol 1e-5 and bfloat16 atol 2e-2
 (both sum in float32 in the order of the bag; the bound is for the card's
-rounding of the last bf16 digit).
+rounding of the last bf16 digit).  STREAM and gather/scatter: bitwise (the
+kernels round as the plain versions do, and move rows as raw bytes).
+Flash attention: float32 atol 2e-5 and bfloat16 atol 2e-2, as for paged
+attention.  In bfloat16 also every element within 2^-7 (M + |want|) + 1e-4
+of the plain version on float32 q and k, M the same on |v|: with the scores
+in float32, as the kernel takes them, the two differ only where each rounds
+the weights and the output to bfloat16, so a fault in small outputs shows.
+``bq``/``bk`` change no bit.
 """
 import os
 import shutil
@@ -26,6 +33,11 @@ from repro_torch.core import attention_api as api
 from repro_torch.core import embedding_api as emb_api
 from repro_torch.core.paged_kv import fused_kv_views
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.gather_scatter import ops as gs
+from repro_torch.kernels.gather_scatter import ref as gs_ref
+from repro_torch.kernels.stream import ops as stream
 from repro_torch.kernels.paged_attention.cases import (
     ARG_ORDER, CHUNKED_ARG_ORDER, CHUNKED_CASES, DECODE_ARG_ORDER,
     DECODE_CASES, SMALL, SMALL_CASES, chunked_case, decode_case, ragged_case)
@@ -310,3 +322,180 @@ def test_embedding_kernel_refuses_bad_inputs(card):
     flat = torch.zeros(30 * 64 + 1, device=card)
     with pytest.raises(ValueError):                 # 4-byte aligned only
         emb_api.embedding_bag(flat[1:].view(30, 64), offs, idx)
+
+
+STREAM_ROWS = 2048                      # divisible by every block_rows
+
+
+def _bits(t):
+    """The tensor's bit pattern, so that NaNs compare too."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.parametrize("block_rows", [8, 64, 256, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernels_equal_plain_versions_bitwise(card, dtype,
+                                                     block_rows):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(block_rows)
+    n = STREAM_ROWS * stream.LANES
+    a = torch.randn(n, generator=gen, device=card).to(dtype)
+    b = torch.randn(n, generator=gen, device=card).to(dtype)
+    for scalar in (3.0, 0.1):               # 0.1 is rounded to the dtype
+        for op, args in ((stream.stream_add, (a, b)),
+                         (stream.stream_scale, (a, scalar)),
+                         (stream.stream_triad, (a, b, scalar))):
+            before = op.launches
+            got = op(*args, block_rows)
+            torch.cuda.synchronize()
+            assert op.launches == before + 1
+            assert got.dtype == dtype and got.shape == (n,)
+            assert torch.equal(_bits(got), _bits(op.plain(*args, block_rows)))
+
+
+def test_stream_kernels_refuse_bad_inputs(card):
+    a = torch.ones(128 * 3, device=card)
+    with pytest.raises(ValueError):            # 3 rows, block_rows 2
+        stream.stream_add(a, a, 2)
+    with pytest.raises(ValueError):            # not whole rows
+        stream.stream_scale(a[:200], 2.0, 1)
+    with pytest.raises(TypeError):
+        stream.stream_add(a.half(), a.half(), 1)
+    with pytest.raises(ValueError):            # 4-byte aligned only
+        stream.stream_triad(torch.ones(385, device=card)[1:], a, 2.0, 1)
+
+
+# (R, D, N, dtype): Fig 9's row widths at small R, with N > R so that ids
+# repeat, and rows that are not a multiple of 16 bytes (element loads).
+GS_CASES = [(1000, 4, 3000, torch.float32), (1000, 16, 3000, torch.float32),
+            (500, 64, 2000, torch.float32), (500, 512, 2000, torch.float32),
+            (300, 3, 1000, torch.float32), (300, 8, 1000, torch.bfloat16),
+            (300, 5, 1000, torch.bfloat16)]
+
+
+def _gs_inputs(dev, R, D, N, dtype, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    table = torch.randn((R, D), generator=gen, device=dev).to(dtype)
+    idx = torch.randint(0, R, (N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:4] = torch.tensor([-1, -R, R, -R - 1], device=dev)   # wrap, NaN/drop
+    idx[4] = 2 ** 31 - 1
+    idx[-1] = idx[5]                         # a repeat: the last one wins
+    src = torch.randn((N, D), generator=gen, device=dev).to(dtype)
+    return table, idx, src
+
+
+@pytest.mark.parametrize("R,D,N,dtype", GS_CASES)
+def test_gather_kernel_equals_plain_version_bitwise(card, R, D, N, dtype):
+    table, idx, _ = _gs_inputs(card, R, D, N, dtype)
+    before = gs.vector_gather.launches
+    got = gs.vector_gather(table, idx)
+    torch.cuda.synchronize()
+    assert gs.vector_gather.launches == before + 1
+    assert torch.equal(_bits(got), _bits(gs_ref.gather_ref(table, idx)))
+    nan = torch.isnan(got).all(dim=1)
+    assert nan.nonzero().view(-1).tolist() == [2, 3, 4]
+
+
+@pytest.mark.parametrize("R,D,N,dtype", GS_CASES)
+def test_scatter_kernel_equals_plain_version_bitwise(card, R, D, N, dtype):
+    table, idx, src = _gs_inputs(card, R, D, N, dtype)
+    want = gs_ref.scatter_ref(table, idx, src)
+    before = gs.vector_scatter_.launches
+    got = gs.vector_scatter(table, idx, src)
+    torch.cuda.synchronize()
+    assert gs.vector_scatter_.launches == before + 1
+    assert torch.equal(_bits(got), _bits(want))
+    assert not torch.equal(got, table)       # vector_scatter left it alone
+    again = table.clone()
+    assert gs.vector_scatter_(again, idx, src) is again
+    assert torch.equal(_bits(again), _bits(want))
+    assert torch.equal(got[idx[5]], src[-1])  # the last write of a repeat
+
+
+def test_gather_scatter_address_past_2_31_bytes(card):
+    """A 2.2 M x 256 float32 table (2.25 GB): rows near its top."""
+    R, D, N = 2_200_000, 256, 4096
+    table = torch.arange(R, device=card, dtype=torch.float32)[:, None]
+    table = table.expand(R, D).contiguous()
+    idx = torch.arange(R - N, R, device=card, dtype=torch.int32).flip(0)
+    got = gs.vector_gather(table, idx)
+    assert torch.equal(got[:, 0].long(), idx.long())
+    src = -torch.ones((N, D), device=card)
+    gs.vector_scatter_(table, idx, src)
+    torch.cuda.synchronize()
+    assert bool((table[R - N:] == -1).all())
+    assert bool((table[:R - N, 0] >= 0).all())
+
+
+def test_gather_scatter_refuse_bad_inputs(card):
+    table, idx, src = _gs_inputs(card, 10, 4, 8, torch.float32)
+    with pytest.raises(TypeError):
+        gs.vector_gather(table, idx.long())
+    with pytest.raises(TypeError):
+        gs.vector_gather(table.half(), idx)
+    with pytest.raises(ValueError):
+        gs.vector_gather(table, idx.cpu())
+    with pytest.raises(ValueError):
+        gs.vector_scatter_(table, idx, src[:, :3])
+    with pytest.raises(TypeError):
+        gs.vector_scatter_(table, idx, src.bfloat16())
+
+
+# (B, S, H, KV, hd, dtype): tests/test_kernels.py's flash sweep, then
+# smollm-360m's and Fig 17's head widths at a short sequence.
+FLASH_CASES = [(2, 128, 4, 2, 64, torch.float32),
+               (1, 256, 6, 6, 64, torch.float32),
+               (2, 64, 8, 2, 128, torch.float32),
+               (1, 128, 4, 4, 64, torch.bfloat16),
+               (1, 512, 15, 5, 64, torch.bfloat16),
+               (2, 256, 32, 8, 128, torch.bfloat16),
+               (1, 100, 4, 1, 16, torch.float32)]
+
+
+def _flash_inputs(dev, B, S, H, KV, hd, dtype, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd,dtype", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(card, B, S, H, KV, hd, dtype,
+                                            causal):
+    q, k, v = _flash_inputs(card, B, S, H, KV, hd, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, bq=S, bk=S)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    if dtype == torch.bfloat16:
+        want = flash_attention_ref(q.float(), k.float(), v,
+                                   causal=causal).float()
+        m = flash_attention_ref(q.float(), k.float(), v.abs(),
+                                causal=causal).float()
+        assert ((got.float() - want).abs()
+                <= 2 ** -7 * (m + want.abs()) + 1e-4).all()
+    if S % 64 == 0:                         # the TPU tiles change no bit
+        assert torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                                bq=64, bk=64))
+
+
+def test_flash_kernel_refuses_bad_inputs(card):
+    q, k, v = _flash_inputs(card, 1, 96, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError):            # 96 % 64
+        flash_attention(q, k, v, bq=64)
+    with pytest.raises(ValueError):            # k of another length
+        flash_attention(q, k[:, :64], v[:, :64], bq=32, bk=32)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half(), bq=32, bk=32)
+    with pytest.raises(ValueError):            # head dim 48
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous(), bq=32, bk=32)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v.cpu(), bq=32, bk=32)
