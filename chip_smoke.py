@@ -88,12 +88,14 @@ Phases, each of which raises on failure (the script catches none):
    that wrap, fall past either end (NaN rows, dropped writes) and repeat;
 21. the flash-attention kernel against its plain version at smollm-360m's
    prefill widths (B 1, S 4096, H 15, KV 5, hd 64; bf16 and f32), Fig
-   17's (B 4, S 2048, H 32, KV 8, hd 128; bf16) and the four shapes of
-   ``tests/test_kernels.py``, causal and not: float32 atol 2e-5; bfloat16
-   atol 2e-2, and every element within 2^-7 (M + |want|) + 1e-4 of the
-   plain version on float32 q and k (M: the same on |v|), which a control
-   (the outputs under 0.25 moved by 8 ulps) must fail; ``bq``/``bk`` 64
-   and 512 must give the same bits;
+   17's (B 4, S 2048, H 32, KV 8, hd 128; bf16), the four shapes of
+   ``tests/test_kernels.py`` and four bf16 shapes of the tensor-core tile
+   (G = H / KV of 1, 3 and 8; S 65 and 1000; hd 16 to 128), causal and
+   not: float32 atol 2e-5; bfloat16 atol 2e-2, and every element within
+   2^-7 (M + |want|) + 1e-4 of the plain version on float32 q and k (M:
+   the same on |v|), which a control (the outputs under 0.25 moved by 8
+   ulps) must fail; ``bq``/``bk`` 64 (or S) and 512, two calls, must give
+   the same bits;
 22. the microbenchmark path: ``python -m repro_torch.bench.run --only
    stream,gather_scatter,gemm_roofline --full`` in-process (Fig 8 at the
    reference's 2^21 elements, Fig 9 at 4 M x 1 M, the GEMM sweep), then
@@ -112,8 +114,10 @@ Phases, each of which raises on failure (the script catches none):
    distinct rows' winning source rows read, the distinct rows written and
    the ids (the winner scratch's traffic is printed beside it); flash q,
    k, v and out once, against 4 B H S^2 hd operations (half when causal)
-   at the dtype's peak.  Each kernel is held against its plain version on
-   the inputs it is timed on.
+   at the dtype's peak, with its TFLOP/s and its time over SDPA's, and the
+   registers, shared memory and spills of every ``flash_kernel`` instance
+   (``-Xptxas -v``; a spill fails the phase).  Each kernel is held against
+   its plain version on the inputs it is timed on.
 
 Each path (phases 5, 10, 15, 16, 22, 23) runs with every kernel's launch
 count set to 0 just before it and read just after.  The card's peaks come
@@ -167,13 +171,6 @@ CHUNKED_CASE = dict(kv_lens=[300, 37, 0, 250, 17, 700],
 DECODE_CASE = dict(seq_lens=[300, 1, 0, 250, 16, 17, 700, 33],
                    num_entries=160)
 DTYPES = (("float32", 2e-5), ("bfloat16", 2e-2))
-# flash bf16, besides atol 2e-2: flash_attention_ref rounds the scores to
-# bf16 (its einsum runs in the inputs' dtype), the kernel keeps them in f32
-# as _flash_kernel does.  On f32 q and k the plain version differs from the
-# kernel only where each rounds the weights (2^-8 each) and the output
-# (2^-8 |want| each) to bf16: at most 2^-7 (M + |want|), M the weights'
-# mean of |v|; 1e-4 covers the f32 sums' order
-BF16_REL, BF16_FLOOR = 2 ** -7, 1e-4
 EMB_BATCH = 4096
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 STREAM_N = (128 * 16384, 2 ** 28)    # the reference's full n; 1 GiB f32
@@ -190,6 +187,15 @@ FLASH_SHAPES = (("smollm-360m prefill", 1, 4096, 15, 5, 64, "bfloat16", True),
                 ("test 2", 1, 256, 6, 6, 64, "float32", False),
                 ("test 3", 2, 64, 8, 2, 128, "float32", True),
                 ("test 4", 1, 128, 4, 4, 64, "bfloat16", True))
+# phase 21: those, smollm-360m's prefill in float32, and the bf16
+# tensor-core tile at G = H / KV of 1, 3 and 8, S = 65 (a 64-key stage's
+# one-key tail) and 1000, hd 16 to 128
+FLASH_CHECK_SHAPES = FLASH_SHAPES + (
+    ("smollm-360m prefill", 1, 4096, 15, 5, 64, "float32", True),
+    ("G 1 S 65", 2, 65, 8, 8, 64, "bfloat16", True),
+    ("G 3 S 65", 2, 65, 6, 2, 128, "bfloat16", True),
+    ("G 8 S 65", 2, 65, 8, 1, 16, "bfloat16", True),
+    ("G 8 S 1000", 2, 1000, 16, 2, 32, "bfloat16", True))
 
 
 def log(msg: str) -> None:
@@ -213,30 +219,18 @@ def compare(torch, got, want, atol, what):
     return err
 
 
-def bf16_share(torch, got, q, k, v, causal):
-    """Largest |got - want| / (2^-7 (M + |want|) + 1e-4), ``want`` the
-    plain flash attention on f32 q and k, M the same on |v|; at most 1
-    passes."""
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-
-    want = flash_attention_ref(q.float(), k.float(), v, causal=causal)
-    m = flash_attention_ref(q.float(), k.float(), v.abs(), causal=causal)
-    want = want.float()
-    return ((got.float() - want).abs()
-            / (BF16_REL * (m.float() + want.abs()) + BF16_FLOOR)).max().item()
-
-
 def compare_flash(torch, got, q, k, v, causal, what):
     """``got`` against the plain version: f32 atol 2e-5; bf16 atol 2e-2,
     then :func:`bf16_share` at most 1.  Returns (max_abs_err, share or
     None)."""
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (bf16_share,
+                                                         flash_attention_ref)
 
     want = flash_attention_ref(q, k, v, causal=causal)
     if got.dtype == torch.float32:
         return compare(torch, got, want, 2e-5, what), None
     err = compare(torch, got, want, 2e-2, what)
-    share = bf16_share(torch, got, q, k, v, causal)
+    share = bf16_share(got, q, k, v, causal)
     log(f"    on f32 q, k: largest |err| / (2^-7 (M + |want|) + 1e-4) "
         f"{share:.4f}")
     if not share <= 1:
@@ -796,7 +790,8 @@ def main() -> int:
     # 2. build ----------------------------------------------------------------
     log("== 2. build")
     t0 = time.perf_counter()
-    for name, r in build.build_all(SOURCES).items():
+    builds = build.build_all(SOURCES)
+    for name, r in builds.items():
         log(f"  {name}: done {r['seconds']:.2f}s into the parallel build, "
             f"cache_hit={r['cache_hit']} "
             f"-> {build.library_path(name).relative_to(ROOT)}")
@@ -1036,6 +1031,8 @@ def main() -> int:
     stream_t = stream_times(torch, stream_ops, dev, card)
     gs_t = gs_times(torch, gs_ops, dev, card)
     flash_t = flash_times(torch, flash_attention, flash_inputs, card)
+    flash_inst = flash_ptxas(flash_kernel, builds[FLASH_KERNEL]["log"],
+                             build, card)
 
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
@@ -1082,7 +1079,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:66",
         "launches": flash_inputs["launches"],
         **dict(flash_t["smollm-360m prefill"], max_abs_err=flash_err),
-        "fig17": flash_t["Fig 17 widths"]}]}))
+        "fig17": flash_t["Fig 17 widths"], "instances": flash_inst}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1395,17 +1392,21 @@ def flash_qkv(torch, dev, B, S, H, KV, hd, dtype, seed):
 
 def flash_check(torch, op, dev):
     """Phase 21; returns the largest error against the plain version."""
-    shapes = FLASH_SHAPES + (("smollm-360m prefill", 1, 4096, 15, 5, 64,
-                              "float32", True),)
+    from repro_torch.kernels.flash_attention.ref import bf16_share
+
     errs, shares, control = [], [], None
-    for i, (name, B, S, H, KV, hd, dtype, _) in enumerate(shapes):
+    for i, (name, B, S, H, KV, hd, dtype, _) in enumerate(FLASH_CHECK_SHAPES):
         q, k, v = flash_qkv(torch, dev, B, S, H, KV, hd, dtype, 10 + i)
+        # the TPU tiles 64 and 512 where S takes them, else S twice
+        t0, t1 = ((64, 512) if S % min(64, S) == 0 and S % min(512, S) == 0
+                  else (S, S))
         for causal in (True, False):
-            got = op(q, k, v, causal=causal, bq=64, bk=64)
-            again = op(q, k, v, causal=causal)          # bq = bk = 512
+            got = op(q, k, v, causal=causal, bq=t0, bk=t0)
+            again = op(q, k, v, causal=causal, bq=t1, bk=t1)
             torch.cuda.synchronize()
             if not torch.equal(got, again):
-                raise AssertionError(f"{name}: bq/bk changed the result")
+                raise AssertionError(f"{name}: bq/bk or a second call "
+                                     "changed the result")
             err, share = compare_flash(
                 torch, got, q, k, v, causal, f"{name} B={B} S={S} H={H} "
                 f"KV={KV} hd={hd} {dtype} causal={causal}")
@@ -1421,7 +1422,7 @@ def flash_check(torch, op, dev):
                 control = (
                     (bad.float() - op.plain(q, k, v, causal=causal).float()
                      ).abs().max().item(),
-                    bf16_share(torch, bad, q, k, v, causal))
+                    bf16_share(bad, q, k, v, causal))
                 log(f"    control (outputs under 0.25 moved by 8 ulps): "
                     f"max_abs_err {control[0]:.3e}, share {control[1]:.4f}")
                 if not control[1] > 1:
@@ -1429,7 +1430,7 @@ def flash_check(torch, op, dev):
                                          "through")
         del q, k, v, got, again
         torch.cuda.empty_cache()
-    log(f"  bq/bk 64 and 512 give the same bits at every shape; bf16: "
+    log(f"  bq/bk 64 (or S) and 512 give the same bits at every shape; bf16: "
         f"largest share of the limit {max(shares):.4f}, the control's "
         f"{control[1]:.4f} (max_abs_err {control[0]:.3e}), rejected")
     return max(errs)
@@ -1631,10 +1632,41 @@ def flash_times(torch, op, path, card):
         log(f"  {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  "
             f"plain {plain_ms:.4f} ms  SDPA {library_ms:.4f} ms (max diff "
             f"from the kernel {diff:.3e})  bound {bound_ms:.4f} ms "
-            f"({bound_by}) -> {bound_ms / ms:.1%} of bound  [{card}]")
+            f"({bound_by}) -> {bound_ms / ms:.1%} of bound; kernel / SDPA "
+            f"{ms / library_ms:.2f}x  [{card}]")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms)
+                         library_ms=library_ms, tflops=flops / ms / 1e9,
+                         kernel_over_library=ms / library_ms)
+    return out
+
+
+def flash_ptxas(kernel, ptxas_log, build, card):
+    """Phase 24: registers, shared memory and spills of every
+    ``flash_kernel`` instance, from the build's ``-Xptxas -v`` log; a
+    spill fails the phase."""
+    rows = [r for r in build.ptxas_report(ptxas_log)
+            if "flash_kernel" in r["entry"]]
+    if not rows:
+        raise AssertionError("no flash_kernel instance in the ptxas log")
+    lib = kernel.library()
+    out = []
+    for r in rows:
+        inst = re.search(r"flash_kernelI(\w+?)Li(\d+)E", r["entry"])
+        dtype = "float32" if inst.group(1) == "f" else "bfloat16"
+        hd = int(inst.group(2))
+        tile = ("SIMT" if dtype == "float32" else
+                "wgmma" if hd >= 64 else "mma.sync")
+        dynamic = lib.flash_attention_smem_bytes(hd, int(dtype != "float32"))
+        log(f"  flash_kernel<{dtype}, {hd}> ({tile}): {r['registers']} "
+            f"registers, {r['smem']} B static + {dynamic} B dynamic shared "
+            f"memory, spill stores {r['spill_stores']} B, loads "
+            f"{r['spill_loads']} B, stack {r['stack']} B  [{card}]")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"flash_kernel<{dtype}, {hd}> spills")
+        out.append(dict(dtype=dtype, hd=hd, tile=tile,
+                        registers=r["registers"], smem_static=r["smem"],
+                        smem_dynamic=dynamic))
     return out
 
 

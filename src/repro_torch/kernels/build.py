@@ -7,17 +7,20 @@ the flags, so a changed source or header rebuilds and an unchanged one is
 a cache hit.  Nothing is compiled when a
 module is imported: :func:`load` builds at first use, and :func:`build_all`
 starts one ``nvcc`` per source at once and returns each compile time and
-log (``chip_smoke.py`` prints them).
+log (``chip_smoke.py`` prints them).  The log is kept beside the library
+(``.log``), so a cache hit still reports it; :func:`ptxas_report` reads
+each kernel's registers, shared memory and spills out of it.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -58,7 +61,9 @@ def build_all(names: Sequence[str]) -> Dict[str, dict]:
     for name in names:
         lib = library_path(name)
         if lib.exists():
-            out[name] = {"cache_hit": True, "seconds": 0.0, "log": ""}
+            log = lib.with_suffix(".log")
+            out[name] = {"cache_hit": True, "seconds": 0.0,
+                         "log": log.read_text() if log.exists() else ""}
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         running[name] = (lib, tmp, subprocess.Popen(
@@ -72,11 +77,39 @@ def build_all(names: Sequence[str]) -> Dict[str, dict]:
             failed.append(f"nvcc failed for {name} "
                           f"(exit {proc.returncode}):\n{log}")
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
         out[name] = {"cache_hit": False, "seconds": time.perf_counter() - t0,
                      "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
+    return out
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Each kernel entry of an ``nvcc -Xptxas -v`` log: ``entry`` (the
+    mangled name), ``registers``, ``smem`` (static shared bytes),
+    ``stack``, ``spill_stores`` and ``spill_loads`` (bytes), in the log's
+    order."""
+    out: List[dict] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            out.append({"entry": entry.group(1)})
+            continue
+        if not out:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[-1].update(stack=int(spill.group(1)),
+                           spill_stores=int(spill.group(2)),
+                           spill_loads=int(spill.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[-1].update(registers=int(used.group(1)),
+                           smem=int(smem.group(1)) if smem else 0)
     return out
 
 

@@ -21,4 +21,6 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p] + [i] * 6 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_smem_bytes.restype = ctypes.c_int
     return lib

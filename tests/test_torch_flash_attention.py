@@ -18,7 +18,8 @@ from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels.flash_attention.ops import (check_shapes,
                                                      flash_attention)
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (bf16_share,
+                                                     flash_attention_ref)
 
 # tests/test_kernels.py's (B, S, H, KV, hd, causal, dtype), then
 # smollm-360m's grouping (15 q heads over 5 kv heads) at a short sequence
@@ -93,3 +94,81 @@ def test_flash_refuses_what_the_tpu_grid_refuses():
                      v[:, :, :1].repeat(1, 1, 3, 1), 32, 32)
     with pytest.raises(ValueError):
         flash_attention(q[0], k, v)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 128, 6, 2, 64),    # G = 3
+                                         (2, 64, 8, 2, 32)])    # G = 4
+def test_bf16_limit_holds_for_the_reference_kernel(B, S, H, KV, hd):
+    """The card's bf16 limit (``bf16_share`` at most 1, as chip_smoke.py
+    phase 21 and the card tests hold the kernel) is met by the Pallas
+    kernel in bf16 over 32-key tiles: unnormalised weights rounded for the
+    PV product, l summed unrounded, _flash_kernel's own rounding.  Outputs
+    under 0.25 moved by 8 ulps do not meet it."""
+    (qj, kj, vj), (q, k, v) = _inputs(B, S, H, KV, hd, "bfloat16", seed=3)
+    pallas = torch.from_numpy(_np(flash_attention_pallas(
+        qj, kj, vj, causal=True, bq=32, bk=32, interpret=True))).bfloat16()
+    assert bf16_share(pallas, q, k, v, True) <= 1
+    small = (pallas.float().abs() < 0.25).to(torch.int16)
+    control = (pallas.view(torch.int16) + 8 * small).view(torch.bfloat16)
+    assert bf16_share(control, q, k, v, True) > 1
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_kernelI13__nv_bfloat16Li128EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelI13__nv_bfloat16Li128EEEvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 648 bytes smem, 440 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112flash_kernelIfLi16EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112flash_kernelIfLi16EEEvPKT_
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 776 bytes smem, 440 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_smem_and_spills():
+    from repro_torch.kernels.build import ptxas_report
+
+    bf16, f32 = ptxas_report(PTXAS_LOG)
+    assert "flash_kernelI13__nv_bfloat16Li128E" in bf16["entry"]
+    assert (bf16["registers"], bf16["smem"], bf16["spill_stores"],
+            bf16["spill_loads"], bf16["stack"]) == (128, 648, 0, 0, 0)
+    assert (f32["registers"], f32["smem"], f32["spill_stores"],
+            f32["spill_loads"], f32["stack"]) == (64, 776, 4, 12, 8)
+    assert ptxas_report("") == []
+
+
+def test_chip_smoke_reads_each_flash_instance_and_fails_on_a_spill():
+    """``chip_smoke.py``'s phase 24 names each instance's tile from the
+    ``-Xptxas -v`` log, adds its dynamic shared memory, and fails on a
+    spill (the f32 hd-16 entry of the sample log spills)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    class Lib:
+        @staticmethod
+        def flash_attention_smem_bytes(hd, dtype):
+            return 1000 * hd + dtype
+
+    class Kernel:
+        @staticmethod
+        def library():
+            return Lib
+
+    bf16_log = PTXAS_LOG[:PTXAS_LOG.index(
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_112flash_kernelIfLi16")]
+    (row,) = smoke.flash_ptxas(Kernel, bf16_log, build, "card")
+    assert row == dict(dtype="bfloat16", hd=128, tile="wgmma", registers=128,
+                       smem_static=648, smem_dynamic=128001)
+    with pytest.raises(AssertionError, match="float32, 16> spills"):
+        smoke.flash_ptxas(Kernel, PTXAS_LOG, build, "card")
+    with pytest.raises(AssertionError, match="no flash_kernel"):
+        smoke.flash_ptxas(Kernel, "", build, "card")
