@@ -9,8 +9,13 @@ Phases, each of which raises on failure (the script catches none):
    nvcc, one process per source, all started together;
 3. the ragged paged-attention kernel against its plain PyTorch version at
    smollm-360m's widths (H=15, KV=5, hd=64, BS=16) on mixed prefill+decode
-   lanes with padding lanes and empty entries: float32 (atol 2e-5) and
-   bfloat16 (atol 2e-2);
+   lanes with padding lanes and empty entries, and on the shared
+   long-owner cases (hd 16, G = 3 and 4: a prefill chunk mid-sequence
+   whose rows span more than one 128-row tensor-core tile, decode lanes, a
+   two-lane owner, a shuffled BlockList): float32 (atol 2e-5) and bfloat16
+   (atol 2e-2, and every element within 2^-7 (M + |want|) + 1e-4 of the
+   plain version on float32 q and k, as flash in phase 21, which the
+   outputs under 0.25 moved by 8 ulps must fail);
 4. a small-input reference: reduced smollm-360m in float32 served on the
    card and on the CPU (the plain path): one fused step's logits agree
    (atol 1e-3) and the greedy streams are identical;
@@ -20,14 +25,21 @@ Phases, each of which raises on failure (the script catches none):
    prefix), 32 new tokens each, max_batch 16, 16-token KV blocks in a
    4096-block pool.  The kernel's launch count
    must equal steps x 32, the allocator's invariants must hold and the
-   pool must drain.  Layer 0's attention inputs of one mixed step and one
-   decode-only step are captured on the way;
+   pool must drain; the prefill-only, mixed and decode-only steps and the
+   kernel's launches in each are printed.  Layer 0's attention inputs of
+   one mixed step and one decode-only step are captured on the way;
 6. the kernel against the plain version on the captured inputs of the
-   decode step and the mixed step (bf16, atol 2e-2), then times of each:
-   the kernel (CUDA events over back-to-back launches) beside the plain
-   version and the bound (the K/V rows of the step's keys, q, out and the
-   lists at 3.35 TB/s, or operations at the bf16/f32 peak);
-7. torch.profiler over three decode-only steps;
+   decode step and the mixed step (bf16, atol 2e-2 and the per-element
+   limit of phase 3), then times of each: the kernel (CUDA events over
+   back-to-back launches) and its TFLOP/s beside the plain version and
+   both bounds, the bytes (the K/V rows of the step's keys, q, out and the
+   lists at 3.35 TB/s) and the operations (4 hd per (head, valid key) at
+   the bf16/f32 peak), with the share of the larger; then the registers,
+   shared memory and spills of every ragged instance (``-Xptxas -v``; a
+   spill fails the phase);
+7. torch.profiler over three decode-only steps, then over phase 5's first
+   mixed step (its requests anew): wall, the device's busy share and the
+   attention kernel's device ms;
 8. the BatchedTable embedding-bag kernel against its plain version at
    RM1's and RM2's full widths (10 M x 128 with L = 10, 20 M x 64 with
    L = 20; tables past 2^31 bytes), 4096 x T bags with uniform ids, ids
@@ -50,8 +62,9 @@ Phases, each of which raises on failure (the script catches none):
    request, runs longer than a tile, padding lanes, the pool given as the
    fused pool's strided views, ``q_chunk`` 16 and 4, ``prefetch_depth`` 0
    and 2: float32 (atol 2e-5) and bfloat16 (atol 2e-2); then phase 3's
-   lanes through the chunked and the ragged kernel, which must agree
-   bitwise (the max difference is printed where they do not);
+   lanes (all its cases) through the chunked kernel at ``q_chunk`` 16 and
+   4 and the ragged kernel, which must agree bitwise (the max difference
+   is printed where they do not);
 13. the decode kernel against ``paged_attention_opt`` (plain) at the same
    widths, with a request that has no entry (it must read 0), padding
    entries, and a sorted and a shuffled BlockList; same tolerances;
@@ -61,9 +74,10 @@ Phases, each of which raises on failure (the script catches none):
    match the CPU (atol 1e-3) and the card's ``forward`` (atol 3e-3);
 15. serving with ``attn_impl="chunked"``: phase 5's 16 requests at full
    width.  The greedy streams must equal phase 5's, the chunked kernel's
-   launch count steps x 32, and the pool must drain.  Layer 0's inputs of
-   one mixed and one decode-only step are captured.  Then the workload
-   runs four more times, ragged and chunked in turns, for their TPOT;
+   launch count steps x 32 (steps and launches by kind printed), and the
+   pool must drain.  Layer 0's inputs of one mixed and one decode-only
+   step are captured.  Then the workload runs four more times, ragged and
+   chunked in turns, for their TPOT;
 16. the paper path at full width: ``decode_step_paged`` over split pools
    for 16 requests, 128 prompt tokens fed one per step, then 32 greedy
    tokens; the decode kernel's launch count must be steps x 32.  Per-step
@@ -74,9 +88,12 @@ Phases, each of which raises on failure (the script catches none):
    us per token per chunk, and chunked against ragged on the fused-pool
    workloads;
 18. the chunked and decode kernels' times on the inputs captured in
-   phases 15 and 16 (CUDA events over back-to-back launches) beside their
-   plain versions and their bounds (the K/V rows the owners hold, q, out
-   and the lists at 3.35 TB/s, or operations at the dtype's peak);
+   phases 15 and 16 (CUDA events over back-to-back launches) and their
+   TFLOP/s beside their plain versions and both bounds (the K/V rows the
+   owners hold, q, out and the lists at 3.35 TB/s; operations at the
+   dtype's peak), the chunked kernel also held to phase 3's per-element
+   limit; then every chunked instance's registers, shared memory and
+   spills (a spill fails the phase);
 19. the STREAM kernels against their plain versions, bitwise: ADD, SCALE
    and TRIAD at ``block_rows`` 8/64/256/1024 on 2^21 elements (the
    reference's full size) and at 256 on 2^28, float32 and bfloat16, with
@@ -123,7 +140,11 @@ Each path (phases 5, 10, 15, 16, 22, 23) runs with every kernel's launch
 count set to 0 just before it and read just after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
 
-The line before the last is the kernels' JSON record; the last line is
+The ragged and chunked kernels run bf16 prefill owners (two or more lanes)
+on the tensor-core tile and everything else on the SIMT tile; their JSON
+records say so in ``tile`` and carry the mixed and decode steps' times,
+steps and launches.  The line before the last is the kernels' JSON
+record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
 nonzero before printing either.
 """
@@ -171,6 +192,10 @@ CHUNKED_CASE = dict(kv_lens=[300, 37, 0, 250, 17, 700],
 DECODE_CASE = dict(seq_lens=[300, 1, 0, 250, 16, 17, 700, 33],
                    num_entries=160)
 DTYPES = (("float32", 2e-5), ("bfloat16", 2e-2))
+# the kernels JSON line's "tile" of the ragged and chunked kernels
+PAGED_TILE = ("bf16 owners of >= 2 lanes: attend_tile_mma (wgmma at hd "
+              "64/128, mma.sync at 16/32); decode lanes, padding and f32: "
+              "attend_tile (SIMT)")
 EMB_BATCH = 4096
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 STREAM_N = (128 * 16384, 2 ** 28)    # the reference's full n; 1 GiB f32
@@ -259,12 +284,16 @@ def _clone(t):
 class Capture:
     """Clone layer 0's inputs, keyword arguments and output of the op
     ``api.<attr>``: for the first mixed and the first decode-only step the
-    engine runs (``engine`` given), or for a call armed by :meth:`arm`."""
+    engine runs (``engine`` given), or for a call armed by :meth:`arm`.
+    With an engine it also counts the steps of each kind (prefill-only,
+    mixed, decode-only) and the op's kernel launches in each kind."""
 
     def __init__(self, api, attr, engine=None):
         self.api, self.attr, self.engine = api, attr, engine
         self.want = None
         self.got = {}
+        self.kind = None
+        self.steps, self.launches = {}, {}
         self._op = getattr(api, attr)
         setattr(api, attr, self.op)
         if engine is not None:
@@ -276,17 +305,31 @@ class Capture:
 
     def render(self, plan):
         kind = ("mixed" if plan.decode and plan.prefill else
-                "decode" if plan.decode else None)
-        self.want = kind if kind and kind not in self.got else None
+                "decode" if plan.decode else "prefill")
+        self.kind = kind
+        self.steps[kind] = self.steps.get(kind, 0) + 1
+        self.want = (kind if kind != "prefill" and kind not in self.got
+                     else None)
         return self._render(plan)
 
     def op(self, *args, **kw):
+        before = self._op.launches
         out = self._op(*args, **kw)
+        if self.kind is not None:
+            self.launches[self.kind] = (self.launches.get(self.kind, 0)
+                                        + self._op.launches - before)
         if self.want is not None:
             self.got[self.want] = ([_clone(a) for a in args], dict(kw),
                                    out.clone())
             self.want = None
         return out
+
+    def by_kind(self):
+        """'prefill N steps / L launches, ...' for the kinds seen."""
+        return ", ".join(f"{k} {self.steps[k]} steps / "
+                         f"{self.launches.get(k, 0)} launches"
+                         for k in ("prefill", "mixed", "decode")
+                         if k in self.steps)
 
     def close(self):
         if self.engine is not None:
@@ -301,8 +344,28 @@ def reset_counts(counted):
         op.launches = 0
 
 
+def synthetic_cases():
+    """(name, ragged_case keyword arguments) of phases 3 and 12: mixed
+    lanes at smollm-360m's widths, then the long-owner cases (a prefill
+    chunk mid-sequence whose rows span more than one 128-row tensor-core
+    tile, decode lanes, a two-lane owner, a shuffled BlockList) at G = 3
+    and G = 4."""
+    from repro_torch.kernels.paged_attention.cases import SMALL, SMALL_CASES
+
+    return [("smollm-360m widths", dict(FULL_WIDTHS, **RAGGED_CASE))] + [
+        (name, dict(SMALL, **SMALL_CASES[name]))
+        for name in ("long_owner", "long_owner_g4")]
+
+
+def lanes_by_sequence(cu_q, cu_kv):
+    """[(nq, kvl), ...] of the non-empty sequences of a ragged call."""
+    cu_q, cu_kv = cu_q.tolist(), cu_kv.tolist()
+    return [(cu_q[j + 1] - cu_q[j], cu_kv[j + 1] - cu_kv[j])
+            for j in range(len(cu_q) - 1) if cu_q[j + 1] > cu_q[j]]
+
+
 def ragged_bound(torch, inputs):
-    """(bound_ms, bound_by) of one ragged call: the K/V rows of the keys
+    """:func:`bounds` of one ragged call: the K/V rows of the keys
     each live sequence holds (``kv_len`` rows, not whole pages) + q of the
     real lanes + out + the int32 lists, over HBM rate, against 4*hd
     operations per (head, valid key) pair over the dtype's peak."""
@@ -322,7 +385,7 @@ def ragged_bound(torch, inputs):
         keys += int(nq * first + nq * (nq - 1) // 2)
     nbytes = (rows * KV2 * HD * elt + int(cu_q[-1]) * H * HD * elt
               + T * H * HD * elt + 4 * (3 * len(bl) + 3 * S + 2))
-    return roofline(nbytes, 4 * HD * H * keys, q.dtype)
+    return bounds(nbytes, 4 * HD * H * keys, q.dtype)
 
 
 def roofline(nbytes, ops, dtype):
@@ -334,8 +397,17 @@ def roofline(nbytes, ops, dtype):
                                        else "operations")
 
 
+def bounds(nbytes, ops, dtype):
+    """The roofline of one call, both ways: ``bound_ms``/``bound_by`` (the
+    larger), ``bytes_ms`` and ``ops_ms``, and the operations."""
+    bound_ms, bound_by = roofline(nbytes, ops, dtype)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, ops=ops,
+                bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                ops_ms=1e3 * ops / PEAK_OPS[str(dtype)])
+
+
 def chunked_bound(torch, inputs):
-    """(bound_ms, bound_by) of one chunked call: the K/V rows each owner
+    """:func:`bounds` of one chunked call: the K/V rows each owner
     of a real lane holds, q of the real lanes, out of all lanes and the
     int32 lists, against 4*hd operations per (head, valid key) pair."""
     q, pk, _, bl, _, _, kv_lens, treq, tpos = inputs
@@ -352,11 +424,11 @@ def chunked_bound(torch, inputs):
     elt = q.element_size()
     nbytes = (rows * 2 * KV * HD * elt + int(real.sum()) * H * HD * elt
               + T * H * HD * elt + 4 * (3 * len(bl) + len(kvl) + 2 * T))
-    return roofline(nbytes, 4 * HD * H * keys, q.dtype)
+    return bounds(nbytes, 4 * HD * H * keys, q.dtype)
 
 
 def decode_bound(torch, inputs):
-    """(bound_ms, bound_by) of one decode call: each request's K/V rows, q,
+    """:func:`bounds` of one decode call: each request's K/V rows, q,
     out and the int32 lists, against 4*hd operations per (head, key)."""
     q, pk, _, bl, _, _, seq_lens = inputs
     B, H, HD = q.shape
@@ -365,7 +437,7 @@ def decode_bound(torch, inputs):
     elt = q.element_size()
     nbytes = (rows * 2 * KV * HD * elt + 2 * B * H * HD * elt
               + 4 * (3 * len(bl) + B))
-    return roofline(nbytes, 4 * HD * H * rows, q.dtype)
+    return bounds(nbytes, 4 * HD * H * rows, q.dtype)
 
 
 def reference_check(torch, np, cfg_mod, build_model, engine_mod,
@@ -502,24 +574,29 @@ def chunked_check(torch, np, api, ragged_case, dev):
                                  "result")
     log("  padding lanes and the empty request read 0; q_chunk and "
         "prefetch_depth change no bit of the result")
-    c = ragged_case(np.random.default_rng(0), **FULL_WIDTHS, **RAGGED_CASE)
     diffs = []
-    for name, _ in DTYPES:
-        dtype = getattr(torch, name)
-        args = [torch.from_numpy(c[k]).to(dev) for k in ARG_ORDER]
-        args[:2] = [a.to(dtype) for a in args[:2]]
-        q, pool, bl, br, bp, cu_q, cu_kv, ss = args
-        ragged = api.paged_attention_ragged_op(*args)
-        treq, tpos, kvl = api.ragged_lane_metadata(cu_q, cu_kv, ss,
-                                                   q.shape[0], ss.shape[0])
-        chunked = api.paged_attention_chunked_op(q, *fused_kv_views(pool),
-                                                 bl, br, bp, kvl, treq, tpos)
-        torch.cuda.synchronize()
-        diff = (chunked.float() - ragged.float()).abs().max().item()
-        log(f"  {name} phase-3 lanes, chunked vs ragged kernel: "
-            + ("bitwise equal" if torch.equal(chunked, ragged) else
-               f"NOT bitwise equal, max_abs_diff {diff:.3e}"))
-        diffs.append(diff)
+    for case_name, shape in synthetic_cases():
+        c = ragged_case(np.random.default_rng(0), **shape)
+        for name, _ in DTYPES:
+            dtype = getattr(torch, name)
+            args = [torch.from_numpy(c[k]).to(dev) for k in ARG_ORDER]
+            args[:2] = [a.to(dtype) for a in args[:2]]
+            q, pool, bl, br, bp, cu_q, cu_kv, ss = args
+            ragged = api.paged_attention_ragged_op(*args)
+            treq, tpos, kvl = api.ragged_lane_metadata(
+                cu_q, cu_kv, ss, q.shape[0], ss.shape[0])
+            outs = [api.paged_attention_chunked_op(
+                q, *fused_kv_views(pool), bl, br, bp, kvl, treq, tpos,
+                q_chunk=q_chunk) for q_chunk in (16, 4)]
+            torch.cuda.synchronize()
+            diff = max((o.float() - ragged.float()).abs().max().item()
+                       for o in outs)
+            same = all(torch.equal(o, ragged) for o in outs)
+            log(f"  {case_name} {name} phase-3 lanes, chunked (q_chunk 16 "
+                "and 4) vs ragged kernel: "
+                + ("bitwise equal" if same else
+                   f"NOT bitwise equal, max_abs_diff {diff:.3e}"))
+            diffs.append(diff)
     return max(errs), max(diffs)
 
 
@@ -603,6 +680,7 @@ def serve_chunked(torch, np, cfg_mod, engine_mod, api, counted, model,
         f"attn_impl {m['attn_impl']} q_chunk {m['q_chunk']}")
     log(f"  chunked kernel launches {launches} = steps x layers "
         f"{m['steps']} x {cfg.num_layers}; ragged launches {ragged}")
+    log(f"  steps by kind: {capture.by_kind()}")
     if launches != m["steps"] * cfg.num_layers or launches == 0 or ragged:
         raise AssertionError(f"chunked launches {launches} != steps x "
                              f"layers, or ragged launches {ragged} != 0")
@@ -618,6 +696,7 @@ def serve_chunked(torch, np, cfg_mod, engine_mod, api, counted, model,
     for kind in ("mixed", "decode"):
         if kind not in capture.got:
             raise AssertionError(f"no {kind} step captured")
+    capture.got["by_kind"] = (capture.steps, capture.launches)
     del chunked
     # the same workload again, ragged and chunked in turns, for TPOT: the
     # step is host-bound and hosts drift, so only neighbours compare
@@ -726,10 +805,12 @@ def fig17(torch, dev, card):
                 f"(max_abs_diff {r['max_abs_diff']:.3e})")
 
 
-def kernel_times(torch, op, inputs, kw, out_run, bound_ms_by, what, card):
+def kernel_times(torch, op, inputs, kw, out_run, bound, what, card,
+                 share=None):
     """The kernel behind ``op`` on captured inputs: rerun (deterministic,
-    finite), against its plain version (bf16, atol 2e-2), and its time
-    beside the plain version's and the bound."""
+    finite), against its plain version (bf16, atol 2e-2, and the
+    per-element limit ``share`` where given), and its time and TFLOP/s
+    beside the plain version's and both bounds (:func:`bounds`)."""
     again = op(*inputs, **kw)
     torch.cuda.synchronize()
     if not torch.equal(again, out_run):
@@ -737,15 +818,27 @@ def kernel_times(torch, op, inputs, kw, out_run, bound_ms_by, what, card):
     if not torch.isfinite(again).all():
         raise AssertionError(f"{what}: non-finite attention output")
     err = compare(torch, again, op.plain(*inputs, **kw), 2e-2, f"bf16 {what}")
+    limit = None
+    if share is not None:
+        limit = share(again, *inputs, **kw)
+        log(f"    on f32 q, k: largest |err| / (2^-7 (M + |want|) + 1e-4) "
+            f"{limit:.4f}")
+        if not limit <= 1:
+            raise AssertionError(f"{what}: kernel disagrees with the plain "
+                                 f"version on f32 q, k by {limit:.3f}x the "
+                                 "limit")
     ms = kernel_ms(op, *inputs, device="cuda", reps=50, **kw)
     plain_ms = device_ms(lambda: op.plain(*inputs, **kw), device="cuda",
                          reps=3)
-    bound_ms, bound_by = bound_ms_by
-    log(f"  {what}: kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
-        f"{bound_ms:.4f} ms ({bound_by})  -> {bound_ms / ms:.1%} of bound  "
-        f"[{card}]")
+    tflops = bound["ops"] / ms / 1e9
+    log(f"  {what}: kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s)  plain "
+        f"{plain_ms:.3f} ms  bounds: bytes {bound['bytes_ms']:.4f} ms, "
+        f"operations {bound['ops_ms']:.4f} ms -> {bound['bound_ms'] / ms:.1%}"
+        f" of the larger ({bound['bound_by']})  [{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                bytes_ms=bound["bytes_ms"], ops_ms=bound["ops_ms"],
+                tflops=tflops, bf16_share=limit)
 
 
 def main() -> int:
@@ -810,17 +903,34 @@ def main() -> int:
     log(f"  build (parallel) + load {time.perf_counter() - t0:.2f}s")
 
     # 3. kernel vs plain at full width ---------------------------------------
-    log("== 3. kernel vs plain, smollm-360m widths, synthetic lanes")
-    c = ragged_case(np.random.default_rng(0), **FULL_WIDTHS, **RAGGED_CASE)
-    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        args = [torch.from_numpy(c[k]).to(dev) for k in ARG_ORDER]
-        args[:2] = [a.to(dtype) for a in args[:2]]
-        got = api.paged_attention_ragged_op(*args)
-        torch.cuda.synchronize()
-        compare(torch, got, api.paged_attention_ragged(*args), atol,
-                f"{str(dtype)[6:]} T=256 S=8 Tb=160")
-        if torch.any(got[int(c["cu_q_lens"][-1]):] != 0):
-            raise AssertionError("padding lanes must read 0")
+    log("== 3. kernel vs plain, smollm-360m widths and the long-owner cases, "
+        "synthetic lanes")
+    for name, shape in synthetic_cases():
+        c = ragged_case(np.random.default_rng(0), **shape)
+        for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            args = [torch.from_numpy(c[k]).to(dev) for k in ARG_ORDER]
+            args[:2] = [a.to(dtype) for a in args[:2]]
+            got = api.paged_attention_ragged_op(*args)
+            torch.cuda.synchronize()
+            q, bl, ss = args[0], args[2], args[7]
+            compare(torch, got, api.paged_attention_ragged(*args), atol,
+                    f"{name} {str(dtype)[6:]} T={q.shape[0]} H={q.shape[1]} "
+                    f"hd={q.shape[2]} S={ss.shape[0]} Tb={bl.shape[0]}")
+            if dtype == torch.bfloat16:
+                share = api.ragged_bf16_share(got, *args)
+                # the outputs under 0.25 moved by 8 ulps must fail the limit
+                small = (got.float().abs() < 0.25).to(torch.int16)
+                control = api.ragged_bf16_share(
+                    (got.view(torch.int16) + 8 * small).view(torch.bfloat16),
+                    *args)
+                log(f"    on f32 q, k: largest |err| / (2^-7 (M + |want|) + "
+                    f"1e-4) {share:.4f}; the control (outputs under 0.25 "
+                    f"moved by 8 ulps) {control:.4f}")
+                if not share <= 1 < control:
+                    raise AssertionError(f"{name}: {share:.3f}x the limit, "
+                                         f"control {control:.3f}x")
+            if torch.any(got[int(c["cu_q_lens"][-1]):] != 0):
+                raise AssertionError("padding lanes must read 0")
 
     # 4. small-input reference: card vs CPU -----------------------------------
     log("== 4. reduced smollm-360m f32: card vs CPU")
@@ -887,6 +997,7 @@ def main() -> int:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB;  kernel launches {launches} = steps x layers "
         f"{m['steps']} x {cfg.num_layers}")
+    log(f"  steps by kind: {capture.by_kind()}")
     if launches != m["steps"] * cfg.num_layers or launches == 0:
         raise AssertionError(f"kernel launches {launches} != steps x layers")
     if m["finished"] != len(reqs):
@@ -909,15 +1020,27 @@ def main() -> int:
     steps = {}
     for kind in ("decode", "mixed"):
         inputs, kw, out_run = capture.got[kind]
-        q, _, bl, _, _, cu_q, _, ss = inputs
+        q, _, bl, _, _, cu_q, cu_kv, ss = inputs
+        log(f"  {kind} step (nq, kvl) per sequence: "
+            f"{lanes_by_sequence(cu_q, cu_kv)}")
         steps[kind] = kernel_times(
             torch, api.paged_attention_ragged_op, inputs, kw, out_run,
             ragged_bound(torch, inputs),
             f"{kind} step T={q.shape[0]} real lanes {int(cu_q[-1])} "
-            f"S={ss.shape[0]} Tb={bl.shape[0]}", card)
-    # 7. where a decode step's time goes ---------------------------------------
+            f"S={ss.shape[0]} Tb={bl.shape[0]}", card,
+            share=api.ragged_bf16_share)
+        steps[kind].update(steps=capture.steps.get(kind, 0),
+                           launches=capture.launches.get(kind, 0))
+    ragged_inst = ptxas_instances(
+        "ragged_attention_kernel",
+        pa_kernel.library(KERNEL).paged_attention_ragged_smem_bytes,
+        builds[KERNEL]["log"], build, card, paged_tile)
+    # 7. where a decode step's and a mixed step's time goes -------------------
     log("== 7. profile of decode-only steps (16 requests, 512-token prompts)")
     profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev)
+    log("== 7b. profile of phase 5's first mixed step (phase 5's requests)")
+    mixed_profile = profile_mixed(torch, model, params, cfg, serve,
+                                  engine_mod, prompts, dev)
 
     del engine, capture
     torch.cuda.empty_cache()
@@ -985,13 +1108,22 @@ def main() -> int:
     # 18. new kernels' times on the captured inputs ----------------------------
     log("== 18. chunked and decode kernels on the captured layer-0 inputs")
     chunked_steps = {}
+    c_steps, c_by_kind = c_capture["by_kind"]
     for kind in ("decode", "mixed"):
         inputs, kw, out_run = c_capture[kind]
         chunked_steps[kind] = kernel_times(
             torch, api.paged_attention_chunked_op, inputs, kw, out_run,
             chunked_bound(torch, inputs),
             f"chunked {kind} step T={inputs[0].shape[0]} "
-            f"B={inputs[6].shape[0]} Tb={inputs[3].shape[0]}", card)
+            f"B={inputs[6].shape[0]} Tb={inputs[3].shape[0]} "
+            f"q_chunk={kw.get('q_chunk', 16)}", card,
+            share=lambda got, *a, **kw: api.chunked_bf16_share(got, *a))
+        chunked_steps[kind].update(steps=c_steps.get(kind, 0),
+                                   launches=c_by_kind.get(kind, 0))
+    chunked_inst = ptxas_instances(
+        "chunked_attention_kernel",
+        pa_kernel.library(CHUNKED_KERNEL).paged_attention_chunked_smem_bytes,
+        builds[CHUNKED_KERNEL]["log"], build, card, paged_tile)
     inputs, kw, out_run = d_capture["decode"]
     decode_top = kernel_times(
         torch, api.paged_attention_op, inputs, kw, out_run,
@@ -1038,18 +1170,23 @@ def main() -> int:
         s["max_abs_err"] for s in steps.values()))
     chunked_top = dict(chunked_steps["mixed"], max_abs_err=max(
         [s["max_abs_err"] for s in chunked_steps.values()] + [chunked_err]))
+    for top in (ragged_top, chunked_top):
+        del top["steps"], top["launches"]
     log(json.dumps({"kernels": [{
         "name": KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{KERNEL}.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:471",
         "launches": launches, **ragged_top, "library_ms": None,
-        "decode": steps["decode"], "mixed": steps["mixed"]}, {
+        "tile": PAGED_TILE, "decode": steps["decode"],
+        "mixed": steps["mixed"], "mixed_step_profile": mixed_profile,
+        "instances": ragged_inst}, {
         "name": CHUNKED_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{CHUNKED_KERNEL}.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:293",
         "launches": c_launches, **chunked_top, "library_ms": None,
-        "max_abs_diff_vs_ragged": ragged_diff,
-        "decode": chunked_steps["decode"], "mixed": chunked_steps["mixed"]}, {
+        "max_abs_diff_vs_ragged": ragged_diff, "tile": PAGED_TILE,
+        "decode": chunked_steps["decode"], "mixed": chunked_steps["mixed"],
+        "instances": chunked_inst}, {
         "name": DECODE_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{DECODE_KERNEL}.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
@@ -1142,6 +1279,45 @@ def profile_calls(torch, fn, n, what, unit):
     for cpu_us, count, key in sorted(host, reverse=True)[:10]:
         log(f"    {cpu_us / per:9.4f} ms/{unit}  {count // n:5d} calls/{unit}"
             f"  {key[:90]}")
+    return dict(wall_ms=wall_us / per, busy_ms=busy / per,
+                busy_share=busy / wall_us,
+                device_ms={key: dev_us / per for dev_us, _, key in rows})
+
+
+def profile_mixed(torch, model, params, cfg, serve, engine_mod, prompts,
+                  dev):
+    """torch.profiler over the first mixed step of phase 5's requests: wall,
+    the device's busy share, and the attention kernel's device ms."""
+    eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                   num_blocks=SERVE_BLOCKS, device=dev)
+    for i, p in prompts:
+        eng.submit(engine_mod.Request(req_id=i, prompt=p,
+                                      max_new_tokens=SERVE_NEW))
+    kinds = []
+    render = eng._render
+
+    def spy(plan):
+        kinds.append("mixed" if plan.decode and plan.prefill else
+                     "decode" if plan.decode else "prefill")
+        return render(plan)
+
+    eng._render = spy
+    while not any(r.state.name == "DECODING" for r in eng.active.values()):
+        eng.step()
+    # decode lanes beside prompts still waiting: the next step is mixed
+    before = len(kinds)
+    out = profile_calls(torch, eng.step, 1, "mixed step", "step")
+    if kinds[before:] != ["mixed"]:
+        raise AssertionError(f"the profiled step was {kinds[before:]}, not "
+                             "mixed")
+    attn = {k: v for k, v in out["device_ms"].items()
+            if "attention_kernel" in k}
+    for key, ms in attn.items():
+        log(f"  attention kernel {ms:.4f} ms/step of device time: "
+            f"{key[:70]}")
+    out["attention_ms"] = sum(attn.values())
+    del out["device_ms"]
+    return out
 
 
 def embedding_check(torch, cfg, emb_api, dev):
@@ -1643,27 +1819,48 @@ def flash_times(torch, op, path, card):
 
 def flash_ptxas(kernel, ptxas_log, build, card):
     """Phase 24: registers, shared memory and spills of every
-    ``flash_kernel`` instance, from the build's ``-Xptxas -v`` log; a
-    spill fails the phase."""
+    ``flash_kernel`` instance of ``kernel.library()``; a spill fails the
+    phase."""
+    return ptxas_instances(
+        "flash_kernel", kernel.library().flash_attention_smem_bytes,
+        ptxas_log, build, card, flash_tile)
+
+
+def flash_tile(dtype, hd):
+    return ("SIMT" if dtype == "float32" else
+            "wgmma" if hd >= 64 else "mma.sync")
+
+
+def paged_tile(dtype, hd):
+    """The tiles a ragged or chunked instance holds: SIMT alone in
+    float32; in bf16 the SIMT tile (decode lanes, padding) and the
+    tensor-core tile (owners of two or more lanes)."""
+    return ("SIMT" if dtype == "float32" else
+            "SIMT + " + ("wgmma" if hd >= 64 else "mma.sync"))
+
+
+def ptxas_instances(kernel, smem_bytes, ptxas_log, build, card, tile_of):
+    """Registers, shared memory and spills of every instance of the
+    ``__global__`` function ``kernel``, from the build's ``-Xptxas -v``
+    log; ``smem_bytes(hd, dtype code)`` gives the dynamic shared memory.
+    A spill fails the phase."""
     rows = [r for r in build.ptxas_report(ptxas_log)
-            if "flash_kernel" in r["entry"]]
+            if f"{kernel}I" in r["entry"]]
     if not rows:
-        raise AssertionError("no flash_kernel instance in the ptxas log")
-    lib = kernel.library()
+        raise AssertionError(f"no {kernel} instance in the ptxas log")
     out = []
     for r in rows:
-        inst = re.search(r"flash_kernelI(\w+?)Li(\d+)E", r["entry"])
+        inst = re.search(kernel + r"I(\w+?)Li(\d+)E", r["entry"])
         dtype = "float32" if inst.group(1) == "f" else "bfloat16"
         hd = int(inst.group(2))
-        tile = ("SIMT" if dtype == "float32" else
-                "wgmma" if hd >= 64 else "mma.sync")
-        dynamic = lib.flash_attention_smem_bytes(hd, int(dtype != "float32"))
-        log(f"  flash_kernel<{dtype}, {hd}> ({tile}): {r['registers']} "
+        tile = tile_of(dtype, hd)
+        dynamic = smem_bytes(hd, int(dtype != "float32"))
+        log(f"  {kernel}<{dtype}, {hd}> ({tile}): {r['registers']} "
             f"registers, {r['smem']} B static + {dynamic} B dynamic shared "
             f"memory, spill stores {r['spill_stores']} B, loads "
             f"{r['spill_loads']} B, stack {r['stack']} B  [{card}]")
         if r["spill_stores"] or r["spill_loads"]:
-            raise AssertionError(f"flash_kernel<{dtype}, {hd}> spills")
+            raise AssertionError(f"{kernel}<{dtype}, {hd}> spills")
         out.append(dict(dtype=dtype, hd=hd, tile=tile,
                         registers=r["registers"], smem_static=r["smem"],
                         smem_dynamic=dynamic))

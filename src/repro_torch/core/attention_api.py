@@ -253,6 +253,41 @@ def paged_attention_ragged(q, kv_pool, block_list, block_req, block_pos,
                                    sm_scale=sm_scale)
 
 
+def chunked_bf16_share(got, q, pool_k, pool_v, block_list, block_req,
+                       block_pos, kv_lens, token_req, token_pos,
+                       *, sm_scale: Optional[float] = None) -> float:
+    """Largest ``|got - want| / (2^-7 (M + |want|) + 1e-4)`` of a bf16
+    chunked result: ``want`` the plain version on float32 q and K with v as
+    it is, ``M`` the same on ``|v|`` (the weights' mean of |v|).  At most 1
+    passes.  The flash kernel's limit (``kernels/flash_attention/ref.py``
+    ``bf16_share``), for the same reason: with the scores in float32, as
+    the kernels take them, a bf16 kernel differs from ``want`` only where
+    each rounds the weights and the output to bfloat16."""
+    from repro_torch.kernels.flash_attention.ref import (BF16_FLOOR,
+                                                         BF16_REL)
+
+    ints = (block_list, block_req, block_pos, kv_lens, token_req, token_pos)
+    qf, kf = q.float(), pool_k.float()
+    want = paged_attention_chunked(qf, kf, pool_v, *ints,
+                                   sm_scale=sm_scale).float()
+    m = paged_attention_chunked(qf, kf, pool_v.abs(), *ints,
+                                sm_scale=sm_scale).float()
+    return ((got.float() - want).abs()
+            / (BF16_REL * (m + want.abs()) + BF16_FLOOR)).max().item()
+
+
+def ragged_bf16_share(got, q, kv_pool, block_list, block_req, block_pos,
+                      cu_q_lens, cu_kv_lens, seq_slot,
+                      *, sm_scale: Optional[float] = None) -> float:
+    """:func:`chunked_bf16_share` of a bf16 ragged result, on the lanes
+    :func:`ragged_lane_metadata` derives."""
+    token_req, token_pos, kv_lens = ragged_lane_metadata(
+        cu_q_lens, cu_kv_lens, seq_slot, q.shape[0], seq_slot.shape[0])
+    return chunked_bf16_share(got, q, *paged_kv.fused_kv_views(kv_pool),
+                              block_list, block_req, block_pos, kv_lens,
+                              token_req, token_pos, sm_scale=sm_scale)
+
+
 # ----------------------------------------------------------------- wrappers
 def _check_q_and_pools(q, pools: Dict[str, torch.Tensor], num_kv: int):
     """dtype, shape, device and 16-byte alignment of q and the pools (the
@@ -318,7 +353,10 @@ def ragged_scratch_ints(num_seqs: int, num_entries: int) -> int:
 
 class _RaggedAttentionOp(KernelOp):
     """Ragged paged attention over the fused pool; plain version
-    :func:`paged_attention_ragged`.  The fused pool must be contiguous."""
+    :func:`paged_attention_ragged`.  The fused pool must be contiguous.
+    In bf16 the tiles of a sequence with two or more lanes run on the
+    tensor cores, the rest (decode lanes, float32) on the SIMT tile;
+    either way a lane's bits are the chunked kernel's."""
 
     name = "paged_attention_ragged"
 
@@ -368,10 +406,12 @@ class _ChunkedAttentionOp(KernelOp):
     (strided views of the fused pool are read in place); plain version
     :func:`paged_attention_chunked`.
 
-    ``q_chunk`` is the kernel's lane tile, capped at 64 // G lanes (a
+    ``q_chunk`` is the kernel's lane tile, capped at 128 // G lanes for an
+    owner whose tiles run on the tensor cores (bf16, two or more lanes in
+    the call: a tile's 128 rows) and at 64 // G for the rest (the SIMT
     tile's 64 rows).  ``prefetch_depth`` chose the TPU kernel's page DMA
-    ring; the CUDA kernel stages each 64-key tile through shared memory and
-    ignores it.  Neither changes a result.
+    ring; the CUDA kernel stages each 64-key stage through shared memory
+    and ignores it.  Neither changes a result.
     """
 
     name = "paged_attention_chunked"
@@ -402,8 +442,8 @@ class _ChunkedAttentionOp(KernelOp):
         if B < 1:
             raise ValueError("kv_lens must have at least one slot")
         out = torch.empty_like(q)
-        scratch = torch.empty((2 * B * Tb + B + T + 1,), dtype=torch.int32,
-                              device=q.device)
+        scratch = torch.empty((2 * B * Tb + 2 * B + T + 1,),
+                              dtype=torch.int32, device=q.device)
         sb, sr, sh, _ = pool_k.stride()
         argv = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                 out.data_ptr(), block_list.data_ptr(), block_req.data_ptr(),

@@ -1,7 +1,9 @@
 // A bf16 attention tile on Hopper's tensor cores (sm_90a): the counterpart
 // of paged::attend_tile (paged_attention_common.cuh) with the same
-// arguments, row layout and arithmetic, for flash_attention.cu today and
-// for the three paged-attention kernels later.
+// arguments, row layout and arithmetic.  flash_attention.cu runs every bf16
+// tile on it; the ragged and chunked paged-attention kernels run on it the
+// bf16 tiles of owners with two or more query lanes (prefill chunks), and
+// keep decode lanes on attend_tile (paged_attention_mma.cuh says why).
 //
 // Bound on the H100: operations, 4 x rows x keys x HD at 989 TFLOP/s in
 // bf16.  attend_tile runs both products as scalar f32 FMAs on operands

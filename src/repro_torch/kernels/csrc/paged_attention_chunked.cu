@@ -22,20 +22,37 @@
 // valid key, padding lanes included, write 0.
 //
 // Design: slot_lists_kernel compacts each slot's pages once per launch;
-// lane_tiles_kernel cuts the lanes into runs of equal owner (padding
-// lanes are one owner) and each run into tiles of tq = min(q_chunk,
-// 64 / G) lanes; chunked_attention_kernel walks the tiles, one block per
-// (tile, kv head), and hands each to paged::attend_tile, which the ragged
-// kernel shares.  Owners may interleave (lanes A B A): each run is its own
-// tile, and a lane's result does not depend on its tile, so this launch is
-// bitwise equal to the ragged kernel on the same lanes.
+// lane_tiles_kernel counts each owner's lanes in the launch, cuts the lanes
+// into runs of equal owner (padding lanes are one owner) and each run into
+// tiles; chunked_attention_kernel walks the tiles, one block per (tile, kv
+// head).  Owners may interleave (lanes A B A): each run is its own tile.
+//
+// Which tile serves which rows (paged_attention_mma.cuh), the rule the
+// ragged kernel follows too: in bfloat16, an owner with two or more lanes
+// in the launch (a prefill chunk) runs its tiles on paged::attend_tile_mma,
+// 128 query rows per block on the tensor cores (wgmma at HD 64/128,
+// mma.sync at 16/32, K/V in bf16 through a two-stage cp.async ring), in
+// tiles of min(q_chunk, 128 / G) lanes; everything else runs on the SIMT
+// paged::attend_tile in tiles of min(q_chunk, 64 / G) lanes: float32,
+// single-lane owners (decode lanes) and padding lanes.  A row's result on
+// either tile depends only on its owner's page list, its position and the
+// owner's key count, never on its tile, and the keys stream in list order,
+// 64 per stage, in both kernels: so this launch is bitwise equal to the
+// ragged kernel on the same lanes whatever q_chunk is, and on decode lanes
+// to the decode kernel (which stays on attend_tile).  A bf16 instance holds
+// both tiles, chosen per tile at run time, in one launch: 256 threads,
+// dynamic shared memory for the larger tile, two blocks per SM at HD <= 64.
 // The reference's prefetch_depth only chooses how the TPU stages pages
-// (a DMA ring); this kernel loads each 64-key tile through shared memory
-// and takes no such choice.
-// Bound on the H100: the bytes of the K/V rows the lanes' owners hold,
-// plus q and out, at 3.35 TB/s.
+// (a DMA ring); this kernel takes no such choice.
+// Bound on the H100: the larger of the bytes (the K/V rows the lanes'
+// owners hold, q, out and the lists, at 3.35 TB/s) and the operations
+// (4*HD per (head, valid key) pair, at 989 TFLOP/s in bf16 or 67 in f32);
+// a serving step's bytes bound is the larger.
+// Not done yet: splitting a long owner's keys across blocks for the decode
+// lanes (flash-decoding, with the ragged and decode kernels), TMA copies
+// and warp specialisation in the tensor-core tile.
 
-#include "paged_attention_common.cuh"
+#include "paged_attention_mma.cuh"
 
 namespace {
 
@@ -47,19 +64,32 @@ __device__ __forceinline__ int owner_of(int req, int B) {
   return req >= 0 && req < B ? req : B;
 }
 
-// One block of kListThreads threads: the first lane of every tile, in lane
+// One block of kListThreads threads.  First each owner's lanes in the
+// launch into lane_count[0, B); then the first lane of every tile, in lane
 // order, into tile_start[0, *num_tiles).  Lane t opens a tile when it opens
-// a run of equal owner, or when it lies a multiple of tq lanes past its
-// run's start.  Tile k spans [tile_start[k], tile_start[k + 1]), the last
-// one up to T.
+// a run of equal owner, or when it lies a multiple of its owner's tile
+// length past its run's start: tq_mma lanes for an owner of lane_count >=
+// kMmaMinLanes, else tq (tq_mma == tq in float32).  Tile k spans
+// [tile_start[k], tile_start[k + 1]), the last one up to T.
 __global__ void lane_tiles_kernel(const int* __restrict__ token_req, int T,
-                                  int B, int tq, int* __restrict__ tile_start,
+                                  int B, int tq, int tq_mma,
+                                  int* __restrict__ lane_count,
+                                  int* __restrict__ tile_start,
                                   int* __restrict__ num_tiles) {
   __shared__ int warp_val[kListThreads / 32];
   __shared__ int carry[2];        // last run start so far, tiles so far
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int b = tid; b < B; b += kListThreads) lane_count[b] = 0;
   if (tid == 0) carry[0] = carry[1] = 0;
   __syncthreads();
+  for (int base = 0; base < T; base += kListThreads) {
+    const int t = base + tid;
+    const int own = t < T ? owner_of(token_req[t], B) : B;
+    const unsigned peers = __match_any_sync(0xffffffffu, own);
+    if (own < B && lane == __ffs(peers) - 1)
+      atomicAdd(&lane_count[own], __popc(peers));
+  }
+  __syncthreads();                // the counts are complete and visible
   for (int base = 0; base < T; base += kListThreads) {
     const int t = base + tid;
     const bool in = t < T;
@@ -75,7 +105,10 @@ __global__ void lane_tiles_kernel(const int* __restrict__ token_req, int T,
     __syncthreads();
     int run_start = max(v, carry[0]);
     for (int w = 0; w < warp; ++w) run_start = max(run_start, warp_val[w]);
-    const bool starts = in && (t - run_start) % tq == 0;
+    const int len =
+        in && own < B && __ldcg(&lane_count[own]) >= paged::kMmaMinLanes
+            ? tq_mma : tq;
+    const bool starts = in && (t - run_start) % len == 0;
     const unsigned mask = __ballot_sync(0xffffffffu, starts);
     __syncthreads();              // warp_val and carry[0] are read
     if (lane == 0) warp_val[warp] = __popc(mask);
@@ -100,14 +133,22 @@ __global__ void lane_tiles_kernel(const int* __restrict__ token_req, int T,
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) chunked_attention_kernel(
-    const T* __restrict__ q, const paged::Pool<T> pool, T* __restrict__ out,
-    const int* __restrict__ token_req, const int* __restrict__ token_pos,
-    const int* __restrict__ kv_lens, const int* __restrict__ tile_start,
-    const int* __restrict__ num_tiles, const int* __restrict__ list_blk,
-    const int* __restrict__ list_pos, const int* __restrict__ counts,
-    int num_lanes, int H, int KV, int B, int BS, int Tb, float scale) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads,
+                                  paged::PagedKernel<T, HD>::kMinBlocks)
+    chunked_attention_kernel(const T* __restrict__ q,
+                             const paged::Pool<T> pool, T* __restrict__ out,
+                             const int* __restrict__ token_req,
+                             const int* __restrict__ token_pos,
+                             const int* __restrict__ kv_lens,
+                             const int* __restrict__ lane_count,
+                             const int* __restrict__ tile_start,
+                             const int* __restrict__ num_tiles,
+                             const int* __restrict__ list_blk,
+                             const int* __restrict__ list_pos,
+                             const int* __restrict__ counts, int num_lanes,
+                             int H, int KV, int B, int BS, int Tb,
+                             float scale) {
+  extern __shared__ __align__(16) float smem[];
   const int kvh = blockIdx.y;
   const int G = H / KV;
   const int row = threadIdx.x >> 2;
@@ -117,13 +158,24 @@ __global__ void __launch_bounds__(kThreads) chunked_attention_kernel(
     const int n = (k + 1 < ntiles ? tile_start[k + 1] : num_lanes) - lane0;
     const int own = token_req[lane0];
     const bool real = own >= 0 && own < B;
-    int kvl = 0, pos = -1, count = 0;
+    int kvl = 0, count = 0, lanes = 0;
     if (real) {
       kvl = kv_lens[own];
       count = counts[own];
-      if (row < n * G) pos = token_pos[lane0 + row / G];
+      lanes = lane_count[own];
     }
     const size_t list0 = static_cast<size_t>(real ? own : 0) * Tb;
+    if constexpr (paged::PagedKernel<T, HD>::kMma) {
+      if (paged::mma_owner<T>(lanes)) {      // uniform across the block
+        const auto row_pos = [=](int r) { return token_pos[lane0 + r / G]; };
+        // synchronises before it touches shared memory
+        paged::attend_tile_mma<HD>(q, out, H, G, kvh, lane0, n * G, row_pos,
+                                   kvl, list_blk + list0, list_pos + list0,
+                                   count, BS, pool, scale, smem);
+        continue;
+      }
+    }
+    const int pos = real && row < n * G ? token_pos[lane0 + row / G] : -1;
     __syncthreads();            // the previous tile's shared reads are done
     paged::attend_tile<T, HD>(q, out, H, G, kvh, lane0, n * G, pos, kvl,
                               list_blk + list0, list_pos + list0, count, BS,
@@ -132,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) chunked_attention_kernel(
 }
 
 // The scratch buffer: list_blk, list_pos (B * Tb each), counts (B),
-// tile_start (T), num_tiles (1).
+// lane_count (B), tile_start (T), num_tiles (1).
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    void* out, const int* token_req, const int* token_pos,
@@ -140,26 +192,28 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    int KV, int B, int BS, int Tb, int tq, long long sb,
                    long long sr, long long sh, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = paged::smem_floats<HD>() * sizeof(float);
+  constexpr size_t smem = paged::PagedKernel<T, HD>::kSmem;
   static bool configured = false;
-  const cudaError_t err = paged::allow_smem(chunked_attention_kernel<T, HD>,
-                                            smem, &configured);
+  const cudaError_t err = paged::configure<T, HD>(
+      chunked_attention_kernel<T, HD>, &configured);
   if (err != cudaSuccess) return err;
   const int* list_blk = scratch;
   const int* list_pos = list_blk + static_cast<size_t>(B) * Tb;
   const int* counts = list_pos + static_cast<size_t>(B) * Tb;
-  const int* tile_start = counts + B;
+  const int* lane_count = counts + B;
+  const int* tile_start = lane_count + B;
   const int* num_tiles = tile_start + T_lanes;
   const paged::Pool<T> pool{static_cast<const T*>(pool_k),
                             static_cast<const T*>(pool_v), sb, sr, sh};
   // Enough blocks for one pass over the tiles when the lanes hold at most
-  // B + 1 runs (the engine's renders); more runs loop.
+  // B + 1 runs (the engine's renders; a tensor-core owner's tiles are
+  // longer); more runs loop.
   const int tiles = (T_lanes + tq - 1) / tq + B + 1;
   const dim3 grid(min(tiles, T_lanes), KV);
   chunked_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), pool, static_cast<T*>(out), token_req,
-      token_pos, kv_lens, tile_start, num_tiles, list_blk, list_pos, counts,
-      T_lanes, H, KV, B, BS, Tb, scale);
+      token_pos, kv_lens, lane_count, tile_start, num_tiles, list_blk,
+      list_pos, counts, T_lanes, H, KV, B, BS, Tb, scale);
   return cudaGetLastError();
 }
 
@@ -195,9 +249,9 @@ cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  scratch holds
-// 2 * B * Tb + B + T + 1 int32.  q, out, pool_k and pool_v must be 16-byte
-// aligned, and sb, sr, sh (the pools' strides in elements over blocks,
-// rows and kv heads) multiples of 16 bytes.  dtype: 0 = float32,
+// 2 * B * Tb + 2 * B + T + 1 int32.  q, out, pool_k and pool_v must be
+// 16-byte aligned, and sb, sr, sh (the pools' strides in elements over
+// blocks, rows and kv heads) multiples of 16 bytes.  dtype: 0 = float32,
 // 1 = bfloat16.  Returns cudaGetLastError() after the launches (0 = ok).
 extern "C" int paged_attention_chunked(
     const void* q, const void* pool_k, const void* pool_v, void* out,
@@ -214,7 +268,8 @@ extern "C" int paged_attention_chunked(
   int* list_blk = ints;
   int* list_pos = list_blk + static_cast<size_t>(B) * Tb;
   int* counts = list_pos + static_cast<size_t>(B) * Tb;
-  int* tile_start = counts + B;
+  int* lane_count = counts + B;
+  int* tile_start = lane_count + B;
   const int* kvl = static_cast<const int*>(kv_lens);
   const int* treq = static_cast<const int*>(token_req);
   paged::slot_lists_kernel<<<B, kListThreads, 0, st>>>(
@@ -223,9 +278,11 @@ extern "C" int paged_attention_chunked(
       counts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || T_lanes == 0) return static_cast<int>(err);
-  const int tq = min(q_chunk, kRows / (H / KV));
-  lane_tiles_kernel<<<1, kListThreads, 0, st>>>(treq, T_lanes, B, tq,
-                                                tile_start,
+  const int G = H / KV;
+  const int tq = min(q_chunk, kRows / G);
+  const int tq_mma = dtype == 1 ? min(q_chunk, paged::kMmaRows / G) : tq;
+  lane_tiles_kernel<<<1, kListThreads, 0, st>>>(treq, T_lanes, B, tq, tq_mma,
+                                                lane_count, tile_start,
                                                 tile_start + T_lanes);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -241,4 +298,10 @@ extern "C" int paged_attention_chunked(
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory, in bytes, of the attention instance for head dim
+// HD and dtype (0 float32, 1 bfloat16); 0 for a head dim it does not take.
+extern "C" int paged_attention_chunked_smem_bytes(int HD, int dtype) {
+  return paged::paged_smem_bytes(HD, dtype);
 }

@@ -1,0 +1,93 @@
+// Which tile serves a query tile of the ragged and chunked paged-attention
+// kernels (paged_attention_ragged.cu, paged_attention_chunked.cu), for
+// Hopper (sm_90a).  Both decide it here, the same way, from the owner (the
+// sequence or slot whose keys a tile reads) alone:
+//   * bf16, an owner with kMmaMinLanes or more query lanes in the launch
+//     (prefill chunks): paged::attend_tile_mma (attend_tile_mma.cuh), 128
+//     query rows per block on the tensor cores, kMmaRows / G lanes a tile;
+//   * everything else: paged::attend_tile (paged_attention_common.cuh), 64
+//     rows on the SIMT cores, kRows / G lanes a tile: float32 (a
+//     tensor-core f32 product would be TF32), single-lane owners (decode
+//     lanes, which the decode kernel serves on attend_tile too) and
+//     padding tiles.
+// A row's result on either tile depends only on its owner's page list, its
+// position and the owner's key count, never on its tile (the keys stream
+// in list order, 64 per stage, in both), so the rule keeps the two kernels
+// bitwise equal, and the decode kernel equal to the chunked one on decode
+// lanes.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
+#include "attend_tile_mma.cuh"
+#include "paged_attention_common.cuh"
+
+namespace paged {
+
+static_assert(kThreads == kMmaThreads, "one block size for both tiles");
+
+constexpr int kMmaMinLanes = 2;
+
+// Whether an owner with `lanes` query lanes in the launch runs its tiles
+// on attend_tile_mma.
+template <typename T>
+__host__ __device__ constexpr bool mma_owner(int lanes) {
+  return std::is_same<T, __nv_bfloat16>::value && lanes >= kMmaMinLanes;
+}
+
+// Launch shape of a ragged or chunked instance that may run either tile:
+// dynamic shared memory for the larger of the two, and the blocks per SM
+// its registers are sized for.  bf16 at HD <= 64 holds two blocks of 256
+// threads per SM (128 registers each, as flash); at HD 128 attend_tile's
+// 115 KB leave room for one, so the registers are not capped.  float32
+// runs attend_tile alone, as before.
+template <typename T, int HD>
+struct PagedKernel {
+  static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int kMinBlocks = kMma && HD <= 64 ? 2 : 1;
+  static constexpr size_t kSmem =
+      kMma && mma_smem_bytes<HD>() > smem_floats<HD>() * sizeof(float)
+          ? mma_smem_bytes<HD>()
+          : smem_floats<HD>() * sizeof(float);
+};
+
+// Opts a ragged or chunked instance into its dynamic shared memory, and a
+// bf16 one into the largest shared-memory carveout (two blocks per SM),
+// once per kernel.
+template <typename T, int HD, typename Kernel>
+cudaError_t configure(Kernel kernel, bool* configured) {
+  if (*configured) return cudaSuccess;
+  if (PagedKernel<T, HD>::kMma) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  return allow_smem(kernel, PagedKernel<T, HD>::kSmem, configured);
+}
+
+// Dynamic shared memory, in bytes, of a ragged or chunked instance for head
+// dim HD and dtype (0 float32, 1 bfloat16); 0 for a head dim the kernels do
+// not take.
+inline int paged_smem_bytes(int HD, int dtype) {
+  switch (HD) {
+    case 16:
+      return static_cast<int>(dtype ? PagedKernel<__nv_bfloat16, 16>::kSmem
+                                    : PagedKernel<float, 16>::kSmem);
+    case 32:
+      return static_cast<int>(dtype ? PagedKernel<__nv_bfloat16, 32>::kSmem
+                                    : PagedKernel<float, 32>::kSmem);
+    case 64:
+      return static_cast<int>(dtype ? PagedKernel<__nv_bfloat16, 64>::kSmem
+                                    : PagedKernel<float, 64>::kSmem);
+    case 128:
+      return static_cast<int>(dtype ? PagedKernel<__nv_bfloat16, 128>::kSmem
+                                    : PagedKernel<float, 128>::kSmem);
+    default:
+      return 0;
+  }
+}
+
+}  // namespace paged

@@ -20,20 +20,33 @@
 // Lanes past cu_q[S], and lanes of a sequence whose slot is out of range,
 // are such lanes.  Slots are assumed distinct, as the engine renders them.
 //
-// Bound on the H100: the bytes of the KV pages the step's sequences hold,
-// plus q and out, at 3.35 TB/s; the arithmetic (4*HD operations per
-// (head, valid key) pair) is far below the card's rate.  entry_lists_kernel
-// compacts each sequence's pages once per launch; ragged_attention_kernel
-// runs one block per (sequence, query tile of that sequence's lanes, kv
-// head) and hands it to paged::attend_tile (paged_attention_common.cuh,
-// shared with the chunked and decode kernels, which is what keeps the
-// three bitwise equal).  Each KV byte of a sequence is read once per query
-// tile.
-// Not done yet: cp.async/TMA double buffering, wgmma/mma for the two
-// products (the scalar products are bound by shared-memory reads), and
-// splitting a long sequence's keys across blocks for decode.
+// Which tile serves which rows (paged_attention_mma.cuh): in bfloat16,
+// the tiles of a sequence with two or more lanes in the launch (prefill
+// chunks) run on paged::attend_tile_mma, 128 query rows per block on the
+// tensor cores (wgmma at HD 64/128, mma.sync at 16/32, K/V in bf16 through
+// a two-stage cp.async ring); everything else runs on the SIMT
+// paged::attend_tile, 64 rows per block: float32, single-lane sequences
+// (decode lanes) and padding tiles.  The choice is the sequence's alone,
+// and the chunked kernel makes it the same way from its lane counts; a
+// row's result on either tile depends only on its sequence's page list,
+// its position and kvl, so the two kernels stay bitwise equal, and decode
+// lanes stay bitwise equal to the decode kernel's.
+//
+// Bound on the H100: the larger of the bytes (the K/V rows the step's
+// sequences hold, q, out and the lists, at 3.35 TB/s) and the operations
+// (4*HD per (head, valid key) pair, at 989 TFLOP/s in bf16 or 67 in f32);
+// a serving step's bytes bound is the larger.  entry_lists_kernel compacts
+// each sequence's pages once per launch; ragged_attention_kernel runs one
+// block per (sequence, query tile of that sequence's lanes, kv head): the
+// G query heads of the kv head ride in the tile's rows, so each KV byte of
+// a sequence is read once per query tile.  A bf16 instance holds both
+// tiles, chosen per block at run time, in one launch: 256 threads, dynamic
+// shared memory for the larger tile, two blocks per SM at HD <= 64.
+// Not done yet: splitting a long sequence's keys across blocks for the
+// decode lanes (flash-decoding, with the chunked and decode kernels), TMA
+// copies and warp specialisation in the tensor-core tile.
 
-#include "paged_attention_common.cuh"
+#include "paged_attention_mma.cuh"
 
 namespace {
 
@@ -70,14 +83,18 @@ __global__ void entry_lists_kernel(const int* __restrict__ block_list,
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ kv_pool,
-    T* __restrict__ out, const int* __restrict__ cu_q,
-    const int* __restrict__ cu_kv, const int* __restrict__ list_blk,
-    const int* __restrict__ list_pos, const int* __restrict__ counts,
-    int num_lanes, int H, int KV, int BS, int S, int Tb, int tq,
-    float scale) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads,
+                                  paged::PagedKernel<T, HD>::kMinBlocks)
+    ragged_attention_kernel(const T* __restrict__ q,
+                            const T* __restrict__ kv_pool,
+                            T* __restrict__ out, const int* __restrict__ cu_q,
+                            const int* __restrict__ cu_kv,
+                            const int* __restrict__ list_blk,
+                            const int* __restrict__ list_pos,
+                            const int* __restrict__ counts, int num_lanes,
+                            int H, int KV, int BS, int S, int Tb, int tq,
+                            int tq_mma, float scale) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ int sCu[kMaxSeqs + 1];
   __shared__ int sInfo[3];
 
@@ -87,17 +104,19 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
   for (int i = tid; i <= S; i += kThreads) sCu[i] = cu_q[i];
   __syncthreads();
 
-  // Which tile is this block?  Sequences in order, each cut into
-  // ceil(nq / tq) tiles, then the padding lanes past cu_q[S].
+  // Which tile is this block?  Sequences in order, each cut into tiles of
+  // tq_mma lanes (a tensor-core sequence) or tq, then the padding lanes
+  // past cu_q[S] in tiles of tq.
   if (tid == 0) {
     int b = blockIdx.x, seq = -2, lane0 = 0, n = 0;
     for (int j = 0; j < S; ++j) {
       const int nq = sCu[j + 1] - sCu[j];
-      const int nt = nq > 0 ? (nq + tq - 1) / tq : 0;
+      const int len = paged::mma_owner<T>(nq) ? tq_mma : tq;
+      const int nt = nq > 0 ? (nq + len - 1) / len : 0;
       if (b < nt) {
         seq = j;
-        lane0 = sCu[j] + b * tq;
-        n = min(tq, sCu[j + 1] - lane0);
+        lane0 = sCu[j] + b * len;
+        n = min(len, sCu[j + 1] - lane0);
         break;
       }
       b -= nt;
@@ -120,21 +139,32 @@ __global__ void __launch_bounds__(kThreads) ragged_attention_kernel(
   const int seq = sInfo[0];
   if (seq == -2) return;
   const int lane0 = sInfo[1];
+  const int nrows = sInfo[2] * G;
 
   // A lane of sequence j sits at position kvl - nq + (its index among the
   // sequence's lanes); a padding tile (seq == -1) has no keys.
-  int kvl = 0, pos = -1, count = 0;
+  int kvl = 0, first = -1, count = 0, nq = 0;
   if (seq >= 0) {
-    const int nq = sCu[seq + 1] - sCu[seq];
+    nq = sCu[seq + 1] - sCu[seq];
     kvl = cu_kv[seq + 1] - cu_kv[seq];
-    pos = kvl - nq + (lane0 - sCu[seq]) + (tid >> 2) / G;
+    first = kvl - nq + (lane0 - sCu[seq]);
     count = counts[seq];
   }
   const size_t list0 = static_cast<size_t>(seq < 0 ? 0 : seq) * Tb;
   const long long fused = 2LL * KV * HD;      // one pool row, K and V heads
   const paged::Pool<T> pool{kv_pool, kv_pool + HD, BS * fused, fused,
                             2LL * HD};
-  paged::attend_tile<T, HD>(q, out, H, G, kvh, lane0, sInfo[2] * G, pos, kvl,
+  if constexpr (paged::PagedKernel<T, HD>::kMma) {
+    if (paged::mma_owner<T>(nq)) {           // uniform across the block
+      const auto row_pos = [=](int r) { return first + r / G; };
+      paged::attend_tile_mma<HD>(q, out, H, G, kvh, lane0, nrows, row_pos,
+                                 kvl, list_blk + list0, list_pos + list0,
+                                 count, BS, pool, scale, smem);
+      return;
+    }
+  }
+  const int pos = seq >= 0 ? first + (tid >> 2) / G : -1;
+  paged::attend_tile<T, HD>(q, out, H, G, kvh, lane0, nrows, pos, kvl,
                             list_blk + list0, list_pos + list0, count, BS,
                             pool, scale, smem);
 }
@@ -152,18 +182,20 @@ cudaError_t launch(const void* q, const void* kv_pool, void* out,
                    const int* cu_q, const int* cu_kv, Lists lists,
                    int T_lanes, int H, int KV, int BS, int S, int Tb,
                    float scale, cudaStream_t stream) {
-  constexpr size_t smem = paged::smem_floats<HD>() * sizeof(float);
+  constexpr size_t smem = paged::PagedKernel<T, HD>::kSmem;
   static bool configured = false;
-  const cudaError_t err = paged::allow_smem(ragged_attention_kernel<T, HD>,
-                                            smem, &configured);
+  const cudaError_t err = paged::configure<T, HD>(
+      ragged_attention_kernel<T, HD>, &configured);
   if (err != cudaSuccess) return err;
   const int G = H / KV;
   const int tq = kRows / G;
+  const int tq_mma = paged::kMmaRows / G;
+  // a tensor-core sequence's tiles are longer, so this is enough blocks
   const dim3 grid((T_lanes + tq - 1) / tq + S + 1, KV);
   ragged_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv_pool),
       static_cast<T*>(out), cu_q, cu_kv, lists.blk, lists.pos, lists.counts,
-      T_lanes, H, KV, BS, S, Tb, tq, scale);
+      T_lanes, H, KV, BS, S, Tb, tq, tq_mma, scale);
   return cudaGetLastError();
 }
 
@@ -229,4 +261,10 @@ extern "C" int paged_attention_ragged(
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory, in bytes, of the attention instance for head dim
+// HD and dtype (0 float32, 1 bfloat16); 0 for a head dim it does not take.
+extern "C" int paged_attention_ragged_smem_bytes(int HD, int dtype) {
+  return paged::paged_smem_bytes(HD, dtype);
 }

@@ -24,11 +24,17 @@ _ARGTYPES = {
 
 
 def library(source: str = SOURCE) -> ctypes.CDLL:
-    """The kernel library of ``source`` with its C signature declared
-    (built on first use; this needs ``nvcc`` and a card)."""
+    """The kernel library of ``source`` with its C signatures declared
+    (built on first use; this needs ``nvcc`` and a card).  The ragged and
+    chunked libraries also export ``<source>_smem_bytes(hd, dtype)``, the
+    dynamic shared memory of their attention instances."""
     lib = build.load(source)
     fn = getattr(lib, source)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[source]
         fn.restype = ctypes.c_int
+        if source != DECODE_SOURCE:
+            smem = getattr(lib, f"{source}_smem_bytes")
+            smem.argtypes = [_i, _i]
+            smem.restype = ctypes.c_int
     return lib

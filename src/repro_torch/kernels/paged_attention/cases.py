@@ -65,7 +65,14 @@ def ragged_case(rng: np.random.Generator, *, num_heads: int, num_kv: int,
 # (slot, nq, kvl) per sequence entry.  Slots are out of order; kv lengths
 # are not multiples of the block size; prefill chunks sit beside decode
 # lanes (nq = 1); (slot >= S, 0, 0) entries are empty padding entries and
-# (slot, 0, kvl) an empty entry in the middle.
+# (slot, 0, kvl) an empty entry in the middle.  A case may override SMALL's
+# widths: build it with ``ragged_case(rng, **dict(SMALL, **case))``.
+#
+# The long_owner cases hold a prefill chunk in the middle of its sequence
+# (nq 50 of kvl 70 at G = 3; 40 of 60 and 33 of 33 at G = 4, with 8 q
+# heads over 2 kv heads) whose rows span more than one 128-row tile of the
+# card's tensor-core tile, beside decode lanes, a two-lane owner and a
+# shuffled BlockList.
 SMALL = dict(num_heads=6, num_kv=2, head_dim=16, block_size=4, num_blocks=24)
 SMALL_CASES = {
     "mixed": dict(seqs=[(2, 1, 9), (0, 5, 5), (3, 1, 13), (1, 3, 7),
@@ -75,6 +82,14 @@ SMALL_CASES = {
                          num_lanes=8, num_entries=12, shuffle=True),
     "decode_only": dict(seqs=[(0, 1, 11), (1, 1, 2), (2, 1, 16), (3, 1, 1)],
                         num_lanes=8, num_entries=16),
+    "long_owner": dict(seqs=[(1, 1, 9), (0, 50, 70), (3, 1, 13), (2, 2, 6),
+                             (5, 0, 0)],
+                       num_lanes=60, num_entries=32, num_blocks=32,
+                       shuffle=True),
+    "long_owner_g4": dict(seqs=[(0, 40, 60), (2, 1, 11), (1, 33, 33),
+                                (4, 0, 0)],
+                          num_lanes=80, num_entries=32, num_blocks=32,
+                          shuffle=True, num_heads=8),
 }
 
 ARG_ORDER = ("q", "kv_pool", "block_list", "block_req", "block_pos",

@@ -1,6 +1,8 @@
 """The port's ragged paged attention (plain PyTorch version) against the JAX
 package: lane metadata integer-exact, outputs against the jnp reference
-and against the Pallas kernel in interpret mode, float32, atol 1e-5."""
+and against the Pallas kernel in interpret mode, float32, atol 1e-5; and
+the bf16 limit the card holds the kernels to, met by the Pallas kernel in
+bf16."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ CASES = SMALL_CASES
 
 def _case(name, seed=0):
     rng = np.random.default_rng(seed)
-    return ragged_case(rng, **SMALL, **CASES[name])
+    return ragged_case(rng, **dict(SMALL, **CASES[name]))
 
 
 def _torch_args(c):
@@ -78,3 +80,25 @@ def test_op_on_cpu_takes_plain_version_and_counts_nothing():
     out = tapi.paged_attention_ragged_op(*_torch_args(c))
     assert torch.equal(out, tapi.paged_attention_ragged(*_torch_args(c)))
     assert tapi.paged_attention_ragged_op.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bf16_limit_holds_for_the_reference_kernel(name):
+    """The card's bf16 limit for the ragged and chunked kernels
+    (``ragged_bf16_share`` at most 1, as chip_smoke.py and the card tests
+    hold them) is met by the Pallas ragged kernel in bf16, which rounds
+    the weights for the PV product and sums l unrounded as the kernels do.
+    Outputs under 0.25 moved by 8 ulps do not meet it."""
+    c = _case(name, seed=3)
+    args = _torch_args(c)
+    args[:2] = [a.bfloat16() for a in args[:2]]
+    jargs = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+             if a.is_floating_point() else jnp.asarray(a.numpy())
+             for a in args]
+    pallas = torch.from_numpy(np.asarray(paged_attention_ragged_pallas(
+        *jargs, num_queries_per_block=4, num_kv_pages_per_block=2,
+        interpret=True).astype(jnp.float32))).bfloat16()
+    assert tapi.ragged_bf16_share(pallas, *args) <= 1
+    small = (pallas.float().abs() < 0.25).to(torch.int16)
+    control = (pallas.view(torch.int16) + 8 * small).view(torch.bfloat16)
+    assert tapi.ragged_bf16_share(control, *args) > 1

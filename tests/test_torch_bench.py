@@ -1,6 +1,7 @@
 """The port's DLRM bench modules on the CPU at tiny sweeps: the rows they
 print, the launches they report, and the operations ``forward_cost``
-counts against PyTorch's own count of the forward's matrix products."""
+counts against PyTorch's own count of the forward's matrix products; and
+how the attention-turns script cuts a ragged call to some sequences."""
 import dataclasses
 
 import pytest
@@ -55,3 +56,29 @@ def test_embedding_tables_rows():
     assert rows[0]["derived"].startswith("launches=3;")
     # the plain version on the CPU launches no kernel
     assert rows[1]["derived"].startswith("launches=0;speedup_vs_single=")
+
+
+@pytest.mark.parametrize("keep", [lambda n: n >= 2, lambda n: n == 1],
+                         ids=["prefill", "decode"])
+def test_attention_turns_selects_sequences_exactly(keep):
+    """``attention_turns.select_sequences`` (the mixed step cut to its
+    prefill or its decode lanes) leaves each kept lane's result as the
+    whole call gives it, on the plain version."""
+    import numpy as np
+
+    from repro_torch.bench import attention_turns
+    from repro_torch.core import attention_api as api
+    from repro_torch.kernels.paged_attention.cases import (
+        ARG_ORDER, SMALL, SMALL_CASES, ragged_case)
+
+    c = ragged_case(np.random.default_rng(0),
+                    **dict(SMALL, **SMALL_CASES["long_owner"]))
+    args = [torch.from_numpy(c[k]) for k in ARG_ORDER]
+    sub = attention_turns.select_sequences(args, keep)
+    cu_q = c["cu_q_lens"]
+    lanes = [t for j in range(len(c["seq_slot"]))
+             if keep(cu_q[j + 1] - cu_q[j]) for t in range(cu_q[j],
+                                                           cu_q[j + 1])]
+    assert sub[0].shape[0] == len(lanes) > 0
+    assert torch.equal(api.paged_attention_ragged(*sub),
+                       api.paged_attention_ragged(*args)[lanes])

@@ -2,7 +2,8 @@
 in float32: the plain version against the jnp reference and the Pallas
 chunked kernel in interpret mode (``prefetch_depth`` 0 and 2), chunked ==
 ragged bitwise, the ``attn_impl="chunked"`` engine against the JAX
-engine's chunked run, and the Fig 17 benchmark's rows."""
+engine's chunked run, the Fig 17 benchmark's rows, and how
+``chip_smoke.py`` reports the ragged and chunked kernels' instances."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -80,7 +81,8 @@ def test_chunked_op_refuses_bad_tunables():
 
 @pytest.mark.parametrize("name", sorted(SMALL_CASES))
 def test_chunked_equals_ragged_bitwise(name):
-    c = ragged_case(np.random.default_rng(0), **SMALL, **SMALL_CASES[name])
+    c = ragged_case(np.random.default_rng(0),
+                    **dict(SMALL, **SMALL_CASES[name]))
     q, pool, bl, br, bp, cu_q, cu_kv, ss = [torch.from_numpy(c[k])
                                             for k in ARG_ORDER]
     ragged = tapi.paged_attention_ragged_op(q, pool, bl, br, bp, cu_q, cu_kv,
@@ -176,3 +178,58 @@ def test_fig17_benchmark_runs_every_sweep_on_the_cpu():
     assert [r["chunk"] for r in chunked] == [1, 4, 16]
     layout = [r for r in rows if r["name"].startswith("ragged_layout")]
     assert len(layout) == 2 and all(r["bitwise"] for r in layout)
+
+
+PAGED_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__b3049054_25_paged_attention_ragged_cu_8e0fe10023ragged_attention_kernelI13__nv_bfloat16Li64EEEvPKT_S4_PS2_PKiS7_S7_S7_S7_iiiiiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 125 registers, used 1 barriers, 9648 bytes smem, 440 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__b3049054_25_paged_attention_ragged_cu_8e0fe10023ragged_attention_kernelI13__nv_bfloat16Li16EEEvPKT_S4_PS2_PKiS7_S7_S7_S7_iiiiiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 110 registers, used 1 barriers, 9616 bytes smem, 440 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__b3049054_25_paged_attention_ragged_cu_8e0fe10018entry_lists_kernelEPKiS1_S1_iS1_S1_S1_iiiPiS2_S2_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 37 registers, used 1 barriers, 128 bytes smem
+ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__b3049054_25_paged_attention_ragged_cu_8e0fe10023ragged_attention_kernelIfLi64EEEvPKT_S3_PS1_PKiS6_S6_S6_S6_iiiiiiiif' for 'sm_90a'
+    8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 4880 bytes smem
+"""
+
+
+def test_chip_smoke_reads_each_paged_instance_and_fails_on_a_spill():
+    """``chip_smoke.py``'s phases 6 and 18 name each ragged or chunked
+    instance's tiles (SIMT beside wgmma or mma.sync in bf16, SIMT alone in
+    f32) from the ``-Xptxas -v`` log, add its dynamic shared memory, skip
+    the list kernels, and fail on a spill (the f32 entry of the sample log
+    spills)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    def smem(hd, dtype):
+        return 1000 * hd + dtype
+
+    bf16_log = PAGED_PTXAS_LOG[:PAGED_PTXAS_LOG.index(
+        "ptxas info    : Compiling entry function '_ZN58_GLOBAL__N__b3049054"
+        "_25_paged_attention_ragged_cu_8e0fe10023ragged_attention_kernelIf")]
+    rows = smoke.ptxas_instances("ragged_attention_kernel", smem, bf16_log,
+                                 build, "card", smoke.paged_tile)
+    assert rows == [
+        dict(dtype="bfloat16", hd=64, tile="SIMT + wgmma", registers=125,
+             smem_static=9648, smem_dynamic=64001),
+        dict(dtype="bfloat16", hd=16, tile="SIMT + mma.sync", registers=110,
+             smem_static=9616, smem_dynamic=16001)]
+    with pytest.raises(AssertionError, match="float32, 64> spills"):
+        smoke.ptxas_instances("ragged_attention_kernel", smem,
+                              PAGED_PTXAS_LOG, build, "card",
+                              smoke.paged_tile)
+    with pytest.raises(AssertionError, match="no chunked_attention_kernel"):
+        smoke.ptxas_instances("chunked_attention_kernel", smem,
+                              PAGED_PTXAS_LOG, build, "card",
+                              smoke.paged_tile)

@@ -9,9 +9,13 @@ the file also runs on a machine that has none:
 Tolerances, attention: float32 atol 2e-5 (the kernel's online softmax sums
 in another order than the plain version's one-pass softmax); bfloat16 atol
 2e-2 (the plain version rounds scores to bfloat16, the kernel keeps them
-in float32); the same for chunked and decode.  Chunked and ragged (and
-decode and chunked) share their per-row device code, so on the same lanes
-they must agree bitwise.  Embedding bag: float32 atol 1e-5 and bfloat16 atol 2e-2
+in float32); the same for chunked and decode.  Ragged and chunked in
+bfloat16 are also held to flash's per-element limit below
+(``ragged_bf16_share``/``chunked_bf16_share``).  Chunked and ragged (and
+decode and chunked) share their per-row device code and choose the tile
+(tensor cores for bf16 owners of two or more lanes, SIMT otherwise) by
+owner alone, so on the same lanes they must agree bitwise, whatever
+``q_chunk`` is.  Embedding bag: float32 atol 1e-5 and bfloat16 atol 2e-2
 (both sum in float32 in the order of the bag; the bound is for the card's
 rounding of the last bf16 digit).  STREAM and gather/scatter: bitwise (the
 kernels round as the plain versions do, and move rows as raw bytes).
@@ -82,7 +86,7 @@ CASES.append((FULL, FULL_CASE))
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape,case", CASES)
 def test_kernel_matches_plain_version(card, shape, case, dtype, atol):
-    c = ragged_case(np.random.default_rng(0), **shape, **case)
+    c = ragged_case(np.random.default_rng(0), **dict(shape, **case))
     args = _args(c, dtype, card)
     before = api.paged_attention_ragged_op.launches
     got = api.paged_attention_ragged_op(*args)
@@ -91,6 +95,8 @@ def test_kernel_matches_plain_version(card, shape, case, dtype, atol):
     want = api.paged_attention_ragged(*args)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= atol, err
+    if dtype == torch.bfloat16:
+        assert api.ragged_bf16_share(got, *args) <= 1
     pad_from = int(c["cu_q_lens"][-1])
     assert torch.all(got[pad_from:] == 0)
 
@@ -142,6 +148,8 @@ def test_chunked_kernel_matches_plain_version(card, shape, case, dtype, atol,
     assert api.paged_attention_chunked_op.launches == before + 1
     want = api.paged_attention_chunked(*args)
     assert (got.float() - want.float()).abs().max().item() <= atol
+    if dtype == torch.bfloat16:
+        assert api.chunked_bf16_share(got, *args) <= 1
     kvl = np.append(c["kv_lens"], 0)
     dead = kvl[np.minimum(c["token_req"], len(c["kv_lens"]))] == 0
     assert torch.all(got[torch.from_numpy(dead).to(card)] == 0)
@@ -154,7 +162,7 @@ def test_chunked_kernel_matches_plain_version(card, shape, case, dtype, atol,
 @pytest.mark.parametrize("shape,case", CASES)
 def test_chunked_kernel_equals_ragged_kernel_bitwise(card, shape, case,
                                                      dtype):
-    c = ragged_case(np.random.default_rng(0), **shape, **case)
+    c = ragged_case(np.random.default_rng(0), **dict(shape, **case))
     q, pool, bl, br, bp, cu_q, cu_kv, ss = _args(c, dtype, card)
     ragged = api.paged_attention_ragged_op(q, pool, bl, br, bp, cu_q, cu_kv,
                                            ss)
@@ -164,6 +172,50 @@ def test_chunked_kernel_equals_ragged_kernel_bitwise(card, shape, case,
                                              br, bp, kvl, treq, tpos)
     torch.cuda.synchronize()
     assert torch.equal(ragged, chunked)
+
+
+# The tensor-core tile's paging at smollm-360m's widths: 16-key pages (a
+# 64-key stage spans 4), a shuffled BlockList, a prefill chunk in the middle
+# of its sequence whose rows span three 128-row tiles, one from position 0,
+# a two-lane owner, decode lanes, an empty entry and padding lanes.
+FULL_LONG = dict(seqs=[(3, 1, 300), (0, 100, 450), (5, 1, 17), (1, 2, 40),
+                       (2, 64, 64), (4, 0, 0), (8, 0, 0)],
+                 num_lanes=200, num_entries=96, shuffle=True)
+MMA_CASES = [(SMALL, SMALL_CASES["long_owner"]),
+             (SMALL, SMALL_CASES["long_owner_g4"]), (FULL, FULL_CASE),
+             (FULL, FULL_LONG)]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape,case", MMA_CASES)
+def test_bf16_tensor_core_tiles_match_plain_version(card, shape, case, hd):
+    """bf16 ragged and chunked kernels, whose prefill owners run on the
+    tensor-core tile, at every head dim: each against the plain version
+    (atol 2e-2 and the per-element limit, which outputs under 0.25 moved
+    by 8 ulps fail), and chunked at q_chunk 16 and 4, ragged and a second
+    ragged call all the same bits."""
+    c = ragged_case(np.random.default_rng(hd),
+                    **dict(shape, **case, head_dim=hd))
+    args = _args(c, torch.bfloat16, card)
+    q, pool, bl, br, bp, cu_q, cu_kv, ss = args
+    ragged = api.paged_attention_ragged_op(*args)
+    treq, tpos, kvl = api.ragged_lane_metadata(cu_q, cu_kv, ss, q.shape[0],
+                                               ss.shape[0])
+    cargs = [q, *fused_kv_views(pool), bl, br, bp, kvl, treq, tpos]
+    outs = [api.paged_attention_chunked_op(*cargs, q_chunk=qc)
+            for qc in (16, 4)]
+    again = api.paged_attention_ragged_op(*args)
+    torch.cuda.synchronize()
+    want = api.paged_attention_ragged(*args)
+    assert (ragged.float() - want.float()).abs().max().item() <= 2e-2
+    assert api.ragged_bf16_share(ragged, *args) <= 1
+    assert api.chunked_bf16_share(outs[0], *cargs) <= 1
+    small = (ragged.float().abs() < 0.25).to(torch.int16)
+    control = (ragged.view(torch.int16) + 8 * small).view(torch.bfloat16)
+    assert api.ragged_bf16_share(control, *args) > 1
+    for other in outs + [again]:
+        assert torch.equal(ragged, other)
+    assert torch.all(ragged[int(c["cu_q_lens"][-1]):] == 0)
 
 
 def _decode_args(c, dtype, dev):
