@@ -192,10 +192,15 @@ CHUNKED_CASE = dict(kv_lens=[300, 37, 0, 250, 17, 700],
 DECODE_CASE = dict(seq_lens=[300, 1, 0, 250, 16, 17, 700, 33],
                    num_entries=160)
 DTYPES = (("float32", 2e-5), ("bfloat16", 2e-2))
-# the kernels JSON line's "tile" of the ragged and chunked kernels
+# the kernels JSON line's "tile" of the ragged and chunked kernels, and of
+# the decode kernel
 PAGED_TILE = ("bf16 owners of >= 2 lanes: attend_tile_mma (wgmma at hd "
-              "64/128, mma.sync at 16/32); decode lanes, padding and f32: "
-              "attend_tile (SIMT)")
+              "64/128, mma.sync at 16/32); owners of 1 lane (decode "
+              "lanes), f32 or bf16: the decode tile (splits of 256 keys, "
+              "combined in the launch); f32 owners of >= 2 lanes and "
+              "padding: attend_tile (SIMT)")
+DECODE_TILE = ("the decode tile: one block per (split of 256 keys, kv head),"
+               " the splits combined in the launch")
 EMB_BATCH = 4096
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 STREAM_N = (128 * 16384, 2 ** 28)    # the reference's full n; 1 GiB f32
@@ -601,39 +606,113 @@ def chunked_check(torch, np, api, ragged_case, dev):
 
 
 def decode_check(torch, np, api, dev):
-    """Phase 13; returns the largest error against the plain version."""
+    """Phase 13; returns the largest error against the plain version.  The
+    decode kernel on DECODE_CASE (sorted and shuffled BlockList) and on the
+    long-context cases (owners of 1 to 3999 keys, 1 to 16 splits, at
+    smollm-360m's and Fig 17's widths): against paged_attention_opt (f32
+    atol 2e-5; bf16 atol 2e-2 and the per-element limit, which the 8-ulp
+    control must fail), a second call the same bits, and the chunked and
+    ragged kernels on the same lanes the same bits."""
+    from repro_torch.core.paged_kv import fused_kv_views
     from repro_torch.kernels.paged_attention.cases import (
-        DECODE_ARG_ORDER, decode_case)
+        ARG_ORDER, CHUNKED_ARG_ORDER, DECODE_ARG_ORDER, LONG_DECODE,
+        LONG_WIDTHS, decode_case, decode_lanes)
 
+    cases = [(f"{'shuffled' if shuffle else 'sorted'} BlockList",
+              dict(FULL_WIDTHS, **DECODE_CASE, shuffle=shuffle))
+             for shuffle in (False, True)]
+    cases += [(f"long-context, {name} widths",
+               dict(LONG_WIDTHS[name], **LONG_DECODE))
+              for name in sorted(LONG_WIDTHS)]
     errs = []
-    for shuffle in (False, True):
-        c = decode_case(np.random.default_rng(1), **FULL_WIDTHS,
-                        **DECODE_CASE, shuffle=shuffle)
+    for case_name, shape in cases:
+        c = decode_case(np.random.default_rng(1), **shape)
+        lanes = decode_lanes(c)
         empty = torch.from_numpy(c["seq_lens"] == 0).to(dev)
         for name, atol in DTYPES:
+            dtype = getattr(torch, name)
             args = [torch.from_numpy(c[k]).to(dev) for k in DECODE_ARG_ORDER]
-            args[:3] = [a.to(getattr(torch, name)) for a in args[:3]]
+            args[:3] = [a.to(dtype) for a in args[:3]]
+            ragged_args = [torch.from_numpy(lanes[k]).to(dev)
+                           for k in ARG_ORDER]
+            ragged_args[:2] = [a.to(dtype) for a in ragged_args[:2]]
+            chunked_args = [ragged_args[0], *fused_kv_views(ragged_args[1]),
+                            *[torch.from_numpy(lanes[k]).to(dev)
+                              for k in CHUNKED_ARG_ORDER]]
             got = api.paged_attention_op(*args)
+            again = api.paged_attention_op(*args)
+            chunked = api.paged_attention_chunked_op(*chunked_args)
+            ragged = api.paged_attention_ragged_op(*ragged_args)
             torch.cuda.synchronize()
-            order = "shuffled" if shuffle else "sorted"
+            q = args[0]
             errs.append(compare(
                 torch, got, api.paged_attention_opt(*args), atol,
-                f"{name} B={len(c['seq_lens'])} Tb={len(c['block_list'])} "
-                f"{order} BlockList"))
+                f"{case_name} {name} B={q.shape[0]} H={q.shape[1]} "
+                f"hd={q.shape[2]} Tb={len(c['block_list'])} seq_lens "
+                f"{c['seq_lens'].tolist()}"))
+            if name == "bfloat16":
+                share = api.chunked_bf16_share(got, *chunked_args)
+                small = (got.float().abs() < 0.25).to(torch.int16)
+                control = api.chunked_bf16_share(
+                    (got.view(torch.int16) + 8 * small).view(torch.bfloat16),
+                    *chunked_args)
+                log(f"    on f32 q, k: largest |err| / (2^-7 (M + |want|) + "
+                    f"1e-4) {share:.4f}; the 8-ulp control {control:.4f}")
+                if not share <= 1 < control:
+                    raise AssertionError(f"{case_name}: {share:.3f}x the "
+                                         f"limit, control {control:.3f}x")
             if torch.any(got[empty] != 0):
                 raise AssertionError("a request with no entry must read 0")
-            q, pk, pv, bl, br, bp, lens = args
-            chunked = api.paged_attention_chunked_op(
-                q, pk, pv, bl, br, bp, lens,
-                torch.arange(q.shape[0], dtype=torch.int32, device=dev),
-                lens - 1)
-            torch.cuda.synchronize()
-            if not torch.equal(got, chunked):
-                log("    decode vs chunked kernel: NOT bitwise equal, "
-                    f"max_abs_diff "
-                    f"{(got.float() - chunked.float()).abs().max():.3e}")
-    log("  the request with no entry reads 0")
+            for what, other in (("a second call", again),
+                                ("the chunked kernel", chunked),
+                                ("the ragged kernel", ragged)):
+                if not torch.equal(got, other):
+                    raise AssertionError(
+                        f"{case_name} {name}: decode kernel vs {what}: not "
+                        "bitwise equal, max_abs_diff "
+                        f"{(got.float() - other.float()).abs().max():.3e}")
+    log("  the request with no entry reads 0; decode == chunked == ragged on "
+        "the same lanes, and two calls, bit for bit")
     return max(errs)
+
+
+def split_counts(np, block_req, block_pos, owners, kvls, block_size):
+    """'kvl:splits' of each decode-tile owner (one lane): the keys of its
+    pages below its kvl (its compacted list) in splits of SPLIT_KEYS."""
+    from repro_torch.core.attention_api import SPLIT_KEYS
+
+    req = block_req.cpu().numpy()
+    pos = block_pos.cpu().numpy().astype(np.int64)
+    out = []
+    for o, k in zip(owners, kvls):
+        keys = int(((req == o) & (pos * block_size < k)).sum()) * block_size
+        out.append(f"{int(k)}:{max(1, -(-keys // SPLIT_KEYS))}")
+    return " ".join(out)
+
+
+def ragged_splits(np, inputs):
+    """split_counts of a ragged call's sequences of one lane."""
+    _, pool, _, br, bp, cu_q, cu_kv, ss = inputs
+    cu_q, cu_kv = cu_q.cpu().numpy(), cu_kv.cpu().numpy()
+    one = [j for j in range(len(cu_q) - 1) if cu_q[j + 1] - cu_q[j] == 1]
+    return split_counts(np, br, bp, ss.cpu().numpy()[one],
+                        [cu_kv[j + 1] - cu_kv[j] for j in one], pool.shape[1])
+
+
+def decode_splits(np, inputs):
+    """split_counts of a decode call's requests."""
+    _, pk, _, _, br, bp, seq_lens = inputs
+    lens = seq_lens.cpu().numpy()
+    return split_counts(np, br, bp, range(len(lens)), lens, pk.shape[1])
+
+
+def chunked_splits(np, inputs):
+    """split_counts of a chunked call's owners of one lane."""
+    _, pk, _, _, br, bp, kv_lens, treq, _ = inputs
+    kvl = kv_lens.cpu().numpy()
+    owners, lanes = np.unique(treq.cpu().numpy(), return_counts=True)
+    one = [o for o, n in zip(owners, lanes) if n == 1 and 0 <= o < len(kvl)]
+    return split_counts(np, br, bp, one, [kvl[o] for o in one], pk.shape[1])
 
 
 def serve_chunked(torch, np, cfg_mod, engine_mod, api, counted, model,
@@ -835,10 +914,39 @@ def kernel_times(torch, op, inputs, kw, out_run, bound, what, card,
         f"{plain_ms:.3f} ms  bounds: bytes {bound['bytes_ms']:.4f} ms, "
         f"operations {bound['ops_ms']:.4f} ms -> {bound['bound_ms'] / ms:.1%}"
         f" of the larger ({bound['bound_by']})  [{card}]")
+    by_kernel = launch_device_ms(torch, op, inputs, kw)
+    log("    device time per call under the profiler: " + ", ".join(
+        f"{name} {t:.4f} ms" for name, t in by_kernel.items()))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                 bytes_ms=bound["bytes_ms"], ops_ms=bound["ops_ms"],
-                tflops=tflops, bf16_share=limit)
+                tflops=tflops, bf16_share=limit, profiled_ms=by_kernel)
+
+
+def launch_device_ms(torch, op, inputs, kw, n=20):
+    """Device ms per call of each kernel a launch of ``op`` runs (its list
+    kernels and its attention kernel), from torch.profiler over ``n``
+    launches through the C entry point: what kernel_ms reads less the gaps
+    between the kernels, and less the host's enqueue where that is slower
+    than the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch = op.prepare(*inputs, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            if launch.fn(*launch.argv) != 0:
+                raise AssertionError(f"{op.name}: launch failed")
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        name = re.search(r"(\w+_kernel)", e.key)
+        if us > 0 and name:
+            out[name.group(1)] = us / n / 1e3
+    return out
 
 
 def main() -> int:
@@ -1023,6 +1131,8 @@ def main() -> int:
         q, _, bl, _, _, cu_q, cu_kv, ss = inputs
         log(f"  {kind} step (nq, kvl) per sequence: "
             f"{lanes_by_sequence(cu_q, cu_kv)}")
+        log(f"  {kind} step decode-tile sequences (one lane), kvl:splits "
+            f"{ragged_splits(np, inputs)}")
         steps[kind] = kernel_times(
             torch, api.paged_attention_ragged_op, inputs, kw, out_run,
             ragged_bound(torch, inputs),
@@ -1111,6 +1221,8 @@ def main() -> int:
     c_steps, c_by_kind = c_capture["by_kind"]
     for kind in ("decode", "mixed"):
         inputs, kw, out_run = c_capture[kind]
+        log(f"  chunked {kind} step decode-tile owners (one lane), "
+            f"kvl:splits {chunked_splits(np, inputs)}")
         chunked_steps[kind] = kernel_times(
             torch, api.paged_attention_chunked_op, inputs, kw, out_run,
             chunked_bound(torch, inputs),
@@ -1125,11 +1237,20 @@ def main() -> int:
         pa_kernel.library(CHUNKED_KERNEL).paged_attention_chunked_smem_bytes,
         builds[CHUNKED_KERNEL]["log"], build, card, paged_tile)
     inputs, kw, out_run = d_capture["decode"]
+    log(f"  decode_step_paged last step, kvl:splits per request "
+        f"{decode_splits(np, inputs)}")
     decode_top = kernel_times(
         torch, api.paged_attention_op, inputs, kw, out_run,
         decode_bound(torch, inputs),
         f"decode_step_paged last step B={inputs[0].shape[0]} "
         f"Tb={inputs[3].shape[0]}", card)
+    G = inputs[0].shape[1] // inputs[1].shape[2]
+    decode_lib = pa_kernel.library(DECODE_KERNEL)
+    decode_inst = ptxas_instances(
+        "decode_attention_kernel",
+        lambda hd, dt: decode_lib.paged_attention_decode_smem_bytes(hd, dt, G),
+        builds[DECODE_KERNEL]["log"], build, card,
+        lambda dtype, hd: "decode tile")
 
     del c_capture, d_capture
     torch.cuda.empty_cache()
@@ -1192,7 +1313,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
         "launches": d_launches, **dict(decode_top, max_abs_err=max(
             decode_top["max_abs_err"], decode_err)),
-        "library_ms": None}, {
+        "library_ms": None, "tile": DECODE_TILE,
+        "instances": decode_inst}, {
         "name": EMB_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
         "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
@@ -1279,8 +1401,11 @@ def profile_calls(torch, fn, n, what, unit):
     for cpu_us, count, key in sorted(host, reverse=True)[:10]:
         log(f"    {cpu_us / per:9.4f} ms/{unit}  {count // n:5d} calls/{unit}"
             f"  {key[:90]}")
+    launches = sum(count for _, count, key in host
+                   if key == "cudaLaunchKernel") / n
+    log(f"  cudaLaunchKernel calls per {unit}: {launches:.0f}")
     return dict(wall_ms=wall_us / per, busy_ms=busy / per,
-                busy_share=busy / wall_us,
+                busy_share=busy / wall_us, launches=launches,
                 device_ms={key: dev_us / per for dev_us, _, key in rows})
 
 
@@ -1832,11 +1957,12 @@ def flash_tile(dtype, hd):
 
 
 def paged_tile(dtype, hd):
-    """The tiles a ragged or chunked instance holds: SIMT alone in
-    float32; in bf16 the SIMT tile (decode lanes, padding) and the
-    tensor-core tile (owners of two or more lanes)."""
-    return ("SIMT" if dtype == "float32" else
-            "SIMT + " + ("wgmma" if hd >= 64 else "mma.sync"))
+    """The tiles a ragged or chunked instance holds: the SIMT tile (f32
+    owners of two or more lanes, padding) and the decode tile (owners of
+    one lane); in bf16 also the tensor-core tile (owners of two or more
+    lanes)."""
+    return ("SIMT + decode" if dtype == "float32" else
+            "SIMT + decode + " + ("wgmma" if hd >= 64 else "mma.sync"))
 
 
 def ptxas_instances(kernel, smem_bytes, ptxas_log, build, card, tile_of):

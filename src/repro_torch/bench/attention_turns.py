@@ -1,16 +1,19 @@
-"""Two source trees of the port on one card, in turns: their ragged and
-chunked paged-attention kernels on the same captured layer-0 inputs, and
-their serving engines on the same workload.
+"""Two or more source trees of the port on one card, in turns: their
+ragged, chunked and decode paged-attention kernels on the same inputs
+(captured layer-0 inputs of a serving step, and seeded decode batches),
+and their serving engines on the same workload.
 
     python src/repro_torch/bench/attention_turns.py --trees OLD NEW \
         [--order 0110] [--out DIR]
 
 ``OLD`` and ``NEW`` are roots of checkouts of the repo (for example a
 parent commit unpacked with ``git archive`` into a git-ignored directory,
-and this tree).  The workload is ``chip_smoke.py`` phase 5's: full-width
-smollm-360m (bf16, seeded random weights), 16 requests of 128-1024 prompt
-tokens (every fourth longer than 512 opens with a shared 256-token
-prefix), 32 new tokens each, 16-token blocks, a 4096-block pool.
+and this tree); more trees may follow, say copies of one tree that differ
+in one constant, each named in ``--order`` by its index.  The workload is
+``chip_smoke.py`` phase 5's: full-width smollm-360m (bf16, seeded random
+weights), 16 requests of 128-1024 prompt tokens (every fourth longer than
+512 opens with a shared 256-token prefix), 32 new tokens each, 16-token
+blocks, a 4096-block pool.
 
 First a process of the last tree serves the workload once through the
 ragged kernel and saves layer 0's inputs of the first mixed step and the
@@ -25,6 +28,10 @@ into that tree's ``build/``) and prints one JSON line:
   for the mixed step also the ragged kernel on its prefill sequences
   alone and on its decode lanes alone (``mixed_prefill``,
   ``mixed_decode``);
+* ``decode_kernel``: the decode kernel (B3) in ms, the same way, on
+  seeded batches (:data:`DECODE_BATCHES`): the paper path's last step at
+  smollm-360m's widths in bf16, long-context requests of 1 to 3999 keys,
+  and Fig 17's widths in float32 at 32 and 128 requests of 1024 keys;
 * ``serve``: TTFT and TPOT p50/p99 of the workload through each kernel;
 * ``mixed_profile``: torch.profiler over the first mixed step of each:
   wall, device busy share, the attention kernel's device ms.
@@ -43,6 +50,16 @@ import time
 from pathlib import Path
 
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
+SMOLLM = dict(num_heads=15, num_kv=5, head_dim=64, block_size=16)
+FIG17 = dict(num_heads=32, num_kv=8, head_dim=128, block_size=16)
+# name: (widths, dtype, seq_lens): chip_smoke.py phase 16's last step (16
+# requests of 128 + 32 - 1 keys), long-context requests, Fig 17's widths
+DECODE_BATCHES = {
+    "paper_last_step": (SMOLLM, "bfloat16", [159] * 16),
+    "long_context": (SMOLLM, "bfloat16", [1, 256, 257, 700, 129, 0, 3999]),
+    "fig17_B32_S1024": (FIG17, "float32", [1024] * 32),
+    "fig17_B128_S1024": (FIG17, "float32", [1024] * 128),
+}
 
 
 def _use_tree(tree: str) -> None:
@@ -207,6 +224,8 @@ def measure(out_dir: str) -> None:
     from repro_torch.bench.common import kernel_ms
     from repro_torch.core import attention_api as api
     from repro_torch.core.paged_kv import fused_kv_views
+    from repro_torch.kernels.paged_attention.cases import (
+        DECODE_ARG_ORDER, decode_case)
 
     dev = torch.device("cuda")
     saved = torch.load(Path(out_dir) / "inputs.pt")
@@ -235,6 +254,16 @@ def measure(out_dir: str) -> None:
                     ragged_ms=kernel_ms(api.paged_attention_ragged_op, *sub,
                                         device=dev, reps=50),
                     real_lanes=int(sub[0].shape[0]))
+    decode = {}
+    for name, (widths, dtype, lens) in DECODE_BATCHES.items():
+        pages = sum(-(-n // widths["block_size"]) for n in lens)
+        c = decode_case(np.random.default_rng(0), **widths,
+                        num_blocks=pages + 8, seq_lens=lens,
+                        num_entries=pages)
+        args = [torch.from_numpy(c[k]).to(dev) for k in DECODE_ARG_ORDER]
+        args[:3] = [a.to(getattr(torch, dtype)) for a in args[:3]]
+        decode[name] = kernel_ms(api.paged_attention_op, *args, device=dev,
+                                 reps=50)
     cfg_mod, engine_mod, cfg, model, params = _model(torch, np)
     warm, reqs = workload(cfg, engine_mod, np)
     serve, profiles, streams = {}, {}, {}
@@ -265,7 +294,7 @@ def measure(out_dir: str) -> None:
                                                    reqs)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "kernels": kernels,
-        "serve": serve, "mixed_profile": profiles,
+        "decode_kernel": decode, "serve": serve, "mixed_profile": profiles,
         "streams_equal": streams["ragged"] == streams["chunked"]}),
         flush=True)
 

@@ -48,6 +48,9 @@ _PLAIN_SCORE_ELEMS = 1 << 26
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 64             # q heads per kv head: a tile's 64 rows
+# Keys per split of the kernels' decode tile: kSplitKeys of
+# kernels/csrc/paged_decode_tile.cuh, which sizes the split workspace.
+SPLIT_KEYS = 256
 
 
 def ragged_lane_metadata(cu_q_lens, cu_kv_lens, seq_slot, num_lanes: int,
@@ -344,19 +347,46 @@ def _scale(sm_scale, HD) -> float:
     return float(sm_scale if sm_scale is not None else HD ** -0.5)
 
 
-def ragged_scratch_ints(num_seqs: int, num_entries: int) -> int:
+def ragged_scratch_ints(num_seqs: int, num_entries: int,
+                        num_kv: int) -> int:
     """int32 scratch the ragged kernel needs: per-sequence page lists
-    (block and position) of up to ``num_entries`` pages each, then their
-    counts."""
-    return 2 * num_seqs * num_entries + num_seqs
+    (block and position) of up to ``num_entries`` pages each, their counts,
+    then the decode tile's arrival counters, one per (sequence, kv
+    head)."""
+    return 2 * num_seqs * num_entries + num_seqs + num_seqs * num_kv
+
+
+def split_capacity(num_owners: int, num_entries: int,
+                   block_size: int) -> int:
+    """Splits of :data:`SPLIT_KEYS` keys the decode tile's workspace holds:
+    every owner of one lane has at least one, and its pages add one per
+    :data:`SPLIT_KEYS` keys, so when each of the ``num_entries`` BlockList
+    entries belongs to one owner there are at most ``ceil(num_entries *
+    block_size / SPLIT_KEYS) + num_owners`` (no host sync: the owners' key
+    counts stay on the card)."""
+    return -(-num_entries * block_size // SPLIT_KEYS) + num_owners
+
+
+def _scratch(q, ints: int, max_splits: int):
+    """One int32 buffer for a paged kernel: ``ints`` int32 of lists and
+    counts, then, 16-byte aligned, the decode tile's workspace of
+    ``max_splits`` x KV records of G x (HD + 2) float32 (each split's sums,
+    max and denominator per row).  Returns the buffer and the workspace's
+    address."""
+    _, H, HD = q.shape
+    off = -(-ints // 4) * 4
+    buf = torch.empty((off + max_splits * H * (HD + 2),), dtype=torch.int32,
+                      device=q.device)
+    return buf, buf.data_ptr() + 4 * off
 
 
 class _RaggedAttentionOp(KernelOp):
     """Ragged paged attention over the fused pool; plain version
     :func:`paged_attention_ragged`.  The fused pool must be contiguous.
     In bf16 the tiles of a sequence with two or more lanes run on the
-    tensor cores, the rest (decode lanes, float32) on the SIMT tile;
-    either way a lane's bits are the chunked kernel's."""
+    tensor cores, a sequence of one lane (a decode lane, either dtype) on
+    the split decode tile, the rest (float32 prefill, padding) on the SIMT
+    tile; either way a lane's bits are the chunked kernel's."""
 
     name = "paged_attention_ragged"
 
@@ -388,14 +418,15 @@ class _RaggedAttentionOp(KernelOp):
             raise ValueError(f"{S} sequence entries: the kernel takes "
                              "1..1024")
         out = torch.empty_like(q)
-        scratch = torch.empty((ragged_scratch_ints(S, Tb),),
-                              dtype=torch.int32, device=q.device)
+        splits = split_capacity(S, Tb, BS)
+        scratch, partials = _scratch(
+            q, ragged_scratch_ints(S, Tb, KV2 // 2), splits)
         argv = (q.data_ptr(), kv_pool.data_ptr(), out.data_ptr(),
                 block_list.data_ptr(), block_req.data_ptr(),
                 block_pos.data_ptr(), cu_q_lens.data_ptr(),
                 cu_kv_lens.data_ptr(), seq_slot.data_ptr(),
-                scratch.data_ptr(), T, H, KV2 // 2, HD, NB, BS, Tb, S,
-                _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
+                scratch.data_ptr(), partials, T, H, KV2 // 2, HD, NB, BS, Tb,
+                S, splits, _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.SOURCE).paged_attention_ragged
         return Launch(fn, argv, out, scratch)
@@ -408,10 +439,11 @@ class _ChunkedAttentionOp(KernelOp):
 
     ``q_chunk`` is the kernel's lane tile, capped at 128 // G lanes for an
     owner whose tiles run on the tensor cores (bf16, two or more lanes in
-    the call: a tile's 128 rows) and at 64 // G for the rest (the SIMT
-    tile's 64 rows).  ``prefetch_depth`` chose the TPU kernel's page DMA
-    ring; the CUDA kernel stages each 64-key stage through shared memory
-    and ignores it.  Neither changes a result.
+    the call: a tile's 128 rows) and at 64 // G for the SIMT tile's (f32
+    owners of two or more lanes, padding: its 64 rows); an owner of one
+    lane runs on the split decode tile.  ``prefetch_depth`` chose the TPU
+    kernel's page DMA ring; the CUDA kernel stages each 64-key stage
+    through shared memory and ignores it.  Neither changes a result.
     """
 
     name = "paged_attention_chunked"
@@ -442,15 +474,16 @@ class _ChunkedAttentionOp(KernelOp):
         if B < 1:
             raise ValueError("kv_lens must have at least one slot")
         out = torch.empty_like(q)
-        scratch = torch.empty((2 * B * Tb + 2 * B + T + 1,),
-                              dtype=torch.int32, device=q.device)
+        splits = split_capacity(B, Tb, BS)
+        scratch, partials = _scratch(
+            q, 2 * B * Tb + 3 * B + T + 1 + B * KV, splits)
         sb, sr, sh, _ = pool_k.stride()
         argv = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                 out.data_ptr(), block_list.data_ptr(), block_req.data_ptr(),
                 block_pos.data_ptr(), kv_lens.data_ptr(),
                 token_req.data_ptr(), token_pos.data_ptr(),
-                scratch.data_ptr(), T, H, KV, HD, NB, BS, Tb, B,
-                int(q_chunk), sb, sr, sh, _DTYPE_CODE[q.dtype],
+                scratch.data_ptr(), partials, T, H, KV, HD, NB, BS, Tb, B,
+                int(q_chunk), splits, sb, sr, sh, _DTYPE_CODE[q.dtype],
                 _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.CHUNKED_SOURCE).paged_attention_chunked
@@ -467,8 +500,10 @@ def _check_tunables(q_chunk: int, prefetch_depth: int) -> None:
 
 class _DecodeAttentionOp(KernelOp):
     """Decode-shape BlockList paged attention, one query per request, over
-    split pools; plain version :func:`paged_attention_opt`.  A request with
-    no BlockList entry reads 0."""
+    split pools; plain version :func:`paged_attention_opt`.  Each request
+    runs on the split decode tile, as a decode lane of the ragged and
+    chunked kernels does, with the same bits.  A request with no BlockList
+    entry reads 0."""
 
     name = "paged_attention_decode"
 
@@ -490,14 +525,15 @@ class _DecodeAttentionOp(KernelOp):
             raise ValueError(f"seq_lens {tuple(seq_lens.shape)} must have "
                              f"one entry per query of q {tuple(q.shape)}")
         out = torch.empty_like(q)
-        scratch = torch.empty((2 * B * Tb + B,), dtype=torch.int32,
-                              device=q.device)
+        splits = split_capacity(B, Tb, BS)
+        scratch, partials = _scratch(q, 2 * B * Tb + B + B * KV, splits)
         sb, sr, sh, _ = pool_k.stride()
         argv = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                 out.data_ptr(), block_list.data_ptr(), block_req.data_ptr(),
                 block_pos.data_ptr(), seq_lens.data_ptr(),
-                scratch.data_ptr(), B, H, KV, HD, NB, BS, Tb, sb, sr, sh,
-                _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
+                scratch.data_ptr(), partials, B, H, KV, HD, NB, BS, Tb,
+                splits, sb, sr, sh, _DTYPE_CODE[q.dtype],
+                _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.DECODE_SOURCE).paged_attention_decode
         return Launch(fn, argv, out, scratch)

@@ -102,7 +102,9 @@ struct Pool {
 // Block-wide, kListThreads threads: the pages (pool block, block position)
 // of the BlockList entries with block_req == slot that hold a key below
 // kvl, in BlockList order, into list_blk/list_pos.  Returns their count, in
-// every thread.  Pool blocks are clamped into [0, NB).
+// every thread.  Pool blocks are clamped into [0, NB).  Each thread takes
+// kListPer neighbouring entries a pass, their loads in flight together.
+constexpr int kListPer = 4;
 __device__ __forceinline__ int compact_entries(
     const int* __restrict__ block_list, const int* __restrict__ block_req,
     const int* __restrict__ block_pos, int Tb, int slot, int kvl, int BS,
@@ -111,24 +113,46 @@ __device__ __forceinline__ int compact_entries(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int running = 0;
-  for (int base = 0; base < Tb; base += kListThreads) {
-    const int e = base + threadIdx.x;
-    const bool hit = e < Tb && block_req[e] == slot &&
-                     static_cast<long long>(block_pos[e]) * BS < kvl;
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_counts[warp] = __popc(mask);
+  for (int base = 0; base < Tb; base += kListThreads * kListPer) {
+    const int e0 = base + threadIdx.x * kListPer;
+    int req[kListPer], pos[kListPer], n = 0;
+#pragma unroll
+    for (int i = 0; i < kListPer; ++i) {
+      req[i] = -1;
+      pos[i] = 0;
+      if (e0 + i < Tb) {
+        req[i] = block_req[e0 + i];
+        pos[i] = block_pos[e0 + i];
+      }
+    }
+    bool hit[kListPer];
+#pragma unroll
+    for (int i = 0; i < kListPer; ++i) {
+      hit[i] = req[i] == slot && static_cast<long long>(pos[i]) * BS < kvl;
+      n += hit[i];
+    }
+    int incl = n;                   // inclusive scan over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_counts[warp] = incl;
     __syncthreads();
-    int before = 0, chunk = 0;
+    int at = running + incl - n, chunk = 0;
 #pragma unroll
     for (int w = 0; w < kListThreads / 32; ++w) {
       const int c = warp_counts[w];
-      if (w < warp) before += c;
+      if (w < warp) at += c;
       chunk += c;
     }
-    if (hit) {
-      const int at = running + before + __popc(mask & ((1u << lane) - 1u));
-      list_blk[at] = min(max(block_list[e], 0), NB - 1);
-      list_pos[at] = block_pos[e];
+#pragma unroll
+    for (int i = 0; i < kListPer; ++i) {
+      if (hit[i]) {
+        list_blk[at] = min(max(block_list[e0 + i], 0), NB - 1);
+        list_pos[at] = pos[i];
+        ++at;
+      }
     }
     running += chunk;
     __syncthreads();
@@ -138,15 +162,19 @@ __device__ __forceinline__ int compact_entries(
 
 // Page lists keyed by slot (chunked and decode): block b compacts slot b's
 // entries below kv_lens[b] into list_blk/list_pos[b * Tb + c],
-// c < counts[b].
+// c < counts[b], and resets slot b's arrival counters of the decode tile
+// (paged_decode_tile.cuh), counters[b * KV, (b + 1) * KV), to 0.
 __global__ void slot_lists_kernel(const int* __restrict__ block_list,
                                   const int* __restrict__ block_req,
                                   const int* __restrict__ block_pos, int Tb,
                                   const int* __restrict__ kv_lens, int BS,
-                                  int NB, int* __restrict__ list_blk,
+                                  int NB, int KV, int* __restrict__ list_blk,
                                   int* __restrict__ list_pos,
-                                  int* __restrict__ counts) {
+                                  int* __restrict__ counts,
+                                  int* __restrict__ counters) {
   const int b = blockIdx.x;
+  for (int h = threadIdx.x; h < KV; h += kListThreads)
+    counters[b * KV + h] = 0;
   const size_t at = static_cast<size_t>(b) * Tb;
   const int n = compact_entries(block_list, block_req, block_pos, Tb, b,
                                 kv_lens[b], BS, NB, list_blk + at,

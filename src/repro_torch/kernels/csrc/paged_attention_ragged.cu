@@ -24,27 +24,30 @@
 // the tiles of a sequence with two or more lanes in the launch (prefill
 // chunks) run on paged::attend_tile_mma, 128 query rows per block on the
 // tensor cores (wgmma at HD 64/128, mma.sync at 16/32, K/V in bf16 through
-// a two-stage cp.async ring); everything else runs on the SIMT
-// paged::attend_tile, 64 rows per block: float32, single-lane sequences
-// (decode lanes) and padding tiles.  The choice is the sequence's alone,
-// and the chunked kernel makes it the same way from its lane counts; a
-// row's result on either tile depends only on its sequence's page list,
-// its position and kvl, so the two kernels stay bitwise equal, and decode
-// lanes stay bitwise equal to the decode kernel's.
+// a two-stage cp.async ring); a sequence of one lane (a decode lane, f32
+// or bf16) runs on the decode tile (paged_decode_tile.cuh): its keys cut
+// into splits of kSplitKeys, one block per (split, kv head), combined in
+// this launch; everything else runs on the SIMT paged::attend_tile, 64
+// rows per block: float32 sequences of two or more lanes and padding
+// tiles.  The choice is the sequence's alone, and the chunked and decode
+// kernels make it the same way; a row's result on each tile depends only
+// on its sequence's page list, its position and kvl, so the kernels stay
+// bitwise equal on the same lanes.
 //
 // Bound on the H100: the larger of the bytes (the K/V rows the step's
 // sequences hold, q, out and the lists, at 3.35 TB/s) and the operations
 // (4*HD per (head, valid key) pair, at 989 TFLOP/s in bf16 or 67 in f32);
 // a serving step's bytes bound is the larger.  entry_lists_kernel compacts
-// each sequence's pages once per launch; ragged_attention_kernel runs one
-// block per (sequence, query tile of that sequence's lanes, kv head): the
-// G query heads of the kv head ride in the tile's rows, so each KV byte of
-// a sequence is read once per query tile.  A bf16 instance holds both
-// tiles, chosen per block at run time, in one launch: 256 threads, dynamic
-// shared memory for the larger tile, two blocks per SM at HD <= 64.
-// Not done yet: splitting a long sequence's keys across blocks for the
-// decode lanes (flash-decoding, with the chunked and decode kernels), TMA
-// copies and warp specialisation in the tensor-core tile.
+// each sequence's pages once per launch (and resets the decode tile's
+// arrival counters); ragged_attention_kernel runs the decode tile's split
+// blocks first, then one block per (sequence, query tile of that
+// sequence's lanes, kv head): the G query heads of the kv head ride in a
+// tile's rows, so each KV byte of a sequence is read once per query tile,
+// and a decode lane's keys are read once, spread over its splits.  An
+// instance holds every tile its dtype uses, chosen per block at run time,
+// in one launch: 256 threads, dynamic shared memory for the largest tile,
+// two blocks per SM at bf16 HD <= 64.
+// Not done yet: TMA copies and warp specialisation in the tensor-core tile.
 
 #include "paged_attention_mma.cuh"
 
@@ -57,17 +60,22 @@ constexpr int kMaxSeqs = 1024;  // S limit (cu_q is staged in shared memory)
 
 // For sequence j, the pages (pool block, block position) of its BlockList
 // entries that hold a key below kvl_j, in BlockList order:
-// list_blk/list_pos[j * Tb + c], c < counts[j].
+// list_blk/list_pos[j * Tb + c], c < counts[j]; and its decode tile's
+// arrival counters counters[j * KV, (j + 1) * KV) reset to 0.
 __global__ void entry_lists_kernel(const int* __restrict__ block_list,
                                    const int* __restrict__ block_req,
                                    const int* __restrict__ block_pos, int Tb,
                                    const int* __restrict__ cu_q,
                                    const int* __restrict__ cu_kv,
                                    const int* __restrict__ seq_slot, int S,
-                                   int BS, int NB, int* __restrict__ list_blk,
+                                   int BS, int NB, int KV,
+                                   int* __restrict__ list_blk,
                                    int* __restrict__ list_pos,
-                                   int* __restrict__ counts) {
+                                   int* __restrict__ counts,
+                                   int* __restrict__ counters) {
   const int j = blockIdx.x;
+  for (int h = threadIdx.x; h < KV; h += kListThreads)
+    counters[j * KV + h] = 0;
   const int slot = seq_slot[j];
   const int nq = cu_q[j + 1] - cu_q[j];
   const int kvl = cu_kv[j + 1] - cu_kv[j];
@@ -91,9 +99,12 @@ __global__ void __launch_bounds__(kThreads,
                             const int* __restrict__ cu_kv,
                             const int* __restrict__ list_blk,
                             const int* __restrict__ list_pos,
-                            const int* __restrict__ counts, int num_lanes,
+                            const int* __restrict__ counts,
+                            int* __restrict__ counters,
+                            float* __restrict__ partials, int num_lanes,
                             int H, int KV, int BS, int S, int Tb, int tq,
-                            int tq_mma, float scale) {
+                            int tq_mma, int split_blocks, int max_splits,
+                            float scale) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int sCu[kMaxSeqs + 1];
   __shared__ int sInfo[3];
@@ -101,18 +112,44 @@ __global__ void __launch_bounds__(kThreads,
   const int tid = threadIdx.x;
   const int kvh = blockIdx.y;
   const int G = H / KV;
+  const long long fused = 2LL * KV * HD;      // one pool row, K and V heads
+  const paged::Pool<T> pool{kv_pool, kv_pool + HD, BS * fused, fused,
+                            2LL * HD};
+  if (blockIdx.x < split_blocks) {          // the decode tile's splits
+    // sequence j's splits: one lane (at cu_q[j] < num_lanes), keys counts[j]
+    // pages
+    const auto nsplit = [=](int j) {
+      const int lane = cu_q[j];
+      return paged::decode_owner(cu_q[j + 1] - lane) && lane >= 0 &&
+                     lane < num_lanes
+                 ? paged::num_splits(static_cast<long long>(counts[j]) * BS)
+                 : 0;
+    };
+    paged::run_splits(split_blocks, S, nsplit,
+                      [&](int j, int split, int w, int h) {
+      const int kvl = cu_kv[j + 1] - cu_kv[j];
+      const size_t list0 = static_cast<size_t>(j) * Tb;
+      paged::decode_split<T, HD>(
+          q, out, H, G, h, cu_q[j], kvl - 1, kvl, list_blk + list0,
+          list_pos + list0, counts[j], BS, pool, scale, split, nsplit(j), w,
+          KV, max_splits, partials, counters + j * KV + h,
+          reinterpret_cast<unsigned char*>(smem));
+    });
+    return;
+  }
   for (int i = tid; i <= S; i += kThreads) sCu[i] = cu_q[i];
   __syncthreads();
 
   // Which tile is this block?  Sequences in order, each cut into tiles of
-  // tq_mma lanes (a tensor-core sequence) or tq, then the padding lanes
-  // past cu_q[S] in tiles of tq.
+  // tq_mma lanes (a tensor-core sequence) or tq (none for a decode-tile
+  // sequence), then the padding lanes past cu_q[S] in tiles of tq.
   if (tid == 0) {
-    int b = blockIdx.x, seq = -2, lane0 = 0, n = 0;
+    int b = blockIdx.x - split_blocks, seq = -2, lane0 = 0, n = 0;
     for (int j = 0; j < S; ++j) {
       const int nq = sCu[j + 1] - sCu[j];
       const int len = paged::mma_owner<T>(nq) ? tq_mma : tq;
-      const int nt = nq > 0 ? (nq + len - 1) / len : 0;
+      const int nt =
+          nq > 0 && !paged::decode_owner(nq) ? (nq + len - 1) / len : 0;
       if (b < nt) {
         seq = j;
         lane0 = sCu[j] + b * len;
@@ -151,9 +188,6 @@ __global__ void __launch_bounds__(kThreads,
     count = counts[seq];
   }
   const size_t list0 = static_cast<size_t>(seq < 0 ? 0 : seq) * Tb;
-  const long long fused = 2LL * KV * HD;      // one pool row, K and V heads
-  const paged::Pool<T> pool{kv_pool, kv_pool + HD, BS * fused, fused,
-                            2LL * HD};
   if constexpr (paged::PagedKernel<T, HD>::kMma) {
     if (paged::mma_owner<T>(nq)) {           // uniform across the block
       const auto row_pos = [=](int r) { return first + r / G; };
@@ -170,11 +204,16 @@ __global__ void __launch_bounds__(kThreads,
 }
 
 // The per-sequence page lists share one scratch buffer of
-// 2 * S * Tb + S int32: list_blk, then list_pos, then counts.
+// 2 * S * Tb + S + S * KV int32: list_blk, then list_pos, counts and the
+// decode tile's arrival counters; beside it the decode tile's workspace,
+// max_splits x KV records of partial_floats(G, HD) floats.
 struct Lists {
   const int* blk;
   const int* pos;
   const int* counts;
+  int* counters;
+  float* partials;
+  int max_splits;
 };
 
 template <typename T, int HD>
@@ -190,12 +229,16 @@ cudaError_t launch(const void* q, const void* kv_pool, void* out,
   const int G = H / KV;
   const int tq = kRows / G;
   const int tq_mma = paged::kMmaRows / G;
-  // a tensor-core sequence's tiles are longer, so this is enough blocks
-  const dim3 grid((T_lanes + tq - 1) / tq + S + 1, KV);
+  // the split blocks, which loop when there are more splits, then enough
+  // tile blocks (a tensor-core sequence's tiles are longer)
+  const int split_blocks =
+      paged::split_grid_x(lists.max_splits, KV, paged::kSplitGridBlocks);
+  const dim3 grid(split_blocks + (T_lanes + tq - 1) / tq + S + 1, KV);
   ragged_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv_pool),
       static_cast<T*>(out), cu_q, cu_kv, lists.blk, lists.pos, lists.counts,
-      T_lanes, H, KV, BS, S, Tb, tq, tq_mma, scale);
+      lists.counters, lists.partials, T_lanes, H, KV, BS, S, Tb, tq, tq_mma,
+      split_blocks, lists.max_splits, scale);
   return cudaGetLastError();
 }
 
@@ -224,34 +267,39 @@ cudaError_t launch_hd(int HD, const void* q, const void* kv_pool, void* out,
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  scratch holds 2 * S * Tb + S
-// int32 (see Lists).  q, kv_pool and out must be 16-byte aligned.  dtype:
-// 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launches (0 = ok).
+// Plain C entry point, bound with ctypes.  scratch holds
+// 2 * S * Tb + S + S * KV int32 (see Lists); partials max_splits x KV x
+// partial_floats(H / KV, HD) floats, max_splits >= 1 (the decode tile's
+// splits over all sequences of one lane: at most ceil(Tb * BS /
+// kSplitKeys) + S when each BlockList entry belongs to one sequence).  q,
+// kv_pool, out and partials must be 16-byte aligned.  dtype: 0 = float32,
+// 1 = bfloat16.  Returns cudaGetLastError() after the launches (0 = ok).
 extern "C" int paged_attention_ragged(
     const void* q, const void* kv_pool, void* out, const void* block_list,
     const void* block_req, const void* block_pos, const void* cu_q_lens,
-    const void* cu_kv_lens, const void* seq_slot, void* scratch, int T_lanes,
-    int H, int KV, int HD, int NB, int BS, int Tb, int S, int dtype,
-    float scale, void* stream) {
+    const void* cu_kv_lens, const void* seq_slot, void* scratch,
+    void* partials, int T_lanes, int H, int KV, int HD, int NB, int BS,
+    int Tb, int S, int max_splits, int dtype, float scale, void* stream) {
   if (S < 1 || S > kMaxSeqs || KV < 1 || H % KV != 0 || H / KV > kRows ||
-      BS < 1 || NB < 1)
+      BS < 1 || NB < 1 || max_splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* list_blk = static_cast<int*>(scratch);
   int* list_pos = list_blk + static_cast<size_t>(S) * Tb;
   int* counts = list_pos + static_cast<size_t>(S) * Tb;
+  int* counters = counts + S;
   const int* cq = static_cast<const int*>(cu_q_lens);
   const int* ck = static_cast<const int*>(cu_kv_lens);
   entry_lists_kernel<<<S, kListThreads, 0, st>>>(
       static_cast<const int*>(block_list), static_cast<const int*>(block_req),
       static_cast<const int*>(block_pos), Tb, cq, ck,
-      static_cast<const int*>(seq_slot), S, BS, NB, list_blk, list_pos,
-      counts);
+      static_cast<const int*>(seq_slot), S, BS, NB, KV, list_blk, list_pos,
+      counts, counters);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T_lanes == 0) return 0;
-  const Lists lists{list_blk, list_pos, counts};
+  const Lists lists{list_blk, list_pos, counts, counters,
+                    static_cast<float*>(partials), max_splits};
   if (dtype == 0)
     err = launch_hd<float>(HD, q, kv_pool, out, cq, ck, lists, T_lanes, H, KV,
                            BS, S, Tb, scale, st);

@@ -7,6 +7,8 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.attention_api import SPLIT_KEYS
+
 
 def ragged_case(rng: np.random.Generator, *, num_heads: int, num_kv: int,
                 head_dim: int, block_size: int, num_blocks: int,
@@ -166,6 +168,24 @@ def decode_case(rng: np.random.Generator, *, num_heads: int, num_kv: int,
     }
 
 
+def decode_lanes(case: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A decode case's requests as lanes of one lane each, for the chunked
+    and ragged kernels: ``token_req`` = ``seq_slot`` = arange(B),
+    ``token_pos`` = seq_lens - 1, ``kv_lens`` = seq_lens, ``cu_q_lens`` =
+    arange(B + 1), ``cu_kv_lens`` the lengths' prefix sums, and
+    ``kv_pool`` the fused pool of ``pool_k`` and ``pool_v``, beside the
+    case's own arrays."""
+    lens = case["seq_lens"]
+    ids = np.arange(len(lens), dtype=np.int32)
+    cu_kv = np.zeros((len(lens) + 1,), np.int32)
+    cu_kv[1:] = np.cumsum(lens)
+    k, v = case["pool_k"], case["pool_v"]
+    fused = np.stack([k, v], axis=-2).reshape(*k.shape[:2], -1, k.shape[3])
+    return dict(case, kv_lens=lens, token_req=ids, token_pos=lens - 1,
+                cu_q_lens=np.arange(len(lens) + 1, dtype=np.int32),
+                cu_kv_lens=cu_kv, seq_slot=ids, kv_pool=fused)
+
+
 # Chunked lanes at SMALL widths: owners interleaved within a tile (0 2 0 2),
 # an empty request (slot 1, no keys), positions inside and past the chunk,
 # padding lanes (owner 4) in the middle and at the end.
@@ -191,3 +211,19 @@ DECODE_CASES = {
 }
 DECODE_ARG_ORDER = ("q", "pool_k", "pool_v", "block_list", "block_req",
                     "block_pos", "seq_lens")
+
+# Long-context decode requests for the kernels' decode tile, which cuts an
+# owner's keys into splits of SPLIT_KEYS (256): kvl 1, SPLIT_KEYS (one
+# split), SPLIT_KEYS + 1 (two, the second holding one valid key), 700
+# (three), 129, an empty request and 3999 (16 splits), a shuffled, padded
+# BlockList; at smollm-360m's widths (G 3, hd 64) and Fig 17's (G 4, hd
+# 128).
+LONG_DECODE = dict(seq_lens=[1, SPLIT_KEYS, SPLIT_KEYS + 1, 700, 129, 0,
+                             3999],
+                   num_entries=400, shuffle=True)
+LONG_WIDTHS = {
+    "smollm-360m": dict(num_heads=15, num_kv=5, head_dim=64, block_size=16,
+                        num_blocks=360),
+    "fig17": dict(num_heads=32, num_kv=8, head_dim=128, block_size=16,
+                  num_blocks=360),
+}

@@ -198,8 +198,8 @@ ptxas info    : Used 64 registers, used 1 barriers, 4880 bytes smem
 
 def test_chip_smoke_reads_each_paged_instance_and_fails_on_a_spill():
     """``chip_smoke.py``'s phases 6 and 18 name each ragged or chunked
-    instance's tiles (SIMT beside wgmma or mma.sync in bf16, SIMT alone in
-    f32) from the ``-Xptxas -v`` log, add its dynamic shared memory, skip
+    instance's tiles (SIMT and the decode tile, beside wgmma or mma.sync in
+    bf16) from the ``-Xptxas -v`` log, add its dynamic shared memory, skip
     the list kernels, and fail on a spill (the f32 entry of the sample log
     spills)."""
     import importlib.util
@@ -221,10 +221,10 @@ def test_chip_smoke_reads_each_paged_instance_and_fails_on_a_spill():
     rows = smoke.ptxas_instances("ragged_attention_kernel", smem, bf16_log,
                                  build, "card", smoke.paged_tile)
     assert rows == [
-        dict(dtype="bfloat16", hd=64, tile="SIMT + wgmma", registers=125,
-             smem_static=9648, smem_dynamic=64001),
-        dict(dtype="bfloat16", hd=16, tile="SIMT + mma.sync", registers=110,
-             smem_static=9616, smem_dynamic=16001)]
+        dict(dtype="bfloat16", hd=64, tile="SIMT + decode + wgmma",
+             registers=125, smem_static=9648, smem_dynamic=64001),
+        dict(dtype="bfloat16", hd=16, tile="SIMT + decode + mma.sync",
+             registers=110, smem_static=9616, smem_dynamic=16001)]
     with pytest.raises(AssertionError, match="float32, 64> spills"):
         smoke.ptxas_instances("ragged_attention_kernel", smem,
                               PAGED_PTXAS_LOG, build, "card",

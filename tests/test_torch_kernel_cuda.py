@@ -26,6 +26,14 @@ in float32, as the kernel takes them, the two differ only where each rounds
 the weights and the output to bfloat16, so a fault in small outputs shows.
 Two calls, and ``bq``/``bk``, change no bit.  bfloat16 runs on the
 tensor-core tile (``attend_tile_mma.cuh``), float32 on the SIMT one.
+Decode lanes (owners of one lane) of all three paged kernels run on the
+split decode tile (``paged_decode_tile.cuh``): on the long-context cases
+(owners of 1 to about 4000 keys, 1 to 16 splits) decode, chunked and
+ragged give the same bits, each meets its plain version's tolerance and,
+in bfloat16, the per-element limit that outputs under 0.25 moved by 8
+ulps fail; a lane's bits do not depend on its neighbours in the launch,
+two calls give the same bits (the splits combine in split order, not in
+arrival order), and the ops add no host sync.
 """
 import os
 import shutil
@@ -46,7 +54,8 @@ from repro_torch.kernels.gather_scatter import ref as gs_ref
 from repro_torch.kernels.stream import ops as stream
 from repro_torch.kernels.paged_attention.cases import (
     ARG_ORDER, CHUNKED_ARG_ORDER, CHUNKED_CASES, DECODE_ARG_ORDER,
-    DECODE_CASES, SMALL, SMALL_CASES, chunked_case, decode_case, ragged_case)
+    DECODE_CASES, LONG_DECODE, LONG_WIDTHS, SMALL, SMALL_CASES, chunked_case,
+    decode_case, decode_lanes, ragged_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -124,6 +133,8 @@ CHUNKED = [(SMALL, CHUNKED_CASES[n]) for n in sorted(CHUNKED_CASES)]
 CHUNKED.append((FULL, FULL_CHUNKED))
 DECODE = [(SMALL, DECODE_CASES[n]) for n in sorted(DECODE_CASES)]
 DECODE.append((FULL, FULL_DECODE))
+LONG = [(LONG_WIDTHS[n], LONG_DECODE) for n in sorted(LONG_WIDTHS)]
+DECODE += LONG
 DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
 
 
@@ -239,17 +250,110 @@ def test_decode_kernel_matches_plain_version(card, shape, case, dtype, atol):
     assert torch.all(got[empty] == 0)
 
 
+def _decode_as_lanes(c, dtype, dev):
+    """The decode case's arguments, and its requests as lanes of one lane
+    each: the chunked kernel's and the ragged kernel's arguments
+    (``cases.decode_lanes``)."""
+    lanes = decode_lanes(c)
+    return (_decode_args(c, dtype, dev), _chunked_args(lanes, dtype, dev),
+            _args(lanes, dtype, dev))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_equals_chunked_kernel_bitwise(card, dtype):
-    c = decode_case(np.random.default_rng(1), **FULL, **FULL_DECODE)
-    q, pk, pv, bl, br, bp, lens = _decode_args(c, dtype, card)
-    decode = api.paged_attention_op(q, pk, pv, bl, br, bp, lens)
-    B = q.shape[0]
-    chunked = api.paged_attention_chunked_op(
-        q, pk, pv, bl, br, bp, lens,
-        torch.arange(B, dtype=torch.int32, device=card), lens - 1)
+@pytest.mark.parametrize("shape,case", [(FULL, FULL_DECODE)] + LONG)
+def test_decode_kernel_equals_chunked_kernel_bitwise(card, shape, case,
+                                                     dtype):
+    """Decode == chunked == ragged on the same decode lanes, bit for bit:
+    all three run them on the decode tile, cut into the same splits."""
+    c = decode_case(np.random.default_rng(1), **shape, **case)
+    args, chunked_args, ragged_args = _decode_as_lanes(c, dtype, card)
+    decode = api.paged_attention_op(*args)
+    chunked = api.paged_attention_chunked_op(*chunked_args)
+    ragged = api.paged_attention_ragged_op(*ragged_args)
     torch.cuda.synchronize()
     assert torch.equal(decode, chunked)
+    assert torch.equal(decode, ragged)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+@pytest.mark.parametrize("shape,case", LONG)
+def test_long_decode_lanes_match_plain_versions(card, shape, case, dtype,
+                                                atol):
+    """B3, and B1/B2 on the same decode lanes, against their plain versions
+    on owners of 1 to 3999 keys (1 to 16 splits): f32 atol 2e-5; bf16 atol
+    2e-2 and the per-element limit, which outputs under 0.25 moved by 8
+    ulps fail; a second call gives the same bits; the empty request reads
+    0."""
+    c = decode_case(np.random.default_rng(2), **shape, **case)
+    args, chunked_args, ragged_args = _decode_as_lanes(c, dtype, card)
+    got = api.paged_attention_op(*args)
+    outs = [api.paged_attention_chunked_op(*chunked_args),
+            api.paged_attention_ragged_op(*ragged_args)]
+    again = api.paged_attention_op(*args)
+    torch.cuda.synchronize()
+    for out, want in ((got, api.paged_attention_opt(*args)),
+                      (outs[0], api.paged_attention_chunked(*chunked_args)),
+                      (outs[1], api.paged_attention_ragged(*ragged_args))):
+        assert (out.float() - want.float()).abs().max().item() <= atol
+    if dtype == torch.bfloat16:
+        assert api.chunked_bf16_share(got, *chunked_args) <= 1
+        small = (got.float().abs() < 0.25).to(torch.int16)
+        control = (got.view(torch.int16) + 8 * small).view(torch.bfloat16)
+        assert api.chunked_bf16_share(control, *chunked_args) > 1
+    assert torch.equal(got, again)
+    assert torch.all(got[torch.from_numpy(c["seq_lens"] == 0).to(card)] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_lane_bits_do_not_depend_on_its_neighbours(card, dtype):
+    """A 700-key decode lane (three splits) gives the same bits alone as
+    beside a prefill chunk, another decode lane and padding lanes, in the
+    ragged and in the chunked kernel."""
+    c = ragged_case(np.random.default_rng(3), **FULL,
+                    seqs=[(1, 64, 300), (0, 1, 700), (2, 1, 5), (4, 0, 0)],
+                    num_lanes=80, num_entries=96, shuffle=True)
+    args = _args(c, dtype, card)
+    q, pool, bl, br, bp, cu_q, cu_kv, ss = args
+    mixed = api.paged_attention_ragged_op(*args)
+    lane = int(c["cu_q_lens"][1])                 # sequence 1's one lane
+    alone = api.paged_attention_ragged_op(
+        q[lane:lane + 1].contiguous(), pool, bl, br, bp,
+        torch.tensor([0, 1], dtype=torch.int32, device=card),
+        torch.tensor([0, 700], dtype=torch.int32, device=card),
+        torch.tensor([0], dtype=torch.int32, device=card))
+    treq, tpos, kvl = api.ragged_lane_metadata(cu_q, cu_kv, ss, q.shape[0],
+                                               ss.shape[0])
+    pk, pv = fused_kv_views(pool)
+    chunked = api.paged_attention_chunked_op(q, pk, pv, bl, br, bp, kvl,
+                                             treq, tpos)
+    chunked_alone = api.paged_attention_chunked_op(
+        q[lane:lane + 1].contiguous(), pk, pv, bl, br, bp, kvl,
+        treq[lane:lane + 1].contiguous(), tpos[lane:lane + 1].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(mixed[lane], alone[0])
+    assert torch.equal(mixed, chunked)
+    assert torch.equal(chunked_alone[0], alone[0])
+
+
+def test_paged_ops_add_no_host_sync(card):
+    """The decode, chunked and ragged ops launch without a host sync (the
+    split workspace is sized from shapes, never from the key counts)."""
+    c = decode_case(np.random.default_rng(4), **LONG_WIDTHS["smollm-360m"],
+                    **LONG_DECODE)
+    args, chunked_args, ragged_args = _decode_as_lanes(c, torch.bfloat16,
+                                                       card)
+    calls = ((api.paged_attention_op, args),
+             (api.paged_attention_chunked_op, chunked_args),
+             (api.paged_attention_ragged_op, ragged_args))
+    want = [op(*a) for op, a in calls]          # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [op(*a) for op, a in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_chunked_and_decode_kernels_refuse_bad_inputs(card):
