@@ -101,8 +101,10 @@ Phases, each of which raises on failure (the script catches none):
 20. the gather and scatter kernels against their plain versions, bitwise,
    at Fig 9's full sizes (4 M rows, 1 M uniform ids, about 115 k of them
    repeats): rows of 16 to 2048 bytes (the widest table 8.2 GB, past 2^31
-   bytes), 12-byte float32 and 10-byte bfloat16 rows (element loads), ids
-   that wrap, fall past either end (NaN rows, dropped writes) and repeat;
+   bytes), 12-byte float32 and 10-byte bfloat16 rows (element loads),
+   48-byte rows (three 16-byte vectors: a masked lane group), and heavy
+   repeats (1 M draws over 16 rows) at 16 and 2048 bytes; ids that wrap,
+   fall past either end (NaN rows, dropped writes) and repeat;
 21. the flash-attention kernel against its plain version at smollm-360m's
    prefill widths (B 1, S 4096, H 15, KV 5, hd 64; bf16 and f32), Fig
    17's (B 4, S 2048, H 32, KV 8, hd 128; bf16), the four shapes of
@@ -115,26 +117,37 @@ Phases, each of which raises on failure (the script catches none):
    the same bits;
 22. the microbenchmark path: ``python -m repro_torch.bench.run --only
    stream,gather_scatter,gemm_roofline --full`` in-process (Fig 8 at the
-   reference's 2^21 elements, Fig 9 at 4 M x 1 M, the GEMM sweep), then
-   the STREAM module at n = 2^28 (1 GiB per array, over 4x the 50 MB L2);
-   each STREAM and gather/scatter wrapper's launch count must equal the
-   calls its rows made;
+   reference's 2^21 elements, Fig 9 at 4 M x 1 M, each gather and
+   scatter held bitwise against its plain version before it is timed, the
+   GEMM sweep), then the STREAM module at n = 2^28 (1 GiB per array, over
+   4x the 50 MB L2); each STREAM and gather/scatter wrapper's launch count
+   must equal the calls its rows made;
 23. the flash-attention op at the shapes of phase 21 (causal where the
    reference's are); its launch count must equal the calls, and every
    output must be finite;
 24. the three new kernels' times (CUDA events over back-to-back launches
    through the C entry point) beside their plain versions, one PyTorch
    call each as the yardstick (``torch.add``/``mul``, ``index_select``/
-   ``index_copy_``, ``scaled_dot_product_attention``; never used by the
-   port) and their bounds: STREAM 3 n elt (2 n elt for SCALE) bytes;
-   gather the distinct rows read, N rows written and the ids; scatter the
-   distinct rows' winning source rows read, the distinct rows written and
-   the ids (the winner scratch's traffic is printed beside it); flash q,
-   k, v and out once, against 4 B H S^2 hd operations (half when causal)
-   at the dtype's peak, with its TFLOP/s and its time over SDPA's, and the
-   registers, shared memory and spills of every ``flash_kernel`` instance
-   (``-Xptxas -v``; a spill fails the phase).  Each kernel is held against
-   its plain version on the inputs it is timed on.
+   the deterministic ``index_put_``, ``scaled_dot_product_attention``;
+   never used by the port) and their bounds: STREAM 3 n elt (2 n elt for
+   SCALE) bytes; gather the distinct rows read, N rows written and the
+   ids; scatter the distinct rows' winning source rows read, the distinct
+   rows written and the ids; beside those, Fig 9's sector bound (the same
+   accesses in 32-byte sectors, and a read of each sector the scatter
+   writes only in part).  The scatter's yardstick is the deterministic
+   ``index_put_`` where it gives the plain version's bits, else none (it
+   says so), with ``index_copy_`` (no last-write rule) beside it either
+   way.  One gather and one scatter call at 16 and 2048 B under
+   torch.profiler give each launch's device ms, and every gather/scatter
+   instance's registers and spills are printed (a spill fails the phase);
+   flash q, k, v and out once, against 4 B H S^2 hd operations (half when
+   causal) at the dtype's peak, with its TFLOP/s and its time over SDPA's,
+   and the registers, shared memory and spills of every ``flash_kernel``
+   instance (``-Xptxas -v``; a spill fails the phase).  Each kernel is
+   held against its plain version on the inputs it is timed on.  Parent
+   and change of the gather/scatter kernels in turns on one card are
+   ``src/repro_torch/bench/gather_scatter_turns.py``'s job: a checkout
+   holds one tree.
 
 Each path (phases 5, 10, 15, 16, 22, 23) runs with every kernel's launch
 count set to 0 just before it and read just after.  The card's peaks come
@@ -206,9 +219,18 @@ SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 STREAM_N = (128 * 16384, 2 ** 28)    # the reference's full n; 1 GiB f32
 STREAM_BLOCK_ROWS = (8, 64, 256, 1024)
 FIG9_R, FIG9_N = 4_000_000, 1_000_000
-FIG9_ROWS = ((16, "float32"), (64, "float32"), (128, "float32"),
-             (256, "float32"), (512, "float32"), (2048, "float32"),
-             (12, "float32"), (10, "bfloat16"))
+# (row bytes, dtype, ids): Fig 9's widths, 12-byte float32 and 10-byte
+# bfloat16 rows (element loads), 48-byte rows (three 16-byte vectors, a
+# masked lane group), then heavy repeats: 1 M draws over 16 rows
+FIG9_ROWS = ((16, "float32", "uniform"), (64, "float32", "uniform"),
+             (128, "float32", "uniform"), (256, "float32", "uniform"),
+             (512, "float32", "uniform"), (2048, "float32", "uniform"),
+             (12, "float32", "uniform"), (10, "bfloat16", "uniform"),
+             (48, "float32", "uniform"), (16, "float32", "heavy"),
+             (2048, "float32", "heavy"))
+HEAVY_ROWS = 16
+# the gather/scatter instances' word types, as the compiler mangles them
+GS_WORDS = {"5uint4": "uint4", "j": "uint32", "t": "uint16"}
 # (name, B, S, H, KV, hd, dtype, causal): smollm-360m's prefill, Fig 17's
 # widths, then tests/test_kernels.py's four shapes
 FLASH_SHAPES = (("smollm-360m prefill", 1, 4096, 15, 5, 64, "bfloat16", True),
@@ -1282,7 +1304,8 @@ def main() -> int:
     # 24. times of the new kernels ---------------------------------------------------
     log("== 24. STREAM, gather/scatter and flash-attention kernel times")
     stream_t = stream_times(torch, stream_ops, dev, card)
-    gs_t = gs_times(torch, gs_ops, dev, card)
+    gs_t = gs_times(torch, gs_ops, builds[GS_KERNEL]["log"], build, dev,
+                    card)
     flash_t = flash_times(torch, flash_attention, flash_inputs, card)
     flash_inst = flash_ptxas(flash_kernel, builds[FLASH_KERNEL]["log"],
                              build, card)
@@ -1332,7 +1355,8 @@ def main() -> int:
         "also_replaces": "src/repro/kernels/gather_scatter/kernel.py:48",
         "launches": micro["gather_scatter"], **gs_t["sweep"],
         "launches_by_op": micro["gather_scatter_by_op"],
-        "rows": gs_t["rows"]}, {
+        "rows": gs_t["rows"], "profile": gs_t["profile"],
+        "instances": gs_t["instances"]}, {
         "name": FLASH_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{FLASH_KERNEL}.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:66",
@@ -1649,13 +1673,13 @@ def gs_check(torch, ops, dev):
     R, N = FIG9_R, FIG9_N
     edge = torch.tensor([-1, -R, R, -R - 1, 2 ** 31 - 1], dtype=torch.int32,
                         device=dev)
-    for vb, name in FIG9_ROWS:
+    for vb, name, ids in FIG9_ROWS:
         dtype = getattr(torch, name)
         D = vb // (4 if name == "float32" else 2)
         table = torch.randn((R, D), generator=gen, device=dev).to(dtype)
         src = torch.randn((N, D), generator=gen, device=dev).to(dtype)
-        idx = torch.randint(0, R, (N,), generator=gen, device=dev,
-                            dtype=torch.int32)
+        idx = torch.randint(0, R if ids == "uniform" else HEAVY_ROWS, (N,),
+                            generator=gen, device=dev, dtype=torch.int32)
         idx[:5] = edge
         idx[-1] = idx[5]                    # a repeat the last draw wins
         repeats = N - torch.unique(idx[5:]).numel()
@@ -1676,9 +1700,9 @@ def gs_check(torch, ops, dev):
         if not torch.equal(kernel[idx[5].long()], src[-1]):
             raise AssertionError("the last write of a repeated id lost")
         gib = table.numel() * table.element_size() / 2 ** 30
-        log(f"  {vb:5d} B {name:8s} rows, table {gib:.2f} GiB: gather and "
-            f"scatter bitwise equal; {repeats} repeated ids, 3 NaN rows, 3 "
-            f"dropped writes, 2 wrapped ids")
+        log(f"  {vb:5d} B {name:8s} rows, {ids:7s} ids, table {gib:.2f} "
+            f"GiB: gather and scatter bitwise equal; {repeats} repeated "
+            f"ids, 3 NaN rows, 3 dropped writes, 2 wrapped ids")
         del table, src, kernel, plain
         torch.cuda.empty_cache()
 
@@ -1780,7 +1804,7 @@ def microbench_path(torch, stream_ops, gs_ops, dev, card):
             log(f"  Fig 9 {r['name']:13s}: kernel {dev_ms:.4f} ms  "
                 f"{r['bytes'] / dev_ms / 1e6:7.1f} useful GB/s  "
                 f"{r['bytes'] / dev_ms / 1e-3 / HBM_BYTES_PER_S:.1%} of HBM;"
-                f"  library {r['library_ms']:.4f} ms; wrapper "
+                f"  library {r['library']} {r['library_ms']} ms; wrapper "
                 f"{r['ms']:.4f} ms/call")
         elif "shape" in r and r["name"].startswith("gemm"):
             log(f"  GEMM {r['name']:21s}: {dev_ms:.4f} ms  "
@@ -1854,28 +1878,27 @@ def stream_times(torch, ops, dev, card):
     return out
 
 
-def gs_times(torch, ops, dev, card):
-    """Phase 24, gather and scatter at Fig 9's full sizes, float32."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(6)
-    R, N = FIG9_R, FIG9_N
-    rows = {}
-    for vb in (16, 64, 128, 256, 512, 2048):
-        table = torch.randn((R, vb // 4), generator=gen, device=dev)
-        src = torch.randn((N, vb // 4), generator=gen, device=dev)
-        idx = torch.randint(0, R, (N,), generator=gen, device=dev,
-                            dtype=torch.int32)
-        idx_long = idx.long()
-        distinct = torch.unique(idx).numel()
-        # a repeated id's row need be read once: the gather reads the
-        # distinct table rows, the scatter the winning src row of each
-        for key, op, args, nbytes, library in (
-                ("gather", ops.vector_gather, (table, idx),
-                 distinct * vb + N * vb + 4 * N,
-                 lambda: torch.index_select(table, 0, idx)),
-                ("scatter", ops.vector_scatter_, (table, idx, src),
-                 2 * distinct * vb + 4 * N,
-                 lambda: table.index_copy_(0, idx_long, src))):
+def gs_times(torch, ops, ptxas_log, build, dev, card):
+    """Phase 24, gather and scatter at Fig 9's full sizes, float32 (the
+    inputs of ``bench.gather_scatter_turns.fig9_inputs``), beside both
+    bounds and the yardsticks; then the launches of one call at 16 and
+    2048 B (torch.profiler) and every instance's spills (a spill fails the
+    phase)."""
+    from repro_torch.bench import gather_scatter as bench
+    from repro_torch.bench.gather_scatter_turns import (PROFILED_BYTES,
+                                                        fig9_inputs,
+                                                        launch_profile)
+
+    R = FIG9_R
+    rows, profile = {}, {}
+    for vb, table, src, idx in fig9_inputs(torch, dev):
+        yard = bench.yardsticks(table, idx, src)
+        for key, op, args in (("gather", ops.vector_gather, (table, idx)),
+                              ("scatter", ops.vector_scatter_,
+                               (table, idx, src))):
+            nbytes = bench.useful_bytes(key, idx, R, vb)
+            sector_ms, _ = roofline(bench.sector_bytes(key, idx, R, vb), 0,
+                                    torch.float32)
             fresh = (table.clone(), *args[1:])
             err = same_bits(torch, op(*fresh),
                             op.plain(table.clone(), *args[1:]),
@@ -1884,25 +1907,73 @@ def gs_times(torch, ops, dev, card):
             ms = kernel_ms(op, *args, device="cuda")
             plain_ms = device_ms(lambda: op.plain(*args), device="cuda",
                                  reps=5)
-            library_ms = device_ms(library, device="cuda")
+            library_ms = (device_ms(yard[key], device="cuda")
+                          if yard[key] is not None else None)
+            copy_ms = (device_ms(yard["index_copy"], device="cuda")
+                       if key == "scatter" else None)
             bound_ms, bound_by = roofline(nbytes, 0, torch.float32)
-            extra = (f"; winner scratch {(4 * R + 8 * N) / 1e6:.0f} MB "
-                     "beside it" if key == "scatter" else "")
+            library = ("index_select" if key == "gather"
+                       else yard["scatter_name"])
             log(f"  {key:7s} {vb:5d} B: kernel {ms:.4f} ms  plain "
-                f"{plain_ms:.4f} ms  library {library_ms:.4f} ms  bound "
-                f"{bound_ms:.4f} ms ({nbytes / 1e6:.0f} MB{extra}) -> "
-                f"{bound_ms / ms:.1%} of bound  [{card}]")
+                f"{plain_ms:.4f} ms  library {library} "
+                + (f"{library_ms:.4f} ms" if library_ms else "")
+                + (f", index_copy_ (no last-write rule) {copy_ms:.4f} ms"
+                   if copy_ms else "")
+                + f"  bound {bound_ms:.4f} ms ({nbytes / 1e6:.0f} MB) -> "
+                f"{bound_ms / ms:.1%}; sector bound {sector_ms:.4f} ms -> "
+                f"{sector_ms / ms:.1%}  [{card}]")
             rows[f"{key}_{vb}B"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
-        del table, src
+                bound_by=bound_by, sector_bound_ms=sector_ms,
+                library_ms=library_ms, library=library,
+                index_copy_ms=copy_ms)
+            if vb in PROFILED_BYTES:
+                profile[f"{key}_{vb}B"] = launch_profile(
+                    torch, lambda: op(*args))
+                log("    torch.profiler, device ms per launch (launches "
+                    "recorded per call): " + ", ".join(
+                        f"{name} {p['ms']:.4f} ({p['per_call']:g})"
+                        for name, p in profile[f"{key}_{vb}B"].items())
+                    + f"; the call back to back {ms:.4f}")
+        del table, src, yard
     sweep = {k: sum(r[k] for r in rows.values())
-             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+             for k in ("ms", "plain_ms", "bound_ms", "sector_bound_ms")}
+    libs = [r["library_ms"] for r in rows.values()]
+    sweep["library_ms"] = None if None in libs else sum(libs)
+    library = ("none for the scatter" if sweep["library_ms"] is None
+               else f"{sweep['library_ms']:.4f} ms")
     log(f"  the whole sweep (12 calls): kernel {sweep['ms']:.4f} ms  plain "
-        f"{sweep['plain_ms']:.4f} ms  library {sweep['library_ms']:.4f} ms "
-        f" bound {sweep['bound_ms']:.4f} ms")
+        f"{sweep['plain_ms']:.4f} ms  library {library}  bound "
+        f"{sweep['bound_ms']:.4f} ms  sector bound "
+        f"{sweep['sector_bound_ms']:.4f} ms")
     return {"sweep": dict(sweep, bound_by="bytes", max_abs_err=max(
-        r["max_abs_err"] for r in rows.values())), "rows": rows}
+        r["max_abs_err"] for r in rows.values())), "rows": rows,
+        "profile": profile, "instances": gs_ptxas(ptxas_log, build, card)}
+
+
+def gs_ptxas(ptxas_log, build, card):
+    """Phase 24: registers, stack and spills of every gather/scatter
+    instance in the build's ``-Xptxas -v`` log; a spill fails the phase."""
+    instances = []
+    for r in build.ptxas_report(ptxas_log):
+        name = re.search(r"(gather_kernel|scatter_kernel|winner_kernel)"
+                         r"(I(\w+?)Li(\d+)ELi(\d+)E)?",
+                         r["entry"])
+        if name is None:
+            raise AssertionError(f"unknown entry {r['entry']}")
+        what = (name.group(1) if name.group(2) is None else
+                f"{name.group(1)}<{GS_WORDS[name.group(3)]}, L "
+                f"{name.group(4)}, Rg {name.group(5)}>")
+        log(f"  {what}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, loads {r['spill_loads']} B, stack "
+            f"{r['stack']} B  [{card}]")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{what} spills")
+        instances.append(dict(kernel=what, registers=r["registers"],
+                              stack=r["stack"]))
+    if not instances:
+        raise AssertionError("no gather/scatter instance in the ptxas log")
+    return instances
 
 
 def flash_times(torch, op, path, card):

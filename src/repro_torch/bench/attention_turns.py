@@ -299,7 +299,7 @@ def measure(out_dir: str) -> None:
         flush=True)
 
 
-def _card_line() -> str:
+def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -339,7 +339,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("attention_turns: no CUDA card")
     os.makedirs(args.out, exist_ok=True)
-    card = _card_line()
+    card = card_line()
     print(card, flush=True)
     print(json.dumps(_worker("capture", args.trees[-1], args.out)),
           flush=True)

@@ -17,8 +17,11 @@ from repro.kernels.gather_scatter import ref as jax_ref
 from repro.kernels.gather_scatter.kernel import gather_pallas, scatter_pallas
 from repro_torch.kernels.gather_scatter import ops, ref
 
-# tests/test_kernels.py's (R, D, N), then narrow rows with N > R
-CASES = [(100, 128, 37), (64, 256, 64), (50, 4, 200), (30, 3, 90)]
+# tests/test_kernels.py's (R, D, N), then narrow rows with N > R, then
+# heavy repeats (200 draws over 4 rows: the last write wins in the Pallas
+# kernel's sequential grid too)
+CASES = [(100, 128, 37), (64, 256, 64), (50, 4, 200), (30, 3, 90),
+         (4, 8, 200)]
 
 
 def _inputs(R, D, N, seed=0, dtype=np.float32):
@@ -123,3 +126,46 @@ def test_gather_scatter_refuse_bad_shapes():
         ops.vector_scatter_(t, i, s[:, :3])
     with pytest.raises(ValueError):
         ops.vector_scatter(t, i, s[:5])
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113gather_kernelI5uint4Li1ELi4EEEvPKT_PKiPS2_xxiS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113gather_kernelI5uint4Li1ELi4EEEvPKT_PKiPS2_xxiS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113winner_kernelEPKiPixx' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113winner_kernelEPKiPixx
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 16 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114scatter_kernelIjLi32ELi1EEEvPT_PKiPKS1_S5_xxi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114scatter_kernelIjLi32ELi1EEEvPT_PKiPKS1_S5_xxi
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_chip_smoke_reads_each_gather_scatter_instance_and_fails_on_a_spill():
+    """``chip_smoke.py``'s phase 24 names each gather/scatter instance
+    from the ``-Xptxas -v`` log (word type, lanes a row, rows a group) and
+    fails on a spill (the sample's last entry spills)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    clean = PTXAS_LOG[:PTXAS_LOG.index(
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114scatter")]
+    assert smoke.gs_ptxas(clean, build, "card") == [
+        dict(kernel="gather_kernel<uint4, L 1, Rg 4>", registers=64,
+             stack=0),
+        dict(kernel="winner_kernel", registers=16, stack=0)]
+    with pytest.raises(AssertionError,
+                       match=r"scatter_kernel<uint32, L 32, Rg 1> spills"):
+        smoke.gs_ptxas(PTXAS_LOG, build, "card")
+    with pytest.raises(AssertionError, match="no gather/scatter instance"):
+        smoke.gs_ptxas("", build, "card")

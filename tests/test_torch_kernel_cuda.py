@@ -524,11 +524,16 @@ def test_stream_kernels_refuse_bad_inputs(card):
 
 
 # (R, D, N, dtype): Fig 9's row widths at small R, with N > R so that ids
-# repeat, and rows that are not a multiple of 16 bytes (element loads).
+# repeat, and rows that are not a multiple of 16 bytes (element loads);
+# then rows of 3, 5 and 129 16-byte vectors (48, 80 and 2064 bytes: the
+# masked tail of a lane group), N not a multiple of any batch of rows, and
+# bfloat16 rows of a power of two of vectors.
 GS_CASES = [(1000, 4, 3000, torch.float32), (1000, 16, 3000, torch.float32),
             (500, 64, 2000, torch.float32), (500, 512, 2000, torch.float32),
             (300, 3, 1000, torch.float32), (300, 8, 1000, torch.bfloat16),
-            (300, 5, 1000, torch.bfloat16)]
+            (300, 5, 1000, torch.bfloat16), (700, 12, 2501, torch.float32),
+            (700, 20, 2501, torch.float32), (200, 516, 701, torch.float32),
+            (700, 64, 1999, torch.bfloat16)]
 
 
 def _gs_inputs(dev, R, D, N, dtype, seed=0):
@@ -570,6 +575,103 @@ def test_scatter_kernel_equals_plain_version_bitwise(card, R, D, N, dtype):
     assert gs.vector_scatter_(again, idx, src) is again
     assert torch.equal(_bits(again), _bits(want))
     assert torch.equal(got[idx[5]], src[-1])  # the last write of a repeat
+
+
+@pytest.mark.parametrize("R,N,rows", [(16, 1_000_000, 16), (1, 5000, 1),
+                                      (200_000, 2000, 16)])
+def test_scatter_heavy_repeats_last_draw_wins(card, R, N, rows):
+    """1 M draws over 16 rows, every draw on one row, and 2000 draws over
+    16 rows of a table of R = 100 N rows, some of them as wrapped ids: the
+    last draw of each row wins."""
+    table, idx, src = _gs_inputs(card, R, 8, N, torch.float32, seed=1)
+    idx = torch.randint(0, rows, (N,), device=card, dtype=torch.int32)
+    idx[N // 2:N // 2 + 100] -= R                       # the same rows
+    want = gs_ref.scatter_ref(table, idx, src)
+    got = gs.vector_scatter(table, idx, src)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    last = {int(r) % R: n for n, r in enumerate(idx.tolist())}
+    assert len(last) == rows
+    for row, n in last.items():
+        assert torch.equal(got[row], src[n])
+
+
+def test_scatter_scratch_leaks_no_state(card):
+    """Scatters in a row with other ids and a larger R each time (the last
+    R is 67 N), each on a winner scratch that holds stale draws on entry:
+    every entry N - 1, the largest draw, which atomicMax alone would keep,
+    then random draws.  The scratch is the prepared launch's own, so the
+    stale contents are certain."""
+    for seed, (R, N) in enumerate(((1000, 3000), (5000, 4000),
+                                   (200_000, 3000))):
+        table, idx, src = _gs_inputs(card, R, 4, N, torch.float32,
+                                     seed=10 + seed)
+        for stale in (N - 1, None):
+            want = gs_ref.scatter_ref(table, idx, src)
+            got = table.clone()
+            launch = gs.vector_scatter_.prepare(got, idx, src)
+            assert launch.scratch.shape == (R,)
+            if stale is None:
+                launch.scratch.random_(0, N)
+            else:
+                launch.scratch.fill_(stale)
+            assert launch.fn(*launch.argv) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(want))
+            idx = idx.flip(0)                       # other draws win
+
+
+@pytest.mark.parametrize("R,D,N", [(50, 4, 1), (50, 4, 3), (50, 16, 5),
+                                   (50, 512, 2), (50, 12, 7)])
+def test_gather_scatter_fewer_draws_than_a_batch(card, R, D, N):
+    """N smaller than one group of lanes' batch of rows."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(N)
+    table = torch.randn((R, D), generator=gen, device=card)
+    src = torch.randn((N, D), generator=gen, device=card)
+    idx = torch.randint(-R, R, (N,), generator=gen, device=card,
+                        dtype=torch.int32)
+    got = gs.vector_gather(table, idx)
+    scattered = gs.vector_scatter(table, idx, src)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(gs_ref.gather_ref(table, idx)))
+    assert torch.equal(_bits(scattered),
+                       _bits(gs_ref.scatter_ref(table, idx, src)))
+
+
+@pytest.mark.parametrize("D", [4, 64])
+def test_gather_scatter_table_offset_by_four_bytes(card, D):
+    """Tables and source rows 4 bytes past a 16-byte boundary take the
+    element path."""
+    R, N = 300, 1000
+    table, idx, src = _gs_inputs(card, R, D, N, torch.float32, seed=2)
+    flat = torch.empty(R * D + 1, device=card)
+    view = flat[1:].view(R, D)
+    view.copy_(table)
+    src_flat = torch.empty(N * D + 1, device=card)
+    src_view = src_flat[1:].view(N, D)
+    src_view.copy_(src)
+    assert view.data_ptr() % 16 == 4 and src_view.data_ptr() % 16 == 4
+    got = gs.vector_gather(view, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(gs_ref.gather_ref(table, idx)))
+    assert gs.vector_scatter_(view, idx, src_view) is view
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(view),
+                       _bits(gs_ref.scatter_ref(table, idx, src)))
+
+
+def test_gather_scatter_all_ids_out_of_range(card):
+    R, D, N = 100, 16, 777
+    table, _, src = _gs_inputs(card, R, D, N, torch.float32, seed=3)
+    idx = torch.randint(R, 2 ** 31 - 1, (N,), device=card,
+                        dtype=torch.int32)
+    idx[::2] = -R - 1 - idx[::2] % 1000
+    got = gs.vector_gather(table, idx)
+    scattered = gs.vector_scatter(table, idx, src)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got).all())
+    assert torch.equal(_bits(scattered), _bits(table))
 
 
 def test_gather_scatter_address_past_2_31_bytes(card):

@@ -69,6 +69,39 @@ def test_gather_scatter_module_rows():
     assert "sector_eff=0.50" in rows[0]["derived"]
 
 
+def test_gather_scatter_sector_bytes_and_yardstick():
+    """The sector bound counts each 32-byte sector a row touches once, and
+    a read of each sector the scatter writes only in part; the scatter
+    row names its yardstick."""
+    R, N = 64, 32
+    rows = gather_scatter.run("cpu", R=R, N=N, vec_bytes=(16, 64))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    for vb, (g, s) in zip((16, 64), (rows[:2], rows[2:])):
+        torch.randn((R, vb // 4), generator=gen)      # the table, the src
+        torch.randn((N, vb // 4), generator=gen)
+        idx = torch.randint(0, R, (N,), generator=gen).tolist()
+        per = vb // 16                 # 16-byte halves of sectors a row
+        last = {r: n for n, r in enumerate(idx)}
+        halves = {r * per + k for r in set(idx) for k in range(per)}
+        read = {(n * per + k) // 2 for n in last.values()
+                for k in range(per)}
+        ids_out = -(-4 * N // 32)
+        assert g["sector_bytes"] == 32 * (len({h // 2 for h in halves})
+                                          + -(-N * vb // 32) + ids_out)
+        partial = sum(1 for sec in {h // 2 for h in halves}
+                      if not {2 * sec, 2 * sec + 1} <= halves)
+        assert s["sector_bytes"] == 32 * (len(read)
+                                          + len({h // 2 for h in halves})
+                                          + partial + ids_out)
+        assert (partial > 0) == (vb == 16)
+        assert g["library"] == "index_select"
+        assert s["library"] == gather_scatter.INDEX_PUT
+        assert s["library_ms"] > 0 and s["index_copy_ms"] > 0
+        assert f"library={gather_scatter.INDEX_PUT}" in s["derived"]
+        assert "(no last-write rule)" in s["derived"]
+
+
 def test_gemm_module_rows():
     rows = gemm_roofline.run("cpu", shapes=[(64, 64, 64), (128, 128, 16)])
     assert [r["name"] for r in rows] == ["gemm_64x64x64", "gemm_128x128x16"]
