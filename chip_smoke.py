@@ -96,8 +96,12 @@ Phases, each of which raises on failure (the script catches none):
    spills (a spill fails the phase);
 19. the STREAM kernels against their plain versions, bitwise: ADD, SCALE
    and TRIAD at ``block_rows`` 8/64/256/1024 on 2^21 elements (the
-   reference's full size) and at 256 on 2^28, float32 and bfloat16, with
-   a scalar that bfloat16 must round;
+   reference's full size) and at 256 on 2^28, then at the edges of the
+   persistent grid (``kernels/stream/cases.edge_shapes``: one row, fewer
+   tiles than SMs, a tile count that is not a multiple of the grid, tiles
+   larger than a 16 KiB unit and tiles that end in part of one;
+   two calls must give the same bits), float32 and bfloat16, with a
+   scalar that bfloat16 must round;
 20. the gather and scatter kernels against their plain versions, bitwise,
    at Fig 9's full sizes (4 M rows, 1 M uniform ids, about 115 k of them
    repeats): rows of 16 to 2048 bytes (the widest table 8.2 GB, past 2^31
@@ -121,7 +125,9 @@ Phases, each of which raises on failure (the script catches none):
    scatter held bitwise against its plain version before it is timed, the
    GEMM sweep), then the STREAM module at n = 2^28 (1 GiB per array, over
    4x the 50 MB L2); each STREAM and gather/scatter wrapper's launch count
-   must equal the calls its rows made;
+   must equal the calls its rows made.  A Fig 8 row whose bytes fit in the
+   L2 prints "in L2" and no share of the HBM's rate; every other one must
+   be at least four times the L2 (STREAM's rule);
 23. the flash-attention op at the shapes of phase 21 (causal where the
    reference's are); its launch count must equal the calls, and every
    output must be finite;
@@ -130,11 +136,13 @@ Phases, each of which raises on failure (the script catches none):
    call each as the yardstick (``torch.add``/``mul``, ``index_select``/
    the deterministic ``index_put_``, ``scaled_dot_product_attention``;
    never used by the port) and their bounds: STREAM 3 n elt (2 n elt for
-   SCALE) bytes; gather the distinct rows read, N rows written and the
-   ids; scatter the distinct rows' winning source rows read, the distinct
-   rows written and the ids; beside those, Fig 9's sector bound (the same
-   accesses in 32-byte sectors, and a read of each sector the scatter
-   writes only in part).  The scatter's yardstick is the deterministic
+   SCALE) bytes, at n = 2^28 in float32 and bfloat16, with the grid each
+   call launched and every ``stream_kernel`` instance's registers, shared
+   memory and spills (a spill fails the phase); gather the distinct rows
+   read, N rows written and the ids; scatter the distinct rows' winning
+   source rows read, the distinct rows written and the ids; beside those,
+   Fig 9's sector bound (the same accesses in 32-byte sectors, and a read
+   of each sector the scatter writes only in part).  The scatter's yardstick is the deterministic
    ``index_put_`` where it gives the plain version's bits, else none (it
    says so), with ``index_copy_`` (no last-write rule) beside it either
    way.  One gather and one scatter call at 16 and 2048 B under
@@ -165,7 +173,6 @@ from __future__ import annotations
 
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -174,6 +181,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.bench.common import device_ms, kernel_ms  # noqa: E402
+from repro_torch.bench.turns import card_line  # noqa: E402
 from repro_torch.roofline.analysis import H100  # noqa: E402
 
 HBM_BYTES_PER_S = H100.hbm_bw
@@ -218,6 +226,10 @@ EMB_BATCH = 4096
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 STREAM_N = (128 * 16384, 2 ** 28)    # the reference's full n; 1 GiB f32
 STREAM_BLOCK_ROWS = (8, 64, 256, 1024)
+# the stream_kernel instances' template arguments, as the compiler mangles
+# them
+STREAM_DTYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+STREAM_OPS = ("ADD", "SCALE", "TRIAD")
 FIG9_R, FIG9_N = 4_000_000, 1_000_000
 # (row bytes, dtype, ids): Fig 9's widths, 12-byte float32 and 10-byte
 # bfloat16 rows (element loads), 48-byte rows (three 16-byte vectors, a
@@ -252,14 +264,6 @@ FLASH_CHECK_SHAPES = FLASH_SHAPES + (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
 
 
 def compare(torch, got, want, atol, what):
@@ -1303,7 +1307,8 @@ def main() -> int:
 
     # 24. times of the new kernels ---------------------------------------------------
     log("== 24. STREAM, gather/scatter and flash-attention kernel times")
-    stream_t = stream_times(torch, stream_ops, dev, card)
+    stream_t = stream_times(torch, stream_ops, builds[STREAM_KERNEL]["log"],
+                            build, dev, card)
     gs_t = gs_times(torch, gs_ops, builds[GS_KERNEL]["log"], build, dev,
                     card)
     flash_t = flash_times(torch, flash_attention, flash_inputs, card)
@@ -1346,9 +1351,10 @@ def main() -> int:
         "name": STREAM_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{STREAM_KERNEL}.cu",
         "replaces": "src/repro/kernels/stream/kernel.py:34",
-        "launches": micro["stream"], **stream_t["triad"],
-        "launches_by_op": micro["stream_by_op"], **{
-            op: stream_t[op] for op in ("add", "scale", "triad")}}, {
+        "launches": micro["stream"], **stream_t["float32"]["triad"],
+        "launches_by_op": micro["stream_by_op"],
+        **stream_t["float32"], "bf16": stream_t["bfloat16"],
+        "instances": stream_t["instances"]}, {
         "name": GS_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{GS_KERNEL}.cu",
         "replaces": "src/repro/kernels/gather_scatter/kernel.py:28",
@@ -1639,7 +1645,11 @@ def same_bits(torch, got, want, what):
 
 
 def stream_check(torch, ops, dev):
-    """Phase 19: every STREAM op and block_rows, bitwise."""
+    """Phase 19: every STREAM op and block_rows, bitwise; then the
+    persistent grid's edges, where two calls must give the same bits."""
+    from repro_torch.kernels import stream as kernel
+    from repro_torch.kernels.stream.cases import edge_shapes
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     for n, block_rows_list, scalar in ((STREAM_N[0], STREAM_BLOCK_ROWS, 0.1),
@@ -1661,6 +1671,28 @@ def stream_check(torch, ops, dev):
                 f"SCALE and TRIAD (s={scalar}) bitwise equal (max_abs_err "
                 f"0)")
             del a, b
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        for code, op in enumerate(ops.OPS):
+            p = kernel.plan(code, 128 * 1024, 8, int(name == "bfloat16"))
+            for what, rows, block_rows in edge_shapes(
+                    p["sms"] * p["blocks_per_sm"]):
+                n = rows * ops.LANES
+                a = torch.randn(n, generator=gen, device=dev).to(dtype)
+                b = torch.randn(n, generator=gen, device=dev).to(dtype)
+                args = ((a,) if op is ops.stream_scale else (a, b)) + (
+                    () if op is ops.stream_add else (0.1,))
+                first = op(*args, block_rows)
+                second = op(*args, block_rows)
+                torch.cuda.synchronize()
+                tag = (f"{op.name} {name} {what} (n={n} block_rows="
+                       f"{block_rows})")
+                same_bits(torch, first, op.plain(*args, block_rows), tag)
+                same_bits(torch, second, first, f"{tag}, second call")
+        log(f"  {name}, the grid's edges ("
+            + ", ".join(what for what, _, _ in edge_shapes(0))
+            + "): ADD, SCALE and TRIAD bitwise equal, two calls the same "
+            "bits")
 
 
 def gs_check(torch, ops, dev):
@@ -1794,11 +1826,17 @@ def microbench_path(torch, stream_ops, gs_ops, dev, card):
         if "op" in r and not (dev_ms and 0 < dev_ms < float("inf")):
             raise AssertionError(f"{r['name']}: no kernel time {dev_ms}")
         if r.get("op", "").startswith("stream"):
+            if not r["in_l2"] and r["bytes"] < 4 * H100.l2_bytes:
+                raise AssertionError(f"{r['name']} n={r['n']}: "
+                                     f"{r['bytes']} B is neither in the L2 "
+                                     "nor 4x it")
+            where = ("in L2" if r["in_l2"] else
+                     f"{r['bytes'] / dev_ms / 1e-3 / HBM_BYTES_PER_S:.1%} of "
+                     "HBM")
             log(f"  Fig 8 {r['name']:18s} n={r['n']:9d} block_rows "
                 f"{r['block_rows']:4d}: kernel {dev_ms:.4f} ms  "
-                f"{r['bytes'] / dev_ms / 1e6:7.1f} GB/s  "
-                f"{r['bytes'] / dev_ms / 1e-3 / HBM_BYTES_PER_S:.1%} of HBM;"
-                f" {r['bytes'] / H100.l2_bytes:.2f}x the L2; wrapper "
+                f"{r['bytes'] / dev_ms / 1e6:7.1f} GB/s  {where}; "
+                f"{r['bytes'] / H100.l2_bytes:.2f}x the L2; wrapper "
                 f"{r['ms']:.4f} ms/call")
         elif "vec_bytes" in r:
             log(f"  Fig 9 {r['name']:13s}: kernel {dev_ms:.4f} ms  "
@@ -1846,36 +1884,81 @@ def flash_path(torch, op, dev):
     return {"launches": launches, "inputs": keep}
 
 
-def stream_times(torch, ops, dev, card):
-    """Phase 24, STREAM at n = 2^28 float32, block_rows 256."""
-    n = STREAM_N[1]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(5)
-    a = torch.randn(n, generator=gen, device=dev)
-    b = torch.randn(n, generator=gen, device=dev)
+def stream_times(torch, ops, ptxas_log, build, dev, card):
+    """Phase 24, STREAM at n = 2^28, block_rows 256, float32 and bfloat16:
+    each op's kernel beside its plain version, its ``torch`` call and its
+    byte bound, with the grid it launched; then every instance's
+    registers, shared memory and spills (a spill fails the phase)."""
+    from repro_torch.kernels import stream as kernel
+
+    n, block_rows = STREAM_N[1], 256
     s = 3.0
     out = {}
-    for key, op, args, library, nbytes, flops in (
-            ("add", ops.stream_add, (a, b), lambda: torch.add(a, b),
-             12 * n, n),
-            ("scale", ops.stream_scale, (a, s), lambda: torch.mul(a, s),
-             8 * n, n),
-            ("triad", ops.stream_triad, (a, b, s),
-             lambda: torch.add(b, a, alpha=s), 12 * n, 2 * n)):
-        err = same_bits(torch, op(*args), op.plain(*args),
-                        f"{op.name} n={n}")
-        ms = kernel_ms(op, *args, device="cuda")
-        plain_ms = device_ms(lambda: op.plain(*args), device="cuda", reps=10)
-        library_ms = device_ms(library, device="cuda")
-        bound_ms, bound_by = roofline(nbytes, flops, a.dtype)
-        log(f"  {op.name} n=2^28 f32: kernel {ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.1f} GB/s)  plain {plain_ms:.4f} ms  "
-            f"library {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
-            f"({bound_by})  -> {bound_ms / ms:.1%} of bound  [{card}]")
-        out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=library_ms)
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        a = torch.randn(n, generator=gen, device=dev).to(dtype)
+        b = torch.randn(n, generator=gen, device=dev).to(dtype)
+        elt = a.element_size()
+        rows = {}
+        for key, op, args, library, arrays, flops in (
+                ("add", ops.stream_add, (a, b), lambda: torch.add(a, b),
+                 3, n),
+                ("scale", ops.stream_scale, (a, s), lambda: torch.mul(a, s),
+                 2, n),
+                ("triad", ops.stream_triad, (a, b, s),
+                 lambda: torch.add(b, a, alpha=s), 3, 2 * n)):
+            nbytes = arrays * elt * n
+            err = same_bits(torch, op(*args, block_rows),
+                            op.plain(*args, block_rows),
+                            f"{op.name} n={n} {name}")
+            ms = kernel_ms(op, *args, block_rows, device="cuda")
+            plain_ms = device_ms(lambda: op.plain(*args, block_rows),
+                                 device="cuda", reps=10)
+            library_ms = device_ms(library, device="cuda")
+            bound_ms, bound_by = roofline(nbytes, flops, dtype)
+            plan = kernel.plan(ops.OPS.index(op), n, block_rows,
+                               int(name == "bfloat16"))
+            log(f"  {op.name} n=2^28 {name}: kernel {ms:.4f} ms "
+                f"({nbytes / ms / 1e6:.1f} GB/s)  plain {plain_ms:.4f} ms  "
+                f"library {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})  -> {bound_ms / ms:.1%} of bound; kernel / "
+                f"library {ms / library_ms:.3f}x; grid {plan['grid']} = "
+                f"{plan['sms']} SMs x {plan['blocks_per_sm']}, "
+                f"{plan['units']} units of {plan['unit_bytes']} B, "
+                f"{plan['queued']} from the work queue  [{card}]")
+            rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms, grid=plan["grid"])
+        out[name] = rows
+        del a, b
+        torch.cuda.empty_cache()
+    out["instances"] = stream_ptxas(ptxas_log, build, card)
     return out
+
+
+def stream_ptxas(ptxas_log, build, card):
+    """Phase 24: registers, shared memory and spills of every
+    ``stream_kernel`` instance in the build's ``-Xptxas -v`` log; a spill
+    fails the phase."""
+    instances = []
+    for r in build.ptxas_report(ptxas_log):
+        inst = re.search(r"stream_kernelI(\w+?)Li(\d)E", r["entry"])
+        if inst is None:
+            raise AssertionError(f"unknown entry {r['entry']}")
+        what = (f"stream_kernel<{STREAM_DTYPES[inst.group(1)]}, "
+                f"{STREAM_OPS[int(inst.group(2))]}>")
+        log(f"  {what}: {r['registers']} registers, {r['smem']} B static "
+            f"shared memory, spill stores {r['spill_stores']} B, loads "
+            f"{r['spill_loads']} B, stack {r['stack']} B  [{card}]")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{what} spills")
+        instances.append(dict(kernel=what, registers=r["registers"],
+                              smem_static=r["smem"], stack=r["stack"]))
+    if not instances:
+        raise AssertionError("no stream_kernel instance in the ptxas log")
+    return instances
 
 
 def gs_times(torch, ops, ptxas_log, build, dev, card):

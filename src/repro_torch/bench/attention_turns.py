@@ -3,8 +3,8 @@ ragged, chunked and decode paged-attention kernels on the same inputs
 (captured layer-0 inputs of a serving step, and seeded decode batches),
 and their serving engines on the same workload.
 
-    python src/repro_torch/bench/attention_turns.py --trees OLD NEW \
-        [--order 0110] [--out DIR]
+    PYTHONPATH=src python -m repro_torch.bench.attention_turns \
+        --trees OLD NEW [--order 0110] [--out DIR]
 
 ``OLD`` and ``NEW`` are roots of checkouts of the repo (for example a
 parent commit unpacked with ``git archive`` into a git-ignored directory,
@@ -20,7 +20,8 @@ ragged kernel and saves layer 0's inputs of the first mixed step and the
 first decode-only step to ``DIR``.  Then each turn (``--order``: indices
 into ``--trees``, default parent, change, change, parent) is a process
 that imports ``repro_torch`` from that tree's ``src`` (its kernels build
-into that tree's ``build/``) and prints one JSON line:
+into that tree's ``build/``; the runner is :mod:`repro_torch.bench.turns`)
+and prints one JSON line:
 
 * ``kernels``: the ragged kernel on the saved inputs, and the chunked
   kernel on the same lanes (``q_chunk`` 16, the engine's default), in ms
@@ -44,7 +45,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -60,15 +60,6 @@ DECODE_BATCHES = {
     "fig17_B32_S1024": (FIG17, "float32", [1024] * 32),
     "fig17_B128_S1024": (FIG17, "float32", [1024] * 128),
 }
-
-
-def _use_tree(tree: str) -> None:
-    """Import ``repro_torch`` from ``tree``/src (and not from this file's
-    own directory, which holds modules of the same names)."""
-    here = str(Path(__file__).resolve().parent)
-    sys.path[:] = [p for p in sys.path if str(Path(p or ".").resolve())
-                   != here]
-    sys.path.insert(0, str(Path(tree).resolve() / "src"))
 
 
 def workload(cfg, engine_mod, np):
@@ -299,26 +290,6 @@ def measure(out_dir: str) -> None:
         flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-
-
-def _worker(mode: str, tree: str, out_dir: str) -> dict:
-    """Runs this file as ``mode`` in a fresh process on ``tree``; returns
-    its JSON line."""
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--worker", mode,
-         "--trees", tree, "--out", out_dir],
-        capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{mode} on {tree} failed:\n{proc.stdout}\n"
-                           f"{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", required=True)
@@ -326,30 +297,23 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/turns")
     ap.add_argument("--worker", choices=("capture", "measure"))
     args = ap.parse_args(argv)
-    if args.worker:
-        _use_tree(args.trees[0])
-        import torch
-
-        if not torch.cuda.is_available():
-            raise SystemExit("attention_turns: no CUDA card")
-        (capture if args.worker == "capture" else measure)(args.out)
-        return 0
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("attention_turns: no CUDA card")
+    if args.worker:
+        (capture if args.worker == "capture" else measure)(args.out)
+        return 0
+    from repro_torch.bench import turns
+
     os.makedirs(args.out, exist_ok=True)
-    card = card_line()
-    print(card, flush=True)
-    print(json.dumps(_worker("capture", args.trees[-1], args.out)),
-          flush=True)
-    for turn, index in enumerate(args.order):
-        tree = args.trees[int(index)]
-        t0 = time.perf_counter()
-        row = _worker("measure", tree, args.out)
-        row.update(turn=turn, tree=tree, card=card,
-                   seconds=time.perf_counter() - t0)
-        print(json.dumps(row), flush=True)
+    script = str(Path(__file__).resolve())
+    last = Path(args.trees[-1]).resolve()
+    print(json.dumps(turns.in_tree(script, last, [
+        "--worker", "capture", "--trees", str(last), "--out", args.out])),
+        flush=True)
+    turns.run(script, args.trees, args.order, lambda turn, tree: [
+        "--worker", "measure", "--trees", str(tree), "--out", args.out])
     return 0
 
 

@@ -110,11 +110,15 @@ def roofline_ms(flops: float, nbytes: float, dtype: torch.dtype) -> float:
     return 1e3 * time_model(flops, nbytes, dtype)
 
 
-def rates(ms: Optional[float], flops: float, nbytes: float) -> str:
+def rates(ms: Optional[float], flops: float, nbytes: float,
+          in_l2: bool = False) -> str:
     """Rates of a card time ``ms`` beside the H100's peaks, as derived
-    fields; nothing where the time was not measured (a CPU row)."""
+    fields; nothing where the time was not measured (a CPU row).  A row
+    whose arrays sit ``in_l2`` says so in place of a share of the HBM's
+    rate, which its bytes did not cross."""
     if ms is None:
         return ""
-    return (f";gbs={nbytes / ms / 1e6:.1f}"
-            f";hbm_share={nbytes / ms / 1e-3 / H100.hbm_bw:.4f}"
+    share = ("in_l2" if in_l2 else
+             f"hbm_share={nbytes / ms / 1e-3 / H100.hbm_bw:.4f}")
+    return (f";gbs={nbytes / ms / 1e6:.1f};{share}"
             f";tflops={flops / ms / 1e9:.2f}")

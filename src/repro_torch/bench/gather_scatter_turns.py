@@ -9,7 +9,8 @@ unpacked with ``git archive`` into a git-ignored directory, and this tree);
 more trees may follow, each named in ``--order`` by its index.  Each turn
 (default parent, change, change, parent) is a process that imports
 ``repro_torch`` from that tree's ``src`` (its kernels build into that
-tree's ``build/``) and prints one JSON line:
+tree's ``build/``; the runner is :mod:`repro_torch.bench.turns`) and
+prints one JSON line:
 
 * ``rows``: Fig 9's twelve calls on ``chip_smoke.py`` phase 24's inputs
   (:func:`fig9_inputs`: 4 M float32 rows of 16 to 2048 bytes, 1 M uniform
@@ -35,11 +36,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import re
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 FIG9_R, FIG9_N = 4_000_000, 1_000_000
@@ -178,31 +176,13 @@ def main(argv=None) -> int:
     if args.worker:
         measure(args.worker == "probe")
         return 0
-    from repro_torch.bench.attention_turns import card_line
+    from repro_torch.bench import turns
 
-    card = card_line()
-    print(card, flush=True)
     probe_turn = args.order.find(str(len(args.trees) - 1))
-    for turn, index in enumerate(args.order):
-        tree = Path(args.trees[int(index)]).resolve()
-        # -P: this file's directory stays off the path, so ``repro_torch``
-        # comes from the tree's src alone
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            p for p in (str(tree / "src"), os.environ.get("PYTHONPATH"))
-            if p))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-P", str(Path(__file__).resolve()), "--worker",
-             "probe" if turn == probe_turn else "measure", "--trees",
-             str(tree)], capture_output=True, text=True, timeout=900,
-            env=env)
-        if proc.returncode != 0:
-            raise RuntimeError(f"turn {turn} on {tree} failed:\n"
-                               f"{proc.stdout}\n{proc.stderr[-4000:]}")
-        row = json.loads(proc.stdout.strip().splitlines()[-1])
-        row.update(turn=turn, tree=str(tree), card=card,
-                   seconds=time.perf_counter() - t0)
-        print(json.dumps(row), flush=True)
+    turns.run(str(Path(__file__).resolve()), args.trees, args.order,
+              lambda turn, tree: [
+                  "--worker", "probe" if turn == probe_turn else "measure",
+                  "--trees", str(tree)])
     return 0
 
 

@@ -1,18 +1,24 @@
 """Paper Fig 8 / Alg 1: STREAM ADD, SCALE and TRIAD through the port's
 CUDA kernels, with the tile-height sweep (port of ``benchmarks/stream.py``).
 
-``block_rows`` (rows of 128 elements per CUDA block) is the granularity
-knob the reference swept as its BlockSpec tile height.  Each measured row
-prints the wrapper's time per call (``ms``: the median of per-call CUDA
-events, host work included), the bytes the op must move (3 n elt for ADD
-and TRIAD, 2 n elt for SCALE), its operations, their ratio and the H100
+``block_rows`` (the tile height, in rows of 128 elements) is the
+granularity knob the reference swept as its BlockSpec tile height; the
+port's kernel runs a grid sized to the card whatever it is and cuts its
+16 KiB units at tile boundaries (``kernels/csrc/stream.cu``).  Each
+measured row prints the wrapper's time per call (``ms``: the median of
+per-call CUDA events, host work included), the bytes the op must move (3 n
+elt for ADD and TRIAD, 2 n elt for SCALE), its operations, their ratio and
+the H100
 roofline's time (``bench.common.roofline_ms``); on the card also the
 kernel's own time (``kernel_ms``, back-to-back launches through the C
 entry point) and the GB/s it reaches with its share of the 3.35 TB/s, in
-place of the reference's TPU DMA-efficiency formula.  Each also prints its bytes beside the card's 50 MB L2: the
-reference's full size (n = 2^21 float32, 24 MiB for ADD) fits in L2, so a
-run that means to measure HBM passes a larger ``n`` (STREAM's rule: each
-array at least four times the last-level cache).  The operational-intensity
+place of the reference's TPU DMA-efficiency formula.  Each also prints its
+bytes beside the card's 50 MB L2 and carries ``in_l2``
+(``H100.fits_in_l2`` of its bytes): the reference's full size (n = 2^21
+float32, 24 MiB for ADD) fits in the L2, so such a row prints ``in_l2``
+and no share of the HBM's rate, and a run that means to measure HBM
+passes a larger ``n`` (STREAM's rule: each array at least four times the
+last-level cache).  The operational-intensity
 rows (Fig 8 d-f) are predictions of the H100 roofline, as the reference's
 were of its own, and print no time.
 
@@ -57,15 +63,16 @@ def run(device="cuda", quick: bool = True, n: Optional[int] = None,
         ms = time_ms(op, *args, block_rows, device=dev)
         launches = op.launches - before
         k_ms = kernel_ms(op, *args, block_rows, device=dev)
+        in_l2 = H100.fits_in_l2(nbytes)
         row = emit(name, ms, f"n={n};block_rows={block_rows};bytes={nbytes};"
                    f"l2_bytes={H100.l2_bytes:.0f};flops={flops};"
                    f"ai={flops / nbytes:.3f};h100_roofline_ms="
                    f"{roofline_ms(flops, nbytes, dtype):.6g}"
                    + (f";kernel_ms={k_ms:.6g}" if k_ms is not None else "")
-                   + f"{rates(k_ms, flops, nbytes)};{where}")
+                   + f"{rates(k_ms, flops, nbytes, in_l2)};{where}")
         row.update(op=op.name, n=n, block_rows=block_rows, bytes=nbytes,
                    flops=flops, calls=CALLS, launches=launches,
-                   kernel_ms=k_ms)
+                   kernel_ms=k_ms, in_l2=in_l2)
         rows.append(row)
 
     for block_rows in ROWS[quick]:

@@ -31,6 +31,13 @@ class HW:
     nvlink_bw: float = 450e9         # B/s each way, to the host's other cards
     l2_bytes: float = 50e6
 
+    def fits_in_l2(self, nbytes: float) -> bool:
+        """Whether ``nbytes`` (all the arrays an op reads and writes) fit
+        in the L2 cache, where a time measures the L2, not the HBM.  A
+        share of the HBM rate means something only at four times the L2 or
+        more (STREAM's rule); sizes in between measure neither."""
+        return nbytes <= self.l2_bytes
+
     def peak(self, dtype: torch.dtype) -> float:
         """Peak operations per second on ``dtype`` inputs: the tensor-core
         rate for bf16 and fp16, the float32 rate for float32."""

@@ -1,7 +1,8 @@
 """The port's DLRM bench modules on the CPU at tiny sweeps: the rows they
 print, the launches they report, and the operations ``forward_cost``
-counts against PyTorch's own count of the forward's matrix products; and
-how the attention-turns script cuts a ragged call to some sequences."""
+counts against PyTorch's own count of the forward's matrix products;
+how the attention-turns script cuts a ragged call to some sequences; and
+how the shared turns runner takes each tree's package."""
 import dataclasses
 
 import pytest
@@ -82,3 +83,25 @@ def test_attention_turns_selects_sequences_exactly(keep):
     assert sub[0].shape[0] == len(lanes) > 0
     assert torch.equal(api.paged_attention_ragged(*sub),
                        api.paged_attention_ragged(*args)[lanes])
+
+
+def test_turns_run_a_script_on_each_trees_package(tmp_path):
+    """``bench.turns.in_tree`` runs a script with ``repro_torch`` taken
+    from the tree it names alone, and returns the script's last line as
+    JSON; a script that fails raises with its output."""
+    from repro_torch.bench import turns
+
+    script = tmp_path / "probe.py"
+    script.write_text(
+        "import json, sys\nimport repro_torch\nprint('noise')\n"
+        "print(json.dumps({'who': repro_torch.WHO, 'args': sys.argv[1:]}))"
+        "\n")
+    for who in ("old", "new"):
+        pkg = tmp_path / who / "src" / "repro_torch"
+        pkg.mkdir(parents=True)
+        (pkg / "__init__.py").write_text(f"WHO = {who!r}\n")
+        assert turns.in_tree(str(script), tmp_path / who, ["--x", "1"]) == \
+            {"who": who, "args": ["--x", "1"]}
+    script.write_text("raise SystemExit('broken')\n")
+    with pytest.raises(RuntimeError, match="broken"):
+        turns.in_tree(str(script), tmp_path / "old", [])

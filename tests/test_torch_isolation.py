@@ -49,7 +49,8 @@ import repro_torch.bench.paged_attention_bench
 import repro_torch.kernels.paged_attention
 import repro_torch.roofline.analysis, repro_torch.bench.run
 import repro_torch.bench.stream, repro_torch.bench.gather_scatter
-import repro_torch.bench.gather_scatter_turns
+import repro_torch.bench.gather_scatter_turns, repro_torch.bench.turns
+import repro_torch.bench.stream_turns, repro_torch.kernels.stream.cases
 import repro_torch.bench.gemm_roofline, repro_torch.kernels.launch
 import repro_torch.kernels.stream.ops, repro_torch.kernels.stream.ref
 import repro_torch.kernels.gather_scatter.ops

@@ -18,9 +18,13 @@ owner alone, so on the same lanes they must agree bitwise, whatever
 ``q_chunk`` is.  Embedding bag: float32 atol 1e-5 and bfloat16 atol 2e-2
 (both sum in float32 in the order of the bag; the bound is for the card's
 rounding of the last bf16 digit).  STREAM and gather/scatter: bitwise (the
-kernels round as the plain versions do, and move rows as raw bytes).
-Flash attention: float32 atol 2e-5 and bfloat16 atol 2e-2, as for paged
-attention.  In bfloat16 also every element within 2^-7 (M + |want|) + 1e-4
+kernels round as the plain versions do, and move rows as raw bytes);
+STREAM also at the edges of its persistent grid (one row, fewer tiles than
+SMs, a tile count that is not a multiple of the grid, tiles larger than a
+16 KiB unit and tiles that end in part of one) and through its work queue
+(again and again, and on two streams at once), where two calls give the
+same bits too.  Flash attention: float32 atol 2e-5 and bfloat16
+atol 2e-2, as for paged attention.  In bfloat16 also every element within 2^-7 (M + |want|) + 1e-4
 of the plain version on float32 q and k, M the same on |v|: with the scores
 in float32, as the kernel takes them, the two differ only where each rounds
 the weights and the output to bfloat16, so a fault in small outputs shows.
@@ -51,6 +55,8 @@ from repro_torch.kernels.flash_attention.ref import (bf16_share,
                                                      flash_attention_ref)
 from repro_torch.kernels.gather_scatter import ops as gs
 from repro_torch.kernels.gather_scatter import ref as gs_ref
+from repro_torch.kernels import stream as stream_kernel
+from repro_torch.kernels.stream import cases as stream_cases
 from repro_torch.kernels.stream import ops as stream
 from repro_torch.kernels.paged_attention.cases import (
     ARG_ORDER, CHUNKED_ARG_ORDER, CHUNKED_CASES, DECODE_ARG_ORDER,
@@ -509,6 +515,103 @@ def test_stream_kernels_equal_plain_versions_bitwise(card, dtype,
             assert op.launches == before + 1
             assert got.dtype == dtype and got.shape == (n,)
             assert torch.equal(_bits(got), _bits(op.plain(*args, block_rows)))
+
+
+def _stream_args(op, a, b, scalar):
+    """``op``'s arrays and scalar: ADD (a, b), SCALE (a, s), TRIAD (a, b,
+    s)."""
+    if op is stream.stream_add:
+        return a, b
+    return (a, scalar) if op is stream.stream_scale else (a, b, scalar)
+
+
+def _stream_most(op, dtype):
+    """The largest grid the STREAM kernel launches for ``op`` and
+    ``dtype`` on this card (SMs x resident blocks per SM)."""
+    p = stream_kernel.plan(stream.OPS.index(op), 128 * 1024, 8,
+                           int(dtype == torch.bfloat16))
+    return p["sms"] * p["blocks_per_sm"]
+
+
+@pytest.mark.parametrize("edge", range(len(stream_cases.edge_shapes(1))))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op_index", range(3))
+def test_stream_kernels_at_the_grid_edges_bitwise(card, op_index, dtype,
+                                                   edge):
+    """One tile of one row, fewer tiles than SMs, a tile count that is not
+    a multiple of the grid, tiles larger than one 16 KiB unit and tiles
+    that end in part of one: bitwise equal to the plain version, and two
+    calls in a row give the same bits."""
+    op = stream.OPS[op_index]
+    what, rows, block_rows = stream_cases.edge_shapes(
+        _stream_most(op, dtype))[edge]
+    gen = torch.Generator(device=card)
+    gen.manual_seed(edge)
+    n = rows * stream.LANES
+    a = torch.randn(n, generator=gen, device=card).to(dtype)
+    b = torch.randn(n, generator=gen, device=card).to(dtype)
+    args = _stream_args(op, a, b, 0.1)
+    p = stream_kernel.plan(op_index, n, block_rows,
+                           int(dtype == torch.bfloat16))
+    assert p["grid"] == min(p["units"], p["sms"] * p["blocks_per_sm"])
+    before = op.launches
+    first = op(*args, block_rows)
+    second = op(*args, block_rows)
+    torch.cuda.synchronize()
+    assert op.launches == before + 2, what
+    assert torch.equal(_bits(first), _bits(op.plain(*args, block_rows))), what
+    assert torch.equal(_bits(first), _bits(second)), what
+
+
+def test_stream_grid_is_sized_to_the_card(card):
+    """The grid fills the card whatever the tile height: at the reference's
+    2^21 elements every block_rows of Fig 8 gets SMs x blocks per SM
+    blocks, as many as its units allow."""
+    n = 2 ** 21
+    for block_rows in (8, 16, 64, 256, 1024):
+        for op in range(3):
+            p = stream_kernel.plan(op, n, block_rows, 0)
+            most = p["sms"] * p["blocks_per_sm"]
+            assert p["sms"] == torch.cuda.get_device_properties(
+                0).multi_processor_count
+            assert p["grid"] == min(most, p["units"])
+            assert p["grid"] >= p["sms"]
+            tile = block_rows * 512
+            assert p["unit_bytes"] == (16384 // tile * tile if tile <= 16384
+                                       else 16384)
+            assert p["units"] * p["unit_bytes"] >= n * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_work_queue_across_calls_and_streams(card, dtype):
+    """Past the first two rounds of units the blocks take units from a work
+    queue: it resets after every launch (a prepared launch run again, as
+    the timing harness runs it, gives the same bits), and calls on two
+    streams at once take from two queues."""
+    n = 2 ** 24
+    gen = torch.Generator(device=card)
+    gen.manual_seed(11)
+    a, b, c = (torch.randn(n, generator=gen, device=card).to(dtype)
+               for _ in range(3))
+    code = int(dtype == torch.bfloat16)
+    for op_index, op in enumerate(stream.OPS):
+        assert stream_kernel.plan(op_index, n, 256, code)["queued"] > 0
+        args, other = _stream_args(op, a, b, 3.0), _stream_args(op, c, a, 3.0)
+        want = _bits(op.plain(*args, 256))
+        launch = op.prepare(*args, 256)
+        for _ in range(3):
+            assert launch.fn(*launch.argv) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(launch.out), want)
+        s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+        torch.cuda.synchronize()
+        with torch.cuda.stream(s1):
+            got1 = op(*args, 256)
+        with torch.cuda.stream(s2):
+            got2 = op(*other, 256)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got1), want)
+        assert torch.equal(_bits(got2), _bits(op.plain(*other, 256)))
 
 
 def test_stream_kernels_refuse_bad_inputs(card):

@@ -11,6 +11,7 @@ import torch
 from benchmarks.common import tpu_time_model
 from repro.roofline.analysis import HW as TpuHW
 from repro_torch.bench import gather_scatter, gemm_roofline, run, stream
+from repro_torch.bench.common import rates
 from repro_torch.roofline.analysis import H100, HW, bound_by, time_model
 
 
@@ -53,6 +54,32 @@ def test_stream_module_rows():
     assert rows[-1]["derived"].startswith("predicted;")
     assert "h100_util=1.000" in rows[-1]["derived"]
     assert "h100_util=0.008" in rows[-4]["derived"]
+
+
+@pytest.mark.parametrize("n,in_l2", [(2 ** 21, True), (2 ** 28, False)])
+def test_stream_rows_in_the_l2_claim_no_share_of_hbm(n, in_l2):
+    """Fig 8's ADD moves 24 MiB at the reference's 2^21 float32 elements,
+    inside the 50 MB L2, and 3 GiB at 2^28, over four times it: only the
+    second may print a share of the HBM's rate."""
+    nbytes = 3 * 4 * n
+    assert nbytes == (24 * 2 ** 20 if in_l2 else 3 * 2 ** 30)
+    assert H100.fits_in_l2(nbytes) is in_l2
+    assert H100.fits_in_l2(2 * 4 * n) is in_l2           # SCALE
+    assert in_l2 or nbytes >= 4 * H100.l2_bytes
+    share = rates(0.5, n, nbytes, H100.fits_in_l2(nbytes))
+    assert ("in_l2" in share) is in_l2
+    assert ("hbm_share=" in share) is not in_l2
+    assert H100.fits_in_l2(H100.l2_bytes)
+    assert not H100.fits_in_l2(H100.l2_bytes + 1)
+
+
+def test_stream_quick_rows_carry_in_l2():
+    rows = stream.run("cpu", quick=True)
+    timed = [r for r in rows if "op" in r]
+    assert len(timed) == 6
+    for r in timed:
+        assert r["in_l2"] is H100.fits_in_l2(r["bytes"]) is True
+        assert "hbm_share" not in r["derived"]
 
 
 def test_gather_scatter_module_rows():

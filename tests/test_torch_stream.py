@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels.stream import ref as jax_ref
 from repro.kernels.stream.kernel import add_pallas, scale_pallas, triad_pallas
+from repro_torch.kernels.stream import cases as stream_cases
 from repro_torch.kernels.stream import ops, ref
 
 # tests/test_kernels.py's (rows, block_rows, dtype)
@@ -127,3 +128,63 @@ def test_stream_refuses_mismatched_shapes():
         ops.stream_add(torch.ones(256), torch.ones(128), 1)
     with pytest.raises(ValueError):
         ops.stream_scale(torch.ones(2, 128), 2.0, 1)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__b0ba8dcc_9_stream_cu_stream13stream_kernelIfLi0EEEvPKcS2_PcNS_4PlanEf' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__b0ba8dcc_9_stream_cu_stream13stream_kernelIfLi0EEEvPKcS2_PcNS_4PlanEf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 100 registers, used 1 barriers, 8 bytes smem
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__b0ba8dcc_9_stream_cu_stream13stream_kernelI13__nv_bfloat16Li2EEEvPKcS3_PcNS_4PlanEf' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__b0ba8dcc_9_stream_cu_stream13stream_kernelI13__nv_bfloat16Li2EEEvPKcS3_PcNS_4PlanEf
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 100 registers, used 1 barriers, 8 bytes smem
+"""
+
+
+def test_chip_smoke_reads_each_stream_instance_and_fails_on_a_spill():
+    """``chip_smoke.py``'s phase 24 names each STREAM instance from the
+    ``-Xptxas -v`` log (dtype and op) with its registers and shared memory,
+    and fails on a spill (the sample's last entry spills)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    clean = PTXAS_LOG[:PTXAS_LOG.index(
+        "ptxas info    : Compiling entry function "
+        "'_ZN39_GLOBAL__N__b0ba8dcc_9_stream_cu_stream13stream_kernelI13")]
+    assert smoke.stream_ptxas(clean, build, "card") == [
+        dict(kernel="stream_kernel<float32, ADD>", registers=100,
+             smem_static=8, stack=0)]
+    with pytest.raises(AssertionError,
+                       match=r"stream_kernel<bfloat16, TRIAD> spills"):
+        smoke.stream_ptxas(PTXAS_LOG, build, "card")
+    with pytest.raises(AssertionError, match="no stream_kernel instance"):
+        smoke.stream_ptxas("", build, "card")
+
+
+@pytest.mark.parametrize("most", [132, 264, 528, 1056])
+def test_edge_shapes_are_the_edges_they_name(most):
+    """The card's edge cases (``kernels/stream/cases.py``) are what they
+    say for any grid: whole tiles, fewer tiles than the H100's 132 SMs, a
+    tile count that the grid does not divide, and float32 and bfloat16
+    tiles over one 16 KiB unit or ending in part of one."""
+    shapes = {what: (rows, br) for what, rows, br in
+              stream_cases.edge_shapes(most)}
+    assert all(rows % br == 0 for rows, br in shapes.values())
+    assert shapes["one tile of one row"] == (1, 1)
+    rows, br = shapes["fewer tiles than SMs"]
+    assert rows // br < 132
+    rows, br = shapes["tiles not a multiple of the grid"]
+    assert rows // br > most and (rows // br) % most != 0
+    for elt in (4, 2):
+        rows, br = shapes["tiles larger than a unit"]
+        assert br * 128 * elt > 16384 and rows // br < most
+    rows, br = shapes["tiles that end in part of a unit"]
+    assert (br * 128 * 4) % 16384 != 0 and br * 128 * 4 > 16384
+    assert (br * 128 * 2) % 256 == 0
