@@ -155,10 +155,44 @@ Phases, each of which raises on failure (the script catches none):
    held against its plain version on the inputs it is timed on.  Parent
    and change of the gather/scatter kernels in turns on one card are
    ``src/repro_torch/bench/gather_scatter_turns.py``'s job: a checkout
-   holds one tree.
+   holds one tree;
+25. trace-replay parity: ``repro_torch.bench.trace_replay`` on reduced
+   float32 smollm-360m with the reference's weights (the size of
+   ``BENCH_009.json``), four scenarios x seven configurations, on the card
+   and on the CPU (the plain path) in this process.  Every card row's
+   counters and greedy streams must equal its CPU twin's; every row must
+   equal its ``BENCH_009.json`` row field for field (``us_per_call``
+   aside), except the rows ``REFERENCE_CAVEATS`` names (ROADMAP queue C),
+   which are held to the CPU run; ``repro_torch.perf.gate`` must pass
+   against ``BENCH_009.json`` with those rows from the CPU run; the ragged
+   kernel's launches must equal the forward steps x 2 layers;
+26. the sweep at full width: phase 5's smollm-360m (32 layers, bf16,
+   seeded weights) through the four scenarios x seven configurations and
+   ``draft-model`` on ``mixed``: per row the counters, wall ms, TTFT p50 /
+   p99 on the replay's virtual clock (the arrivals are virtual), TPOT p50
+   / p99 in seconds of the host clock and the spec accept rate.  The
+   ``ngram``, ``overlap`` and ``draft-model`` rows' greedy streams must
+   equal their ``fcfs`` twin's, the ``auto`` asserts of the reference
+   hold, every pool drains with the allocator's invariants intact, and
+   the ragged kernel's launches equal the forward steps x 32;
+27. (a) phase 5's 16 requests with ``overlap=True``: the build half of
+   every step runs under ``torch.cuda.set_sync_debug_mode("error")`` (a
+   call that waits for the card fails the phase), the greedy streams must
+   equal phase 5's, launches steps x 32; wall and TPOT beside phase 5's,
+   then overlap off and on in turns, and phase 7's profile of three
+   decode-only steps with overlap on; (b) the same requests with
+   ``spec="ngram"``, ``spec_k`` 3, ragged then chunked: streams equal to
+   phase 5's, launches steps x 32, the accept rate; (c) layer 0's inputs
+   of one verify step (no prefill lanes; the engine gives each drafted
+   lane an attention owner of its own, on the decode tile) of each kernel
+   against its plain version (phase 3's bf16 limit) and its time beside
+   both bounds, as phase 6; then B1 on the same lanes grouped as the
+   reference renders them (a drafted request one owner of 1 + k lanes, on
+   the tensor-core tile): its time, bounds and its largest difference
+   from the per-lane output.
 
-Each path (phases 5, 10, 15, 16, 22, 23) runs with every kernel's launch
-count set to 0 just before it and read just after.  The card's peaks come
+Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a and 27b) runs with
+every kernel's launch count set to 0 just before it and read just after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
 
 The ragged and chunked kernels run bf16 prefill owners (two or more lanes)
@@ -323,6 +357,7 @@ class Capture:
         self.api, self.attr, self.engine = api, attr, engine
         self.want = None
         self.got = {}
+        self.entries = {}
         self.kind = None
         self.steps, self.launches = {}, {}
         self._op = getattr(api, attr)
@@ -335,12 +370,15 @@ class Capture:
         self.want = kind
 
     def render(self, plan):
-        kind = ("mixed" if plan.decode and plan.prefill else
-                "decode" if plan.decode else "prefill")
+        kind = plan_kind(plan)
         self.kind = kind
         self.steps[kind] = self.steps.get(kind, 0) + 1
         self.want = (kind if kind != "prefill" and kind not in self.got
                      else None)
+        if self.want is not None:           # (lanes, drafted) per request
+            self.entries[kind] = (
+                [(plan.decode_tokens(r), r.req_id in plan.spec)
+                 for r in plan.decode] + [(n, False) for _, n in plan.prefill])
         return self._render(plan)
 
     def op(self, *args, **kw):
@@ -359,13 +397,23 @@ class Capture:
         """'prefill N steps / L launches, ...' for the kinds seen."""
         return ", ".join(f"{k} {self.steps[k]} steps / "
                          f"{self.launches.get(k, 0)} launches"
-                         for k in ("prefill", "mixed", "decode")
+                         for k in ("prefill", "mixed", "decode", "verify",
+                                   "verify+prefill")
                          if k in self.steps)
 
     def close(self):
         if self.engine is not None:
             self.engine._render = self._render
         setattr(self.api, self.attr, self._op)
+
+
+def plan_kind(plan):
+    """prefill-only, mixed, decode-only, or a drafted step (verify, beside
+    prefill chunks or not)."""
+    if plan.spec:
+        return "verify+prefill" if plan.prefill else "verify"
+    return ("mixed" if plan.decode and plan.prefill else
+            "decode" if plan.decode else "prefill")
 
 
 def reset_counts(counted):
@@ -395,25 +443,44 @@ def lanes_by_sequence(cu_q, cu_kv):
             for j in range(len(cu_q) - 1) if cu_q[j + 1] > cu_q[j]]
 
 
+def distinct_rows(np, bl, br, bp, owner_keys, block_size):
+    """Pool rows (block, offset) that the first ``keys`` keys of each
+    ``(owner, keys)`` occupy, a row that several owners read counted once
+    (shared prefix blocks, a drafted request's lanes)."""
+    bl, br, bp = (t.cpu().numpy() for t in (bl, br, bp))
+    rows = set()
+    for owner, keys in owner_keys:
+        mine = br == owner
+        pages = bl[mine][np.argsort(bp[mine], kind="stable")]
+        for i, blk in enumerate(pages[:-(-int(keys) // block_size)]):
+            n = min(block_size, int(keys) - i * block_size)
+            rows.update((int(blk), r) for r in range(n))
+    return len(rows)
+
+
 def ragged_bound(torch, inputs):
-    """:func:`bounds` of one ragged call: the K/V rows of the keys
-    each live sequence holds (``kv_len`` rows, not whole pages) + q of the
-    real lanes + out + the int32 lists, over HBM rate, against 4*hd
-    operations per (head, valid key) pair over the dtype's peak."""
-    q, pool, bl, _, _, cu_q, cu_kv, ss = inputs
+    """:func:`bounds` of one ragged call: the distinct K/V rows the live
+    sequences' keys occupy (``kv_len`` rows each, not whole pages; a row
+    two sequences share counted once) + q of the real lanes + out + the
+    int32 lists, over HBM rate, against 4*hd operations per (head, valid
+    key) pair over the dtype's peak."""
+    import numpy as np
+
+    q, pool, bl, br, bp, cu_q, cu_kv, ss = inputs
     T, H, HD = q.shape
     KV2 = pool.shape[2]
     elt = q.element_size()
     cu_q, cu_kv, ss = cu_q.cpu().numpy(), cu_kv.cpu().numpy(), ss.cpu().numpy()
     S = len(ss)
-    rows = keys = 0
+    live, keys = [], 0
     for j in range(S):
         nq, kvl = cu_q[j + 1] - cu_q[j], cu_kv[j + 1] - cu_kv[j]
         if not 0 <= ss[j] < S or nq <= 0:
             continue
-        rows += int(kvl)
+        live.append((ss[j], kvl))
         first = kvl - nq + 1                  # keys seen by the first lane
         keys += int(nq * first + nq * (nq - 1) // 2)
+    rows = distinct_rows(np, bl, br, bp, live, pool.shape[1])
     nbytes = (rows * KV2 * HD * elt + int(cu_q[-1]) * H * HD * elt
               + T * H * HD * elt + 4 * (3 * len(bl) + 3 * S + 2))
     return bounds(nbytes, 4 * HD * H * keys, q.dtype)
@@ -438,10 +505,11 @@ def bounds(nbytes, ops, dtype):
 
 
 def chunked_bound(torch, inputs):
-    """:func:`bounds` of one chunked call: the K/V rows each owner
-    of a real lane holds, q of the real lanes, out of all lanes and the
-    int32 lists, against 4*hd operations per (head, valid key) pair."""
-    q, pk, _, bl, _, _, kv_lens, treq, tpos = inputs
+    """:func:`bounds` of one chunked call: the distinct K/V rows the
+    owners of real lanes hold (:func:`distinct_rows`), q of the real lanes,
+    out of all lanes and the int32 lists, against 4*hd operations per
+    (head, valid key) pair."""
+    q, pk, _, bl, br, bp, kv_lens, treq, tpos = inputs
     T, H, HD = q.shape
     KV = pk.shape[2]
     import numpy as np
@@ -450,7 +518,8 @@ def chunked_bound(torch, inputs):
     treq, tpos = treq.cpu().numpy(), tpos.cpu().numpy().astype(np.int64)
     real = (treq >= 0) & (treq < len(kvl))
     owners = np.unique(treq[real])
-    rows = int(kvl[owners].sum())
+    rows = distinct_rows(np, bl, br, bp, [(o, kvl[o]) for o in owners],
+                         pk.shape[1])
     keys = int(np.minimum(tpos[real] + 1, kvl[treq[real]]).clip(0).sum())
     elt = q.element_size()
     nbytes = (rows * 2 * KV * HD * elt + int(real.sum()) * H * HD * elt
@@ -498,7 +567,7 @@ def reference_check(torch, np, cfg_mod, build_model, engine_mod,
         eng = engine(dev)
         for _ in range(2):
             eng.step()
-        lists, tokens, _, _ = eng._render(eng.scheduler.schedule())
+        lists, tokens, *_ = eng._render(eng.scheduler.schedule())
         logits[dev], _ = eng.model.decode_tokens_paged(
             eng.params, eng.pools,
             {k: torch.from_numpy(v).to(dev) for k, v in lists.items()},
@@ -1148,6 +1217,8 @@ def main() -> int:
             raise AssertionError(f"no {kind} step captured")
     served = {r.req_id: list(r.output) for r in engine.finished}
     prompts = [(r.req_id, r.prompt) for r in reqs]
+    phase5 = dict(wall=wall, p50_tpot_s=m["p50_tpot_s"],
+                  p99_tpot_s=m["p99_tpot_s"])
 
     # 6. captured inputs: kernel vs plain, and times ---------------------------
     log("== 6. layer-0 inputs of real steps: kernel vs plain, times")
@@ -1173,7 +1244,8 @@ def main() -> int:
         builds[KERNEL]["log"], build, card, paged_tile)
     # 7. where a decode step's and a mixed step's time goes -------------------
     log("== 7. profile of decode-only steps (16 requests, 512-token prompts)")
-    profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev)
+    phase5["profile"] = profile_decode(torch, np, model, params, cfg, serve,
+                                       engine_mod, dev)
     log("== 7b. profile of phase 5's first mixed step (phase 5's requests)")
     mixed_profile = profile_mixed(torch, model, params, cfg, serve,
                                   engine_mod, prompts, dev)
@@ -1315,6 +1387,55 @@ def main() -> int:
     flash_inst = flash_ptxas(flash_kernel, builds[FLASH_KERNEL]["log"],
                              build, card)
 
+    # 25. trace-replay parity at BENCH_009.json's size -------------------------
+    log("== 25. trace replay, reduced smollm-360m f32: card vs CPU vs "
+        "BENCH_009.json")
+    t25 = time.perf_counter()
+    replay_parity(torch, counted, dev)
+    log(f"  phase 25: {time.perf_counter() - t25:.1f} s")
+
+    # 26. the sweep at full width ---------------------------------------------
+    log("== 26. trace replay at full width: smollm-360m (32 layers, bf16), "
+        "4 scenarios x 7 configurations + draft-model on mixed")
+    t26 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    replay = replay_sweep(torch, counted, model, params, cfg, dev, card)
+    log(f"  phase 26: {time.perf_counter() - t26:.1f} s")
+
+    # 27. the overlapped loop and the verify step at full width --------------
+    log("== 27a. phase 5's requests with overlap=True")
+    t27 = time.perf_counter()
+    overlap = serve_overlap(torch, np, cfg_mod, engine_mod, counted, model,
+                            params, cfg, prompts, served, phase5, dev, card)
+    log("== 27b. phase 5's requests with spec='ngram', spec_k 3")
+    verify_in = serve_spec(torch, cfg_mod, engine_mod, api, counted, model,
+                           params, cfg, prompts, served, dev, card)
+    del model, params
+    torch.cuda.empty_cache()
+    log("== 27c. the ragged and chunked kernels on a verify step's layer-0 "
+        "inputs")
+    verify = {}
+    for attn_impl, op, bound, share in (
+            ("ragged", api.paged_attention_ragged_op, ragged_bound,
+             api.ragged_bf16_share),
+            ("chunked", api.paged_attention_chunked_op, chunked_bound,
+             lambda got, *a, **kw: api.chunked_bf16_share(got, *a))):
+        inputs, kw, out_run = verify_in[attn_impl]["inputs"]
+        if attn_impl == "ragged":
+            log(f"  verify step (nq, kvl) per sequence: "
+                f"{lanes_by_sequence(inputs[5], inputs[6])}")
+        verify[attn_impl] = kernel_times(
+            torch, op, inputs, kw, out_run, bound(torch, inputs),
+            f"{attn_impl} verify step T={inputs[0].shape[0]}", card,
+            share=share)
+        verify[attn_impl].update(
+            {k: v for k, v in verify_in[attn_impl].items()
+             if k not in ("inputs", "entries")})
+    verify["ragged"]["grouped"] = grouped_verify(
+        torch, np, api, verify_in["ragged"], card)
+    log(f"  phase 27: {time.perf_counter() - t27:.1f} s")
+
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
     chunked_top = dict(chunked_steps["mixed"], max_abs_err=max(
@@ -1328,6 +1449,7 @@ def main() -> int:
         "launches": launches, **ragged_top, "library_ms": None,
         "tile": PAGED_TILE, "decode": steps["decode"],
         "mixed": steps["mixed"], "mixed_step_profile": mixed_profile,
+        "verify": verify["ragged"], "replay": replay, "overlap": overlap,
         "instances": ragged_inst}, {
         "name": CHUNKED_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{CHUNKED_KERNEL}.cu",
@@ -1335,7 +1457,7 @@ def main() -> int:
         "launches": c_launches, **chunked_top, "library_ms": None,
         "max_abs_diff_vs_ragged": ragged_diff, "tile": PAGED_TILE,
         "decode": chunked_steps["decode"], "mixed": chunked_steps["mixed"],
-        "instances": chunked_inst}, {
+        "verify": verify["chunked"], "instances": chunked_inst}, {
         "name": DECODE_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{DECODE_KERNEL}.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
@@ -1375,9 +1497,295 @@ def main() -> int:
     return 0
 
 
+def replay_parity(torch, counted, dev):
+    """Phase 25: the sweep at BENCH_009.json's size on the card and on the
+    CPU; rows against each other, against BENCH_009.json (the caveat rows
+    against the CPU run) and through the gate."""
+    import tempfile
+
+    from repro_torch.bench import trace_replay as tr
+    from repro_torch.perf import gate
+
+    runs = {}
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        cfg, model, params = tr.build("smollm-360m", True, d)
+        reset_counts(counted)
+        runs[str(d)] = tr.sweep(model, params, cfg, device=d,
+                                log=lambda _: None)
+        launches = counted[0].launches
+        steps = sum(r["metrics"]["steps"] for r in runs[str(d)])
+        log(f"  {str(d):4s}: {len(runs[str(d)])} rows, {steps} forward "
+            f"steps in {time.perf_counter() - t0:.1f} s; ragged launches "
+            f"{launches}")
+    if launches != steps * cfg.num_layers or not launches:
+        raise AssertionError(f"ragged launches {launches} != forward steps "
+                             f"x layers {steps} x {cfg.num_layers}")
+    card, cpu = runs["cuda"], runs["cpu"]
+    bench = {r["name"]: r["derived"] for r in tr.baseline(
+        {r["name"]: r["derived"] for r in cpu})[0]["rows"]}
+    for rc, rp in zip(card, cpu):
+        name, got = rc["name"], tr.parse_derived(rc["derived"])
+        if rc["name"] != rp["name"] or got != tr.parse_derived(rp["derived"]) \
+                or rc["outputs"] != rp["outputs"]:
+            raise AssertionError(f"{name}: card row differs from the CPU's: "
+                                 f"{rc['derived']} != {rp['derived']}")
+        if got != tr.parse_derived(bench[name]):
+            raise AssertionError(f"{name}: differs from BENCH_009.json: "
+                                 f"{rc['derived']} != {bench[name]}")
+        where = ("the CPU run (a reference caveat)"
+                 if name in tr.REFERENCE_CAVEATS else "BENCH_009.json")
+        log(f"  {name}: = CPU, = {where}: steps {got['steps']} "
+            f"p99_ttft_steps {got['p99_ttft_steps']} p99_tpot_steps "
+            f"{got['p99_tpot_steps']} prefix_hits {got['prefix_hits']} "
+            f"preempt {got['preempt']}"
+            + (f" resolved {got['resolved']}" if "resolved" in got else ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        base, cur = Path(tmp) / "baseline.json", Path(tmp) / "card.json"
+        base.write_text(json.dumps(tr.baseline(
+            {r["name"]: r["derived"] for r in cpu})))
+        cur.write_text(json.dumps(tr.to_json(card, device="cuda")))
+        rc = gate.main(["--baseline", str(base), "--current", str(cur)])
+    if rc != 0:
+        raise AssertionError(f"perf gate against BENCH_009.json: exit {rc}")
+
+
+def replay_sweep(torch, counted, model, params, cfg, dev, card):
+    """Phase 26: the sweep at full width; returns the ragged kernel's
+    launches, the forward steps and the rows' numbers."""
+    from repro_torch.bench import trace_replay as tr
+
+    torch.cuda.synchronize()
+    reset_counts(counted)
+    recs = tr.sweep(model, params, cfg, device=dev, draft=("mixed",),
+                    log=lambda _: None)
+    torch.cuda.synchronize()
+    launches = counted[0].launches
+    steps = sum(r["metrics"]["steps"] for r in recs)
+    rows = {}
+    for r in recs:
+        d, m, slo = tr.parse_derived(r["derived"]), r["metrics"], r["slo"]
+        s = m["spec"]
+        rows[r["name"]] = dict(
+            wall_ms=r["us_per_call"] / 1e3, steps=int(d["steps"]),
+            p50_ttft_vs=slo["p50_ttft_s"], p99_ttft_vs=slo["p99_ttft_s"],
+            p50_tpot_s=m["p50_tpot_s"], p99_tpot_s=m["p99_tpot_s"],
+            accept_rate=s["acceptance_rate"])
+        log(f"  {r['name']}: steps {d['steps']} finished {d['finished']} "
+            f"out_tokens {d['out_tokens']} tok/step {d['tok_per_step']} "
+            f"p99 ttft/tpot steps {d['p99_ttft_steps']}/"
+            f"{d['p99_tpot_steps']} prefix_hits {d['prefix_hits']} preempt "
+            f"{d['preempt']} slo_ok {d['slo_ok']}"
+            + (f" resolved {d['resolved']}" if "resolved" in d else ""))
+        log(f"    wall {r['us_per_call'] / 1e3:.1f} ms  TTFT p50 "
+            f"{slo['p50_ttft_s']:.2f} / p99 {slo['p99_ttft_s']:.2f} virtual s"
+            f"  TPOT p50 {m['p50_tpot_s']:.4f} / p99 {m['p99_tpot_s']:.4f} s"
+            + (f"  spec {s['proposer']} accept rate "
+               f"{s['acceptance_rate']:.3f} ({s['accepted_tokens']} of "
+               f"{s['proposed_tokens']})" if s["proposer"] != "off" else "")
+            + f"  [{card}]")
+    log(f"  ragged launches {launches} = forward steps x layers {steps} x "
+        f"{cfg.num_layers}")
+    if launches != steps * cfg.num_layers:
+        raise AssertionError("ragged launches != forward steps x layers")
+    by_name = {r["name"]: r for r in recs}
+    for scenario in tr.SCENARIOS:
+        want = by_name[f"trace_{scenario}_fcfs"]["outputs"]
+        for label in ("ngram", "overlap", "draft"):
+            r = by_name.get(f"trace_{scenario}_{label}")
+            if r is not None and r["outputs"] != want:
+                diff = [i for i in want if r["outputs"].get(i) != want[i]]
+                raise AssertionError(f"{r['name']}: greedy streams differ "
+                                     f"from the fcfs row's for {diff}")
+    log("  ngram, overlap and draft-model streams = their fcfs twin's; auto "
+        "resolved on every axis, no worse than the best fixed triple; every "
+        "pool drained")
+    return dict(launches=launches, steps=steps, rows=rows)
+
+
+def grouped_verify(torch, np, api, captured, card):
+    """Phase 27c: the captured verify step's lanes regrouped as the
+    reference renders them (a drafted request one owner of 1 + k lanes,
+    which B1 runs on the tensor-core tile) against the engine's rendering
+    (each drafted lane an owner of its own, on the decode tile): the
+    kernel's time, its bounds, and how far the two outputs differ."""
+    (q, pool, bl, br, bp, cu_q, cu_kv, ss), kw, out_run = captured["inputs"]
+    cu_q, cu_kv, ss = (t.cpu().numpy() for t in (cu_q, cu_kv, ss))
+    nq, kvl = np.diff(cu_q), np.diff(cu_kv)
+    O = len(ss)
+    seqs, remap, j = [], {}, 0
+    for lanes, drafted in captured["entries"]:
+        if drafted:     # lane 0's owner is the slot, the last one's the table
+            ids = ss[j:j + lanes]
+            remap.update({int(o): O for o in ids[:-1]})
+            remap[int(ids[-1])] = int(ids[0])
+            seqs.append((ids[0], lanes, kvl[j + lanes - 1]))
+            j += lanes
+        else:
+            seqs.append((ss[j], nq[j], kvl[j]))
+            j += 1
+    br_new = np.asarray([remap.get(int(o), int(o))
+                         for o in br.cpu().numpy()], np.int32)
+    seq_slot = np.full((O,), O, np.int32)
+    cq, ck = np.zeros((O + 1,), np.int32), np.zeros((O + 1,), np.int32)
+    for i, (slot, n, keys) in enumerate(seqs):
+        seq_slot[i] = slot
+        cq[i + 1], ck[i + 1] = cq[i] + n, ck[i] + keys
+    cq[len(seqs) + 1:], ck[len(seqs) + 1:] = cq[len(seqs)], ck[len(seqs)]
+    dev = q.device
+    grouped = [q, pool, bl, torch.from_numpy(br_new).to(dev), bp,
+               torch.from_numpy(cq).to(dev), torch.from_numpy(ck).to(dev),
+               torch.from_numpy(seq_slot).to(dev)]
+    op = api.paged_attention_ragged_op
+    out = op(*grouped, **kw)
+    torch.cuda.synchronize()
+    n = int(cu_q[-1])
+    diff = (out[:n].float() - out_run[:n].float()).abs().max().item()
+    log(f"  grouped as the reference renders it (nq, kvl): "
+        f"{[(int(a), int(b)) for _, a, b in seqs]}")
+    log(f"  grouped against the engine's per-lane owners: max |diff| "
+        f"{diff:.3e}, {'the same bits' if diff == 0 else 'other bits'}")
+    res = kernel_times(torch, op, grouped, kw, out,
+                       ragged_bound(torch, grouped),
+                       f"ragged verify step grouped T={q.shape[0]}", card,
+                       share=api.ragged_bf16_share)
+    res["max_abs_diff_vs_per_lane"] = diff
+    return res
+
+
+def serve_phase5(engine_mod, eng, prompts, torch):
+    """Phase 5's requests through ``eng``; returns the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, p in prompts:
+        eng.submit(engine_mod.Request(req_id=i, prompt=p,
+                                      max_new_tokens=SERVE_NEW))
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def check_served(eng, served, launches, cfg, what):
+    m = eng.metrics()
+    streams = {r.req_id: list(r.output) for r in eng.finished}
+    if streams != served:
+        diff = [i for i in served if streams.get(i) != served[i]]
+        raise AssertionError(f"{what}: greedy streams differ from phase 5's "
+                             f"for requests {diff}")
+    if launches != m["steps"] * cfg.num_layers:
+        raise AssertionError(f"{what}: launches {launches} != steps x layers "
+                             f"{m['steps']} x {cfg.num_layers}")
+    eng.alloc.check_invariants(drained=True)
+    log(f"  {what}: greedy streams identical to phase 5's; launches "
+        f"{launches} = steps x layers {m['steps']} x {cfg.num_layers}; pool "
+        "drained")
+    return m
+
+
+def serve_overlap(torch, np, cfg_mod, engine_mod, counted, model, params,
+                  cfg, prompts, served, phase5, dev, card):
+    """Phase 27a: the overlapped loop with its build half under
+    ``set_sync_debug_mode("error")``, then overlap off / on in turns, then
+    phase 7's decode-only profile with overlap on."""
+    def engine(overlap):
+        serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                    max_batch=SERVE_BATCH, overlap=overlap)
+        return engine_mod.ServingEngine(model, params, cfg, serve,
+                                        num_blocks=SERVE_BLOCKS, device=dev)
+
+    eng = engine(True)
+    build, guarded = eng._build, []
+
+    def build_no_sync(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return build(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            guarded.append(1)
+
+    eng._build = build_no_sync
+    reset_counts(counted)
+    wall = serve_phase5(engine_mod, eng, prompts, torch)
+    m = check_served(eng, served, counted[0].launches, cfg, "overlap=True")
+    log(f"  {len(guarded)} build halves ran under set_sync_debug_mode"
+        "('error'): none waited for the card")
+    log(f"  wall {wall:.3f} s (phase 5 {phase5['wall']:.3f})  TPOT p50 "
+        f"{m['p50_tpot_s'] * 1e3:.2f} / p99 {m['p99_tpot_s'] * 1e3:.2f} ms "
+        f"(phase 5 {phase5['p50_tpot_s'] * 1e3:.2f} / "
+        f"{phase5['p99_tpot_s'] * 1e3:.2f})  [{card}]")
+    turns = []
+    for overlap in (False, True, True, False):
+        e = engine(overlap)
+        w = serve_phase5(engine_mod, e, prompts, torch)
+        mt = e.metrics()
+        turns.append(dict(overlap=overlap, wall=w,
+                          p50_tpot_s=mt["p50_tpot_s"],
+                          p99_tpot_s=mt["p99_tpot_s"]))
+        log(f"  in turns, overlap {'on ' if overlap else 'off'}: wall "
+            f"{w:.3f} s  TPOT p50 {mt['p50_tpot_s'] * 1e3:.2f} / p99 "
+            f"{mt['p99_tpot_s'] * 1e3:.2f} ms  TTFT p50 "
+            f"{mt['p50_ttft_s'] * 1e3:.1f} ms")
+        del e
+    log("  three decode-only steps with overlap on (phase 7's workload):")
+    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                max_batch=SERVE_BATCH, overlap=True)
+    prof = profile_decode(torch, np, model, params, cfg, serve, engine_mod,
+                          dev)
+    before = phase5["profile"]
+    log(f"  busy share {prof['busy_share']:.1%} of {prof['wall_ms']:.3f} "
+        f"ms/step (overlap off, phase 7: {before['busy_share']:.1%} of "
+        f"{before['wall_ms']:.3f} ms/step)  [{card}]")
+    keep = ("wall_ms", "busy_ms", "busy_share", "launches")
+    return dict(build_halves=len(guarded), wall=wall,
+                p50_tpot_s=m["p50_tpot_s"], p99_tpot_s=m["p99_tpot_s"],
+                turns=turns, profile={k: prof[k] for k in keep},
+                serial_profile={k: before[k] for k in keep})
+
+
+def serve_spec(torch, cfg_mod, engine_mod, api, counted, model, params, cfg,
+               prompts, served, dev, card):
+    """Phase 27b: ngram speculative decoding, ragged then chunked; returns
+    per kernel the launches, steps by kind and the captured layer-0 inputs
+    of the first verify step without prefill lanes."""
+    out = {}
+    for attn_impl, attr in (("ragged", "paged_attention_ragged_op"),
+                            ("chunked", "paged_attention_chunked_op")):
+        serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                    max_batch=SERVE_BATCH, spec="ngram",
+                                    spec_k=3, attn_impl=attn_impl)
+        eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                       num_blocks=SERVE_BLOCKS, device=dev)
+        op = getattr(api, attr)                 # holds the launch count
+        capture = Capture(api, attr, eng)
+        reset_counts(counted)
+        wall = serve_phase5(engine_mod, eng, prompts, torch)
+        launches = op.launches
+        capture.close()
+        m = check_served(eng, served, launches, cfg, f"ngram {attn_impl}")
+        s = m["spec"]
+        log(f"  accept rate {s['acceptance_rate']:.3f} ({s['accepted_tokens']}"
+            f" of {s['proposed_tokens']} drafts)  drafted steps "
+            f"{s['drafted_steps']} of {m['steps']}  tokens / drafted lane "
+            f"{s['tokens_per_decode_lane']:.2f}  wall {wall:.3f} s  TPOT p50 "
+            f"{m['p50_tpot_s'] * 1e3:.2f} / p99 {m['p99_tpot_s'] * 1e3:.2f} "
+            f"ms  [{card}]")
+        log(f"  steps by kind: {capture.by_kind()}")
+        if "verify" not in capture.got:
+            raise AssertionError("no verify step without prefill captured")
+        out[attn_impl] = dict(inputs=capture.got["verify"],
+                              entries=capture.entries["verify"],
+                              launches=launches, steps=m["steps"],
+                              accept_rate=s["acceptance_rate"],
+                              steps_by_kind=capture.steps)
+        del eng, capture
+    return out
+
+
 def profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev):
     """torch.profiler over three decode-only engine steps: device time by
-    kernel, and the device's busy share of the steps' wall time."""
+    kernel, and the device's busy share of the steps' wall time (returned
+    as :func:`profile_calls` gives it)."""
     eng = engine_mod.ServingEngine(model, params, cfg, serve, num_blocks=1024,
                                    device=dev)
     rng = np.random.default_rng(1)
@@ -1391,7 +1799,7 @@ def profile_decode(torch, np, model, params, cfg, serve, engine_mod, dev):
         eng.step()
     for _ in range(2):                           # warm decode steps
         eng.step()
-    profile_calls(torch, eng.step, 3, "decode steps", "step")
+    return profile_calls(torch, eng.step, 3, "decode steps", "step")
 
 
 def profile_calls(torch, fn, n, what, unit):

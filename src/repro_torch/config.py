@@ -58,11 +58,12 @@ class ModelConfig:
 class ServeConfig:
     """Serving knobs; names and defaults as in ``repro.config.ServeConfig``.
 
-    The port serves the draftless synchronous path, with
-    ``attn_impl="ragged"`` or ``"chunked"`` (``q_chunk`` and
-    ``prefetch_depth`` tune the chunked kernel); ``overlap``, ``spec``,
-    ``devices > 1``, ``roles`` and ``host_blocks`` are refused by the
-    engine.
+    The port serves one device, with ``attn_impl="ragged"`` or
+    ``"chunked"`` (``q_chunk`` and ``prefetch_depth`` tune the chunked
+    kernel), the overlapped loop (``overlap``) and speculative decoding
+    (``spec``, up to ``spec_k`` drafts a request a step); ``devices > 1``,
+    ``roles`` and ``host_blocks`` are refused by the engine.  ``trace`` is
+    the launcher's replay trace path.
     """
 
     model: str
@@ -73,7 +74,8 @@ class ServeConfig:
     admission: str = "fcfs"
     preemption: str = "latest-arrival"
     eviction: str = "lru"
-    spec: str = "off"
+    spec: str = "off"              # off | ngram | draft-model
+    spec_k: int = 4
     overlap: bool = False
     prefetch_depth: int = 0        # chunked kernel: page staging depth
     q_chunk: int = 16              # chunked kernel: lanes per query tile
@@ -81,6 +83,7 @@ class ServeConfig:
     devices: int = 0
     roles: str = ""
     host_blocks: int = 0
+    trace: str = ""
 
 
 @dataclass(frozen=True)

@@ -631,13 +631,16 @@ def copy_pool_blocks(pool: torch.Tensor, srcs, dsts) -> torch.Tensor:
     read before any destination is written; pairs whose destination lies
     outside the pool (the reference's ``src = dst = NB`` padding) are
     dropped and out-of-range sources read the last block, as JAX's clipped
-    gather does."""
+    gather does.  The ids are filtered on the host and, on a card, copied
+    from pinned memory without waiting."""
     NB = pool.shape[1]
-    srcs = torch.as_tensor(srcs, dtype=torch.long)
-    dsts = torch.as_tensor(dsts, dtype=torch.long)
+    srcs = torch.as_tensor(srcs, dtype=torch.long).cpu()
+    dsts = torch.as_tensor(dsts, dtype=torch.long).cpu()
     keep = (dsts >= 0) & (dsts < NB)
-    srcs = srcs[keep].clamp(0, NB - 1).to(pool.device)
-    dsts = dsts[keep].to(pool.device)
+    srcs, dsts = srcs[keep].clamp(0, NB - 1), dsts[keep]
+    if pool.is_cuda:
+        srcs, dsts = (t.pin_memory().to(pool.device, non_blocking=True)
+                      for t in (srcs, dsts))
     if dsts.numel():
         pool[:, dsts] = pool[:, srcs]       # advanced index reads a copy
     return pool

@@ -74,7 +74,10 @@ def ragged_case(rng: np.random.Generator, *, num_heads: int, num_kv: int,
 # (nq 50 of kvl 70 at G = 3; 40 of 60 and 33 of 33 at G = 4, with 8 q
 # heads over 2 kv heads) whose rows span more than one 128-row tile of the
 # card's tensor-core tile, beside decode lanes, a two-lane owner and a
-# shuffled BlockList.
+# shuffled BlockList.  The verify case is a speculative verify step as the
+# reference renders it: owners of 1 + k = 4 lanes (the last token and
+# three drafts) that start in the middle of a block, cross into the next
+# one or start at position 0, beside a decode lane.
 SMALL = dict(num_heads=6, num_kv=2, head_dim=16, block_size=4, num_blocks=24)
 SMALL_CASES = {
     "mixed": dict(seqs=[(2, 1, 9), (0, 5, 5), (3, 1, 13), (1, 3, 7),
@@ -92,6 +95,9 @@ SMALL_CASES = {
                                 (4, 0, 0)],
                           num_lanes=80, num_entries=32, num_blocks=32,
                           shuffle=True, num_heads=8),
+    "verify": dict(seqs=[(0, 4, 11), (2, 4, 6), (1, 1, 9), (3, 4, 4),
+                         (5, 0, 0)],
+                   num_lanes=16, num_entries=16, shuffle=True),
 }
 
 ARG_ORDER = ("q", "kv_pool", "block_list", "block_req", "block_pos",

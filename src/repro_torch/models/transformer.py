@@ -168,12 +168,15 @@ class TransformerLM:
         (Tb,), kv_lens (B,), token_req/token_pos (T,),
         cu_q_lens/cu_kv_lens (S+1,), seq_slot (S,),
         slots (T, 2) pool (block, offset) per lane — (NB, 0) for padding
-        lanes, whose writes are dropped — and last_lane (B,).
+        lanes, whose writes are dropped — last_lane (B,) and, on a
+        speculative verify step, logit_lanes (B, R): the lanes to unembed
+        per slot (its last committed token and its drafts).
         ``num_lanes`` is the count of real lanes (``cu_q_lens[-1]``) when
         the caller has it on the host; the pool writes then need no mask
         (see :func:`paged_kv.append_to_pool`).
 
-        Returns (logits (B, V) f32 at each slot's last lane, pools).
+        Returns (logits (B, V) f32 at each slot's last lane, or (B, R, V)
+        at ``logit_lanes`` when present, pools).
         """
         if attn_impl not in ("ragged", "chunked"):
             raise ValueError(
@@ -209,9 +212,13 @@ class TransformerLM:
                                  lp["attn"]["wo"])
             h = rmsnorm(lp["ln2"], x[:, None], cfg.norm_eps)
             x = x + mlp_apply(lp["mlp"], h, cfg.act)[:, 0]
+        head = params.get("head", params["embed"])
+        if "logit_lanes" in lists:
+            x_sel = x[lists["logit_lanes"].long()]          # (B, R, D)
+            x_sel = rmsnorm(params["final_norm"], x_sel, cfg.norm_eps)
+            return unembed(head, x_sel), pools
         x_last = x[lists["last_lane"].long()]
         x_last = rmsnorm(params["final_norm"], x_last[:, None], cfg.norm_eps)
-        head = params.get("head", params["embed"])
         return unembed(head, x_last)[:, 0], pools
 
 

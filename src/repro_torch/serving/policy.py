@@ -8,10 +8,13 @@
 Resolution: an explicit name or instance, else the config hint, else the
 axis default (``fcfs`` / ``latest-arrival`` / ``lru``); unknown names raise.
 
-The port has no trace-replay context yet, so ``auto`` always takes its
-axis default (counted ``auto_fallback``) and ``predicted-length`` ranks by
-``max_new_tokens`` (counted ``model_absent``) — what the reference does
-outside a replay context.
+``auto`` and ``predicted-length`` read the replay context of
+:mod:`repro_torch.perf.table` when they are built (which is when the engine
+resolves its triple): ``auto`` delegates to the scenario's measured winner
+in the perf table (counted ``auto_resolved``, else the axis default with
+``auto_fallback``), and ``predicted-length`` ranks by the context's
+trace-learned decode-length model (else ``max_new_tokens``, counted
+``model_absent``).
 """
 from __future__ import annotations
 
@@ -198,22 +201,6 @@ class DeadlineAdmission(AdmissionPolicy):
             self.count("deadline_missed")
 
 
-@register(ADMISSION, "predicted-length")
-class PredictedLengthAdmission(AdmissionPolicy):
-    """Shortest remaining work first; without a trace-learned length model
-    the declared ``max_new_tokens`` is the decode estimate."""
-
-    def __init__(self) -> None:
-        super().__init__()
-        self.count("model_absent")
-
-    def admission_key(self, req: Request, now: float) -> Tuple:
-        resumed = 0 if req.state is RequestState.PREEMPTED else 1
-        done = len(req.output)
-        remaining = len(req.prompt) + done + float(req.max_new_tokens - done)
-        return (resumed, remaining, req.arrival, req.req_id)
-
-
 # -- preemption ---------------------------------------------------------------
 @register(PREEMPTION, "latest-arrival")
 class LatestArrivalPreemption(PreemptionPolicy):
@@ -291,20 +278,26 @@ class TieredEviction(EvictionPolicy):
         return keep
 
 
-# -- auto: the measured per-scenario winner; no table in the port yet ---------
-class _AutoDefault:
-    """Resolve ``auto`` to the axis default and count why."""
+# -- measured-table consumers: auto and predicted-length -----------------------
+class _AutoDelegate:
+    """Resolve ``auto`` to the winner of the active (scenario, perf table)
+    for this axis, else the axis default; count which and what."""
 
     def _resolve_delegate(self) -> Policy:
-        name = DEFAULTS[self.axis]
-        self.count("auto_fallback")
+        from repro_torch.perf import table as perf_table  # lazy: no cycle
+        name = perf_table.resolve_winner(self.axis)
+        if name is None or name == self.name:
+            self.count("auto_fallback")
+            name = DEFAULTS[self.axis]
+        else:
+            self.count("auto_resolved")
         self.count(f"resolved_{name.replace('-', '_')}")
         self.resolved = name
         return get(self.axis, name)()
 
 
 @register(ADMISSION, "auto")
-class AutoAdmission(AdmissionPolicy, _AutoDefault):
+class AutoAdmission(AdmissionPolicy, _AutoDelegate):
     def __init__(self) -> None:
         super().__init__()
         self._impl = self._resolve_delegate()
@@ -314,7 +307,7 @@ class AutoAdmission(AdmissionPolicy, _AutoDefault):
 
 
 @register(PREEMPTION, "auto")
-class AutoPreemption(PreemptionPolicy, _AutoDefault):
+class AutoPreemption(PreemptionPolicy, _AutoDelegate):
     def __init__(self) -> None:
         super().__init__()
         self._impl = self._resolve_delegate()
@@ -325,7 +318,7 @@ class AutoPreemption(PreemptionPolicy, _AutoDefault):
 
 
 @register(EVICTION, "auto")
-class AutoEviction(EvictionPolicy, _AutoDefault):
+class AutoEviction(EvictionPolicy, _AutoDelegate):
     def __init__(self) -> None:
         super().__init__()
         self._impl = self._resolve_delegate()
@@ -336,3 +329,28 @@ class AutoEviction(EvictionPolicy, _AutoDefault):
 
     def demote(self, block: int, stats: Mapping[int, BlockStats]) -> bool:
         return self._impl.demote(block, stats)
+
+
+@register(ADMISSION, "predicted-length")
+class PredictedLengthAdmission(AdmissionPolicy):
+    """Shortest predicted remaining work first: (re)prefill of prompt +
+    output plus the predicted remaining decode, from the replay context's
+    :class:`~repro_torch.perf.trace.LengthModel` (else ``max_new_tokens``,
+    counted ``model_absent``); preempted requests resume first."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        from repro_torch.perf import table as perf_table  # lazy: no cycle
+        self.model = perf_table.active_length_model()
+        if self.model is None:
+            self.count("model_absent")
+
+    def admission_key(self, req: Request, now: float) -> Tuple:
+        resumed = 0 if req.state is RequestState.PREEMPTED else 1
+        done = len(req.output)
+        if self.model is not None:
+            predicted = max(self.model.predict(len(req.prompt)) - done, 0.0)
+        else:
+            predicted = float(req.max_new_tokens - done)
+        remaining = len(req.prompt) + done + predicted
+        return (resumed, remaining, req.arrival, req.req_id)

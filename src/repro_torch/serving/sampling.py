@@ -3,7 +3,9 @@
 argmax; ``top_k <= 0`` / ``top_p >= 1`` disable the filters.  Random draws
 come from an explicit ``torch.Generator``; they cannot replay
 ``jax.random``, so stochastic lanes agree with the reference only on the
-filtered support (:func:`filter_logits`)."""
+filtered support (:func:`filter_logits`).  Nothing here reads a device
+value on the host, so a step's sampling queues behind its forward without
+waiting for it."""
 from __future__ import annotations
 
 import torch
@@ -32,12 +34,22 @@ def filter_logits(lg: torch.Tensor, temp: torch.Tensor, kk: torch.Tensor,
     return torch.where(masked < cutoff, -torch.inf, masked)
 
 
+def categorical(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row of ``logits`` (..., V) (``-inf`` = excluded):
+    the argmax of ``logits - log E`` with E ~ Exp(1) (the Gumbel-max
+    trick, the draw ``torch.multinomial`` makes for one sample, without
+    its host-side check of the probabilities)."""
+    e = torch.empty(logits.shape, dtype=torch.float32,
+                    device=logits.device).exponential_(1, generator=gen)
+    e.clamp_min_(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits.float() - e.log(), dim=-1)
+
+
 def sample_batched(gen: torch.Generator, logits: torch.Tensor,
                    temperatures: torch.Tensor, top_ks: torch.Tensor,
                    top_ps: torch.Tensor) -> torch.Tensor:
     """Per-request sampling: logits (B, V) -> tokens (B,) int32."""
-    masked = filter_logits(logits, temperatures, top_ks, top_ps)
-    tok = torch.multinomial(torch.softmax(masked, dim=-1), 1,
-                            generator=gen)[:, 0]
+    tok = categorical(gen, filter_logits(logits, temperatures, top_ks,
+                                         top_ps))
     return torch.where(temperatures <= 0, greedy(logits.float()),
                        tok.to(torch.int32))

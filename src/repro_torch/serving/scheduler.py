@@ -1,13 +1,15 @@
 """Serving scheduler: admission, chunked-prefill budgeting, preemption
-(port of ``repro.serving.scheduler``, draftless).
+(port of ``repro.serving.scheduler``).
 
 Per engine step the scheduler compacts slots, admits waiting requests in
 the admission policy's order while a slot is free and the allocator can
 hold the prompt, fast-forwards mid-prefill requests over blocks published
-since their admission, gives every DECODING request its lane and shares
-the token budget among prefill chunks, and preempts the preemption
-policy's top victim until the plan's block demand fits the pool.  It owns
-the queues and the slot free-list and never touches device state.
+since their admission, gives every DECODING request its lane (plus one per
+drafted token under speculative decoding, charged to the token budget
+ahead of prefill) and shares the rest of the budget among prefill chunks.
+Until the plan's block demand fits the pool it sheds the drafts, then
+preempts the preemption policy's top victim.  It owns the queues and the
+slot free-list and never touches device state.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from repro_torch.core.paged_kv import BlockAllocator, OutOfBlocksError
 from repro_torch.serving import policy as policy_lib
 from repro_torch.serving.request import Request, RequestState
@@ -23,15 +27,22 @@ from repro_torch.serving.request import Request, RequestState
 
 @dataclass
 class StepPlan:
-    """What the engine runs this step: one lane per decode request plus
-    ``n`` lanes per ``(req, n)`` prefill chunk."""
+    """What the engine runs this step: ``1 + len(spec[req_id])`` lanes per
+    decode request (``spec`` holds the drafted tokens of the requests that
+    have any) plus ``n`` lanes per ``(req, n)`` prefill chunk."""
 
     decode: List[Request] = field(default_factory=list)
     prefill: List[Tuple[Request, int]] = field(default_factory=list)
+    spec: Dict[int, np.ndarray] = field(default_factory=dict)
+
+    def decode_tokens(self, req: Request) -> int:
+        """Lane count of one decode request: 1 + its drafted tokens."""
+        return 1 + len(self.spec.get(req.req_id, ()))
 
     @property
     def num_tokens(self) -> int:
-        return len(self.decode) + sum(n for _, n in self.prefill)
+        return (sum(self.decode_tokens(r) for r in self.decode)
+                + sum(n for _, n in self.prefill))
 
 
 class Scheduler:
@@ -50,6 +61,7 @@ class Scheduler:
         self.free_slots: List[int] = list(range(max_batch - 1, -1, -1))
         self.num_preemptions = 0
         self.num_slot_compactions = 0
+        self.num_spec_sheds = 0      # draft sets dropped under block pressure
 
     def submit(self, req: Request) -> None:
         if req.state is not RequestState.WAITING:
@@ -114,7 +126,7 @@ class Scheduler:
             return fresh
 
         for req in plan.decode:
-            need += span(req, 1)
+            need += span(req, plan.decode_tokens(req))
         for req, n in plan.prefill:
             need += span(req, n)
         for blk, writers in cow_writers.items():
@@ -141,8 +153,15 @@ class Scheduler:
         self.waiting.appendleft(req)
         self.num_preemptions += 1
 
-    def schedule(self) -> StepPlan:
-        """Compact, admit, budget prefill chunks, preempt until it fits."""
+    def schedule(self, spec_drafts: Optional[Dict[int, np.ndarray]] = None
+                 ) -> StepPlan:
+        """Compact, admit, budget drafts and prefill chunks, then shed
+        drafts and preempt until the plan fits.
+
+        ``spec_drafts`` maps a DECODING request's id to its drafted tokens.
+        Draft lanes take the token budget ahead of prefill chunks and are
+        trimmed to it, with half the budget held back while a request is
+        PREFILLING; a draft whose request is preempted is dropped."""
         self._compact_slots()
         self._admit()
         for req in self.running.values():
@@ -151,13 +170,26 @@ class Scheduler:
                                                    req.active_prompt)
                 if adopted:
                     req.prefill_pos += adopted
+        spec_drafts = spec_drafts or {}
         while True:
             plan = StepPlan()
             budget = self.token_budget
+            prefill_pending = any(r.state is RequestState.PREFILLING
+                                  for r in self.running.values())
+            spec_budget = budget // 2 if prefill_pending else budget
             for req in self.running.values():
+                # a request whose last token is still in flight (overlapped
+                # loop) may already hold max_new_tokens outputs: no lane
                 if (req.state is RequestState.DECODING
                         and len(req.output) < req.max_new_tokens):
                     plan.decode.append(req)
+                    draft = spec_drafts.get(req.req_id)
+                    if draft is not None and spec_budget > 0:
+                        take = min(len(draft), spec_budget)
+                        if take > 0:
+                            plan.spec[req.req_id] = draft[:take]
+                            spec_budget -= take
+            budget = max(budget - sum(len(d) for d in plan.spec.values()), 0)
             for req in self.running.values():
                 if req.state is RequestState.PREFILLING and budget > 0:
                     n = min(req.prefill_remaining, budget)
@@ -166,6 +198,10 @@ class Scheduler:
                         budget -= n
             if self._blocks_needed(plan) <= self.alloc.num_free:
                 return plan
+            if plan.spec:       # drop optional work before computed KV
+                spec_drafts = {}
+                self.num_spec_sheds += 1
+                continue
             victim = self._pick_victim(now=time.time())
             if victim is None:
                 raise OutOfBlocksError(

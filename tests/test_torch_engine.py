@@ -15,11 +15,13 @@ from repro.config import ServeConfig as JaxServeConfig
 from repro.config import get_config as jax_get_config
 from repro.models.api import build_model as jax_build_model
 from repro.serving import engine as jengine
+from repro.serving import policy as jpolicy
 from repro.serving import sampling as jsampling
 from repro_torch.config import ServeConfig, get_config
 from repro_torch.models.api import build_model
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.serving import engine as tengine
+from repro_torch.serving import policy as tpolicy
 from repro_torch.serving import sampling as tsampling
 
 BS = 4
@@ -117,8 +119,10 @@ def test_render_matches_jax_on_a_mixed_step(models):
         et.step()
     plan_j, plan_t = ej.scheduler.schedule(), et.scheduler.schedule()
     assert plan_j.decode and plan_j.prefill
-    lists_j, tokens_j, _, sample_j, _, _ = ej._render(plan_j)
-    lists_t, tokens_t, sample_t, _ = et._render(plan_t)
+    lists_j, tokens_j, tok_src_j, sample_j, spec_j, _ = ej._render(plan_j)
+    lists_t, tokens_t, tok_src_t, sample_t, spec_t, _ = et._render(plan_t)
+    assert spec_t is None and spec_j is None
+    np.testing.assert_array_equal(tok_src_t, np.asarray(tok_src_j))
     assert set(lists_t) == set(lists_j)
     for k in lists_t:
         np.testing.assert_array_equal(lists_t[k], np.asarray(lists_j[k]), k)
@@ -158,14 +162,16 @@ def test_filter_logits_matches_jax_and_samples_stay_in_support():
         assert np.all(np.isfinite(want[np.arange(5), tok]))
 
 
-@pytest.mark.parametrize("kw", [dict(overlap=True), dict(spec="ngram"),
-                                dict(devices=2), dict(host_blocks=4)])
+@pytest.mark.parametrize("kw", [dict(roles="prefill,decode"),
+                                dict(mesh=object()), dict(devices=2),
+                                dict(host_blocks=4), dict(role="prefill")])
 def test_engine_refuses_what_the_port_leaves_out(models, kw):
     _, (cfg_t, model_t, params_t) = models
+    ctor = {k: kw.pop(k) for k in ("mesh", "role") if k in kw}
     with pytest.raises(NotImplementedError):
         tengine.ServingEngine(model_t, params_t, cfg_t,
                               ServeConfig(model=cfg_t.name, **kw),
-                              num_blocks=8, device="cpu")
+                              num_blocks=8, device="cpu", **ctor)
 
 
 def test_engine_refuses_an_unknown_attn_impl(models):
@@ -175,3 +181,57 @@ def test_engine_refuses_an_unknown_attn_impl(models):
                               ServeConfig(model=cfg_t.name,
                                           attn_impl="flash"),
                               num_blocks=8, device="cpu")
+
+
+def test_engine_serves_overlap_and_spec(models):
+    _, (cfg_t, model_t, params_t) = models
+    for kw in (dict(overlap=True), dict(spec="ngram"),
+               dict(spec="draft-model")):
+        eng = tengine.ServingEngine(model_t, params_t, cfg_t,
+                                    ServeConfig(model=cfg_t.name, **kw),
+                                    num_blocks=8, device="cpu")
+        m = eng.metrics()
+        assert m["overlap"] is kw.get("overlap", False)
+        assert m["spec"]["proposer"] == kw.get("spec", "off")
+
+
+_JAX_STEP = {}
+PAIRS = [(a, e) for a in tpolicy.names(tpolicy.ADMISSION)
+         for e in tpolicy.names(tpolicy.EVICTION)]
+
+
+@pytest.mark.parametrize("admission,eviction", PAIRS)
+def test_policy_sweep_matches_jax(models, admission, eviction):
+    """Every registered (admission, preemption, eviction) triple in the
+    starved pool, preemption cycled through its four policies: greedy
+    streams, counters, finish order and policy counters equal JAX's.  The
+    JAX engines share one engine's jitted step (the same program: the
+    ServeConfig and model are the same), so each triple compiles once."""
+    assert len(PAIRS) == 25
+    assert tpolicy.names(tpolicy.ADMISSION) == jpolicy.names(
+        jpolicy.ADMISSION)
+    assert tpolicy.names(tpolicy.EVICTION) == jpolicy.names(jpolicy.EVICTION)
+    assert tpolicy.names(tpolicy.PREEMPTION) == jpolicy.names(
+        jpolicy.PREEMPTION)
+    for preemption in tpolicy.names(tpolicy.PREEMPTION):
+        ej, et = _engines(models, 10, late=(3, 4), admission=admission,
+                          preemption=preemption, eviction=eviction)
+        first = _JAX_STEP.setdefault("engine", ej)
+        ej._step_fn, ej._copy_fn = first._step_fn, first._copy_fn
+        for _ in range(2):
+            ej.step()
+            et.step()
+        _submit(ej, et, (3, 4))
+        ej.run_until_done()
+        et.run_until_done()
+        assert [r.req_id for r in et.finished] == [
+            r.req_id for r in ej.finished]
+        assert {r.req_id: list(r.output) for r in et.finished} == {
+            r.req_id: list(r.output) for r in ej.finished}
+        mj, mt = ej.metrics(), et.metrics()
+        for key in _COUNTERS:
+            assert mt[key] == mj[key], (preemption, key)
+        assert mt["policy_counters"] == {
+            k: v for k, v in mj["policy_counters"].items()
+            if k.split(".")[0] in tpolicy.AXES}, preemption
+        et.alloc.check_invariants(drained=True)

@@ -57,6 +57,11 @@ import repro_torch.kernels.gather_scatter.ops
 import repro_torch.kernels.gather_scatter.ref
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.flash_attention.ref
+import repro_torch.perf, repro_torch.perf.gate, repro_torch.perf.replay
+import repro_torch.perf.table, repro_torch.perf.trace
+import repro_torch.serving.spec, repro_torch.serving.spec.draft_model
+import repro_torch.serving.spec.ngram, repro_torch.serving.spec.proposer
+import repro_torch.serving.spec.verify, repro_torch.bench.trace_replay
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """
@@ -100,6 +105,24 @@ def test_dlrm_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         embedding_tables.main([])
     assert build_model("rm2", device="cpu").device.type == "cpu"
+
+
+def test_replay_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.bench import trace_replay
+    from repro_torch.launch import serve
+    from repro_torch.serving.spec import DraftModelProposer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        trace_replay.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "smollm-360m", "--reduced", "--spec", "ngram",
+                    "--overlap", "on"])
+    # the draft model is built on the engine's device, never elsewhere
+    engine = type("E", (), {"cfg": serve.get_config("smollm-360m").reduced(
+        dtype="float32"), "device": "cuda"})()
+    with pytest.raises(RuntimeError, match="cuda"):
+        DraftModelProposer().bind(engine)
 
 
 def test_paper_path_entry_points_default_to_the_card(monkeypatch):

@@ -198,9 +198,17 @@ def test_chunked_kernel_equals_ragged_kernel_bitwise(card, shape, case,
 FULL_LONG = dict(seqs=[(3, 1, 300), (0, 100, 450), (5, 1, 17), (1, 2, 40),
                        (2, 64, 64), (4, 0, 0), (8, 0, 0)],
                  num_lanes=200, num_entries=96, shuffle=True)
+# A verify step of ngram speculative decoding at smollm-360m's widths as
+# the reference renders it: fifteen owners of 1 + 3 lanes from mid-block,
+# beside a decode lane.
+FULL_VERIFY = dict(seqs=[(s, 4, 130 + 57 * s) for s in range(15)]
+                   + [(15, 1, 700)],
+                   num_lanes=64, num_entries=640, num_blocks=640,
+                   shuffle=True)
 MMA_CASES = [(SMALL, SMALL_CASES["long_owner"]),
              (SMALL, SMALL_CASES["long_owner_g4"]), (FULL, FULL_CASE),
-             (FULL, FULL_LONG)]
+             (FULL, FULL_LONG), (SMALL, SMALL_CASES["verify"]),
+             (FULL, FULL_VERIFY)]
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
@@ -360,6 +368,52 @@ def test_paged_ops_add_no_host_sync(card):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_engine_overlap_and_spec_streams_on_the_card(card):
+    """Reduced smollm-360m on the card: the overlapped loop's build half
+    runs under ``set_sync_debug_mode("error")`` (nothing there waits for
+    the card), and overlap and ngram speculative decoding (ragged and
+    chunked) give the serial engine's greedy streams."""
+    from repro_torch.config import ServeConfig, get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config("smollm-360m").reduced(dtype="float32")
+    model = build_model(cfg, device=card)
+    params = model.init(0)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, (3 + 5 * i,), dtype=np.int32)
+               for i in range(5)]
+
+    def run(hook=None, **kw):
+        serve = ServeConfig(model=cfg.name, kv_block_size=4, max_batch=3,
+                            spec_k=3, **kw)
+        eng = ServingEngine(model, params, cfg, serve, num_blocks=16,
+                            device=card)
+        if hook:
+            hook(eng)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(req_id=i, prompt=p, max_new_tokens=12))
+        eng.run_until_done()
+        eng.alloc.check_invariants(drained=True)
+        return {r.req_id: list(r.output) for r in eng.finished}
+
+    def guard(eng):
+        build_ = eng._build
+
+        def no_sync(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return build_(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        eng._build = no_sync
+
+    serial = run()
+    assert run(guard, overlap=True) == serial
+    for attn_impl in ("ragged", "chunked"):
+        assert run(spec="ngram", attn_impl=attn_impl) == serial
 
 
 def test_chunked_and_decode_kernels_refuse_bad_inputs(card):
