@@ -189,22 +189,58 @@ Phases, each of which raises on failure (the script catches none):
    both bounds, as phase 6; then B1 on the same lanes grouped as the
    reference renders them (a drafted request one owner of 1 + k lanes, on
    the tensor-core tile): its time, bounds and its largest difference
-   from the per-lane output.
+   from the per-lane output;
+28. the paper's LLM, llama31-8b, at full width (32 layers, H 32, KV 8,
+   hd 128, bf16, seeded weights on the card; the earlier phases' models
+   freed first, the peak device memory after the weights printed): (a)
+   phase 5's 16 requests through the ragged kernel (B1): launches steps x
+   32, invariants, the pool drains; TTFT / TPOT p50 / p99, tok/s, steps
+   by kind; layer 0's inputs of a mixed and a decode-only step held to
+   the plain version (phase 3's bf16 limit) and timed beside both bounds,
+   as phase 6; phase 7's profile of three decode-only steps (busy share,
+   ``cudaLaunchKernel`` per step) beside smollm-360m's; (b) the same
+   requests with ``attn_impl="chunked"`` (B2): streams equal to (a)'s,
+   and B2 on its captured inputs; (c) the paper path (phase 16's
+   workload) through the decode kernel (B3): ms per step beside phase
+   16's, B3 on its last step against ``paged_attention_opt``;
+29. the host KV tier at that width: [prompt, prompt, filler, prompt]
+   (17-token prompts, 4-token blocks, ``tiered``, 8 host blocks) in a
+   roomy and a starved (7-block) pool: the starved streams must equal the
+   roomy run's, with demotes and promotes and no leak; then the reference
+   benchmark's tier-pressure scenario (``repro_torch.bench.disagg``: 5
+   prompts of 3 blocks of 8, an 11-block pool, 3 rounds, each prompt
+   twice): ``lru`` without a host tier against ``tiered`` with 20 host
+   blocks, whose hit rate must be higher; the mean device-to-host and
+   host-to-device copy of one 1 MiB block;
+30. disaggregated serving at that width: the reference's burst (16
+   prompts of 1024 tokens, 32 new, max_batch 8, 512-token prefill
+   chunks, 16-token blocks, each engine the reference's pool), mono
+   against split (``decode_steps_per_step`` 4): both roles' pools drain
+   with their invariants, every request is handed off, no staging id is
+   left; TPOT / TTFT p50 / p99, the handoff p50, each role's steps.
+   Split's bf16 streams must equal mono's or leave them only at a token
+   where mono's top two logits lie within two bf16 ulps (recorded by a
+   sampling hook that calls the original); the same burst in float32 at
+   depth 4 must give identical streams.
 
-Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a and 27b) runs with
-every kernel's launch count set to 0 just before it and read just after.  The card's peaks come
+Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29 and
+30) runs with every kernel's launch count set to 0 just before it and
+read just after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
 
 The ragged and chunked kernels run bf16 prefill owners (two or more lanes)
 on the tensor-core tile and everything else on the SIMT tile; their JSON
 records say so in ``tile`` and carry the mixed and decode steps' times,
-steps and launches.  The line before the last is the kernels' JSON
-record; the last line is
+steps and launches (at llama31-8b's width too, under ``llama31_8b``).
+Phases 28-30's readings are one JSON line with the card's name and power
+limit.  The line before the last is the kernels' JSON record; the last
+line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
 nonzero before printing either.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import sys
@@ -930,6 +966,7 @@ def paper_path(torch, np, api, counted, model, params, cfg, dev):
     launches = op.launches
     capture.close()
     out = torch.stack(generated, 1).cpu()
+    capture.got["ms_per_step"] = 1e3 * (t_end - t0) / steps
     log(f"  {steps} steps: {1e3 * (t_end - t0) / steps:.2f} ms/step; prompt "
         f"steps {1e3 * (t_prompt - t0) / PAPER_PROMPT:.2f} ms/step, greedy "
         f"steps {1e3 * (t_end - t_prompt) / (steps - PAPER_PROMPT):.2f} "
@@ -1335,6 +1372,7 @@ def main() -> int:
         pa_kernel.library(CHUNKED_KERNEL).paged_attention_chunked_smem_bytes,
         builds[CHUNKED_KERNEL]["log"], build, card, paged_tile)
     inputs, kw, out_run = d_capture["decode"]
+    phase16_ms = d_capture["ms_per_step"]
     log(f"  decode_step_paged last step, kvl:splits per request "
         f"{decode_splits(np, inputs)}")
     decode_top = kernel_times(
@@ -1436,6 +1474,36 @@ def main() -> int:
         torch, np, api, verify_in["ragged"], card)
     log(f"  phase 27: {time.perf_counter() - t27:.1f} s")
 
+    # 28-30. the paper's LLM at full width ------------------------------------
+    del verify_in
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== 28. llama31-8b at full width (32 layers, bf16, seeded weights); "
+        f"device memory held before it "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t28 = time.perf_counter()
+    llama, model8, params8 = llama_phase28(
+        torch, np, cfg_mod, engine_mod, api, counted, build_model, prompts,
+        phase5, phase16_ms, dev, card)
+    cfg8 = model8.cfg
+    log(f"  phase 28: {time.perf_counter() - t28:.1f} s")
+    log("== 29. the host KV tier at llama31-8b's width")
+    t29 = time.perf_counter()
+    llama["tier"] = llama_phase29(torch, np, cfg_mod, engine_mod, counted,
+                                  model8, params8, cfg8, dev, card)
+    log(f"  phase 29: {time.perf_counter() - t29:.1f} s")
+    log("== 30. disaggregated prefill/decode at llama31-8b's width: the "
+        "burst, mono against split")
+    t30 = time.perf_counter()
+    llama["disagg"] = llama_phase30(torch, np, cfg_mod, engine_mod, counted,
+                                    build_model, model8, params8, cfg8, dev,
+                                    card)
+    log(f"  phase 30: {time.perf_counter() - t30:.1f} s")
+    del model8, params8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"llama31_8b": llama, "card": card}))
+
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
     chunked_top = dict(chunked_steps["mixed"], max_abs_err=max(
@@ -1450,6 +1518,8 @@ def main() -> int:
         "tile": PAGED_TILE, "decode": steps["decode"],
         "mixed": steps["mixed"], "mixed_step_profile": mixed_profile,
         "verify": verify["ragged"], "replay": replay, "overlap": overlap,
+        "llama31_8b": dict(llama["ragged"]["kernel"],
+                           launches=llama["ragged"]["launches"]),
         "instances": ragged_inst}, {
         "name": CHUNKED_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{CHUNKED_KERNEL}.cu",
@@ -1457,14 +1527,17 @@ def main() -> int:
         "launches": c_launches, **chunked_top, "library_ms": None,
         "max_abs_diff_vs_ragged": ragged_diff, "tile": PAGED_TILE,
         "decode": chunked_steps["decode"], "mixed": chunked_steps["mixed"],
-        "verify": verify["chunked"], "instances": chunked_inst}, {
+        "verify": verify["chunked"],
+        "llama31_8b": dict(llama["chunked"]["kernel"],
+                           launches=llama["chunked"]["launches"]),
+        "instances": chunked_inst}, {
         "name": DECODE_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{DECODE_KERNEL}.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
         "launches": d_launches, **dict(decode_top, max_abs_err=max(
             decode_top["max_abs_err"], decode_err)),
         "library_ms": None, "tile": DECODE_TILE,
-        "instances": decode_inst}, {
+        "llama31_8b": llama["decode"], "instances": decode_inst}, {
         "name": EMB_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
         "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
@@ -1495,6 +1568,409 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def llama_serve(torch, np, cfg_mod, engine_mod, api, counted, model, params,
+                cfg, prompts, attn_impl, dev, card):
+    """One run of phase 5's requests at llama31-8b's width through
+    ``attn_impl``: a short warm-up engine first, then the run with layer
+    0's inputs of a mixed and a decode-only step captured; the kernel's
+    launches must equal steps x layers (the other paged kernel's 0), the
+    allocator's invariants must hold and the pool must drain.  Returns
+    (greedy streams, metrics, launches, capture)."""
+    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                max_batch=SERVE_BATCH, attn_impl=attn_impl)
+    warm = engine_mod.ServingEngine(model, params, cfg, serve,
+                                    num_blocks=256, device=dev)
+    for i, p in prompts[:2]:
+        warm.submit(engine_mod.Request(req_id=i, prompt=p[:64],
+                                       max_new_tokens=4))
+    warm.run_until_done()
+    del warm
+    eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                   num_blocks=SERVE_BLOCKS, device=dev)
+    attr, other = (("paged_attention_ragged_op", 1) if attn_impl == "ragged"
+                   else ("paged_attention_chunked_op", 0))
+    op = getattr(api, attr)                     # holds the launch count
+    capture = Capture(api, attr, eng)
+    reset_counts(counted)
+    wall = serve_phase5(engine_mod, eng, prompts, torch)
+    launches, stray = op.launches, counted[other].launches
+    capture.close()
+    m = eng.metrics()
+    log(f"  {attn_impl}: steps {m['steps']}  output tokens "
+        f"{m['output_tokens']}  wall {wall:.3f}s  output tok/s "
+        f"{m['output_tokens'] / wall:.1f}  lane tokens/step "
+        f"{m['lane_tokens_per_step']:.1f}  [{card}]")
+    log(f"  TTFT p50 {m['p50_ttft_s'] * 1e3:.1f} / p99 "
+        f"{m['p99_ttft_s'] * 1e3:.1f} ms  TPOT p50 "
+        f"{m['p50_tpot_s'] * 1e3:.2f} / p99 {m['p99_tpot_s'] * 1e3:.2f} ms  "
+        f"prefix hit rate {m['prefix_hit_rate']:.3f}  preemptions "
+        f"{m['preemptions']}")
+    log(f"  kernel launches {launches} = steps x layers {m['steps']} x "
+        f"{cfg.num_layers}; the other paged kernel {stray}")
+    log(f"  steps by kind: {capture.by_kind()}")
+    if launches != m["steps"] * cfg.num_layers or launches == 0 or stray:
+        raise AssertionError(f"{attn_impl}: launches {launches} != steps x "
+                             f"layers, or the other kernel ran {stray}")
+    if m["finished"] != len(prompts):
+        raise AssertionError(f"finished {m['finished']} of {len(prompts)}")
+    for r in eng.finished:
+        if len(r.output) != SERVE_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.req_id}: bad output {r.output}")
+    eng.alloc.check_invariants(drained=True)
+    log("  allocator invariants hold; pool drained "
+        f"({eng.alloc.num_free}/{eng.alloc.num_blocks} blocks free)")
+    for kind in ("mixed", "decode"):
+        if kind not in capture.got:
+            raise AssertionError(f"no {kind} step captured")
+    streams = {r.req_id: list(r.output) for r in eng.finished}
+    keep = ("steps", "output_tokens", "p50_ttft_s", "p99_ttft_s",
+            "p50_tpot_s", "p99_tpot_s")
+    return streams, dict({k: m[k] for k in keep}, wall=wall,
+                         tok_s=m["output_tokens"] / wall), launches, capture
+
+
+def llama_kernel_steps(torch, np, api, capture, attn_impl, card):
+    """The paged kernel of ``attn_impl`` on the captured layer-0 inputs of
+    a decode-only and a mixed step: against its plain version at phase
+    3's bf16 limit, its time beside both bounds (phase 6's readings)."""
+    op, bound, share, splits = (
+        (api.paged_attention_ragged_op, ragged_bound, api.ragged_bf16_share,
+         ragged_splits) if attn_impl == "ragged" else
+        (api.paged_attention_chunked_op, chunked_bound,
+         lambda got, *a, **kw: api.chunked_bf16_share(got, *a),
+         chunked_splits))
+    out = {}
+    for kind in ("decode", "mixed"):
+        inputs, kw, out_run = capture.got[kind]
+        if attn_impl == "ragged":
+            log(f"  {kind} step (nq, kvl) per sequence: "
+                f"{lanes_by_sequence(inputs[5], inputs[6])}")
+        log(f"  {kind} step decode-tile owners, kvl:splits "
+            f"{splits(np, inputs)}")
+        out[kind] = kernel_times(
+            torch, op, inputs, kw, out_run, bound(torch, inputs),
+            f"llama31-8b {attn_impl} {kind} step T={inputs[0].shape[0]} "
+            f"H={inputs[0].shape[1]} hd={inputs[0].shape[2]}", card,
+            share=share)
+        out[kind].update(steps=capture.steps.get(kind, 0),
+                         launches=capture.launches.get(kind, 0))
+    return out
+
+
+def llama_phase28(torch, np, cfg_mod, engine_mod, api, counted, build_model,
+                  prompts, phase5, phase16_ms, dev, card):
+    """Phases 28a-c: llama31-8b at full width (32 layers, bf16, seeded
+    weights) through the ragged kernel, the chunked kernel and the paper
+    path.  Returns (the phase's readings, model, params)."""
+    cfg = cfg_mod.get_config("llama31-8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    a = cfg.attention
+    log(f"  params {n_params / 1e9:.3f} B ({n_params * 2 / 1e9:.2f} GB "
+        f"bf16), H {a.num_heads} KV {a.num_kv_heads} hd {a.head_dim} "
+        f"G {a.num_heads // a.num_kv_heads}; init "
+        f"{time.perf_counter() - t0:.1f}s; peak device memory after init "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out = dict(params=n_params)
+    log("== 28a. llama31-8b: phase 5's requests, ragged (B1)")
+    streams, out["ragged"], launches, cap = llama_serve(
+        torch, np, cfg_mod, engine_mod, api, counted, model, params, cfg,
+        prompts, "ragged", dev, card)
+    out["ragged"]["launches"] = launches
+    out["ragged"]["kernel"] = llama_kernel_steps(torch, np, api, cap,
+                                                 "ragged", card)
+    del cap
+    log("  three decode-only steps under torch.profiler (phase 7's "
+        "workload at this width):")
+    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                max_batch=SERVE_BATCH)
+    prof = profile_decode(torch, np, model, params, cfg, serve, engine_mod,
+                          dev)
+    before = phase5["profile"]
+    log(f"  busy share {prof['busy_share']:.1%} of {prof['wall_ms']:.3f} "
+        f"ms/step, {prof['launches']:.0f} cudaLaunchKernel / step "
+        f"(smollm-360m, phase 7: {before['busy_share']:.1%} of "
+        f"{before['wall_ms']:.3f} ms/step, {before['launches']:.0f})  "
+        f"[{card}]")
+    out["decode_profile"] = {k: prof[k] for k in
+                             ("wall_ms", "busy_ms", "busy_share", "launches")}
+    log("== 28b. llama31-8b: the same requests, attn_impl='chunked' (B2)")
+    c_streams, out["chunked"], c_launches, c_cap = llama_serve(
+        torch, np, cfg_mod, engine_mod, api, counted, model, params, cfg,
+        prompts, "chunked", dev, card)
+    if c_streams != streams:
+        diff = [i for i in streams if c_streams.get(i) != streams[i]]
+        raise AssertionError(f"chunked greedy streams differ from 28a's "
+                             f"ragged streams for requests {diff}")
+    log(f"  greedy streams identical to 28a's ragged run ({len(streams)} "
+        f"requests x {SERVE_NEW} tokens)")
+    out["chunked"]["launches"] = c_launches
+    out["chunked"]["kernel"] = llama_kernel_steps(torch, np, api, c_cap,
+                                                  "chunked", card)
+    del c_cap
+    log(f"== 28c. llama31-8b: decode_step_paged (B3), 16 requests, "
+        f"{PAPER_PROMPT} prompt tokens one per step, {PAPER_NEW} greedy")
+    d_launches, d_cap = paper_path(torch, np, api, counted, model, params,
+                                   cfg, dev)
+    log(f"  {d_cap['ms_per_step']:.2f} ms/step (smollm-360m, phase 16: "
+        f"{phase16_ms:.2f})  [{card}]")
+    inputs, kw, out_run = d_cap["decode"]
+    log(f"  last step, kvl:splits per request {decode_splits(np, inputs)}")
+    out["decode"] = kernel_times(
+        torch, api.paged_attention_op, inputs, kw, out_run,
+        decode_bound(torch, inputs),
+        f"llama31-8b decode_step_paged last step B={inputs[0].shape[0]} "
+        f"H={inputs[0].shape[1]} hd={inputs[0].shape[2]}", card)
+    out["decode"].update(launches=d_launches,
+                         ms_per_step=d_cap["ms_per_step"])
+    return out, model, params
+
+
+def tier_copy_ms(torch, pool, reps=5):
+    """Mean ms of the tier drain's block copies on ``pool``: a demote's
+    read of one block of every layer to host memory, and a promote's write
+    of it back (``core/paged_kv.read_pool_block`` / ``write_pool_block``,
+    synchronised, each of the pool's blocks ``reps`` times)."""
+    from repro_torch.core.paged_kv import read_pool_block, write_pool_block
+
+    d2h, h2d, n = 0.0, 0.0, 0
+    for _ in range(reps):
+        for blk in range(pool.shape[1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data = read_pool_block(pool, blk)
+            t1 = time.perf_counter()
+            write_pool_block(pool, blk, data)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            d2h, h2d, n = d2h + t1 - t0, h2d + t2 - t1, n + 1
+    return 1e3 * d2h / n, 1e3 * h2d / n, data.numel() * data.element_size()
+
+
+def llama_phase29(torch, np, cfg_mod, engine_mod, counted, model, params,
+                  cfg, dev, card):
+    """Phase 29: the host KV tier at llama31-8b's width: the round trip
+    (starved run's streams equal the roomy run's, demotes and promotes,
+    no leak), then the reference benchmark's tier-pressure scenario, lru
+    without a host tier against tiered with 20 host blocks, and the
+    tier's block copy times."""
+    from repro_torch.bench import disagg as bench
+
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (17,), dtype=np.int32)
+    filler = rng.integers(0, cfg.vocab_size, (17,), dtype=np.int32)
+
+    def rounds(num_blocks):
+        serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=4,
+                                    max_batch=1, eviction="tiered",
+                                    host_blocks=8)
+        eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                       num_blocks=num_blocks, device=dev)
+        outs = []
+        for i, p in enumerate([prompt, prompt, filler, prompt]):
+            eng.submit(engine_mod.Request(req_id=i, prompt=p,
+                                          max_new_tokens=4))
+            eng.run_until_done()
+            outs.append(list(eng.finished[-1].output))
+        return outs, eng
+
+    out = {}
+    reset_counts(counted)
+    roomy, _ = rounds(64)
+    starved, eng = rounds(7)
+    launches = counted[0].launches
+    hp = eng.host_pool.counters
+    log(f"  round trip [prompt, prompt, filler, prompt], 17-token prompts, "
+        f"block size 4, tiered, 8 host blocks: roomy (64 blocks) "
+        f"{roomy}; starved (7 blocks) {starved}; tier {dict(hp)}; ragged "
+        f"launches {launches}")
+    if starved != roomy:
+        raise AssertionError("the starved run's streams differ from the "
+                             "roomy run's: the tier round trip lost KV")
+    if not (hp["demotes"] > 0 and hp["promotes"] > 0) or launches == 0:
+        raise AssertionError(f"no demote / promote (or no launch): {hp}")
+    eng.alloc.check_invariants(drained=True)
+    if eng.metrics()["blocks_free"] != 7:
+        raise AssertionError("a block leaked under tier traffic")
+    log("  starved streams identical to the roomy run's; allocator "
+        "invariants hold, pool drained")
+    out["round_trip"] = dict(hp)
+    sizes = bench.FULL
+    rows = {}
+    for eviction, host in (("lru", 0), ("tiered", 4 * sizes["n_prompts"])):
+        eng = bench.pressure_engine(model, params, cfg, sizes, eviction,
+                                    host, dev)
+        reset_counts(counted)
+        wall = bench.pressure_run(eng, cfg, sizes, dev)
+        m = eng.metrics()
+        t = m["tier"]
+        rows[eviction] = dict(
+            prefix_hit_rate=m["prefix_hit_rate"],
+            prefix_hits=m["prefix_hits"],
+            evictions=eng.alloc.cache_evictions, demotes=t["demotes"],
+            promotes=t["promotes"], tier_hits=t["hits"], drops=t["drops"],
+            finished=m["finished"], wall=wall,
+            launches=counted[0].launches)
+        log(f"  tier pressure {eviction:6s} host {host:2d}: "
+            + "  ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in rows[eviction].items())
+            + f"  [{card}]")
+        eng.alloc.check_invariants(drained=True)
+        if rows[eviction]["launches"] == 0:
+            raise AssertionError("the tier scenario launched no kernel")
+        pool = eng.pools["kv"]
+    if not (rows["tiered"]["prefix_hit_rate"]
+            > rows["lru"]["prefix_hit_rate"]):
+        raise AssertionError(f"tiered hit rate is not higher: {rows}")
+    d2h, h2d, nbytes = tier_copy_ms(torch, pool)
+    log(f"  tier block copies ({nbytes / 2**20:.2f} MiB a block, "
+        f"{pool.shape[1]} blocks x 5): demote (device to host) {d2h:.4f} "
+        f"ms, promote (host to device) {h2d:.4f} ms, means  [{card}]")
+    out.update(pressure=rows, d2h_ms=d2h, h2d_ms=h2d, block_bytes=nbytes)
+    return out
+
+
+def bf16_ulp(v: float) -> float:
+    import math
+
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 2.0 ** -133
+
+
+def llama_phase30(torch, np, cfg_mod, engine_mod, counted, build_model,
+                  model, params, cfg, dev, card):
+    """Phase 30: the reference's burst at llama31-8b's width, mono against
+    split.  Split's greedy streams equal mono's, or part from them only at
+    a token where mono's top two logits lie within two bf16 ulps (a
+    sampling hook records them); then the same burst in float32 at depth 4
+    must give identical streams."""
+    import dataclasses
+
+    from repro_torch.bench import disagg as bench
+
+    sizes = bench.FULL
+    sampling = engine_mod.sampling_lib
+    sample = sampling.sample_batched
+    last = {}
+
+    def hooked(gen, logits, *args):
+        tok = sample(gen, logits, *args)
+        last["top2"] = logits.float().topk(2, dim=-1).values
+        return tok
+
+    def run(model, params, cfg, roles, gaps=None):
+        eng = bench.burst_engine(model, params, cfg, sizes, roles, dev)
+        if gaps is not None:
+            build = eng._build
+
+            def build_and_record(*args):
+                pend = build(*args)
+                for kind, req, _, _, out_idx in pend.actions:
+                    if out_idx is not None:
+                        gaps[(req.req_id, out_idx)] = last["top2"][
+                            pend.slots[req.req_id]]
+                return pend
+
+            eng._build = build_and_record
+        reset_counts(counted)
+        wall = bench.drain(eng, dev)
+        launches = counted[0].launches
+        streams = {r.req_id: list(r.output) for r in eng.finished}
+        return eng, wall, streams, launches
+
+    sampling.sample_batched = hooked
+    try:
+        gaps = {}
+        mono, mono_wall, mono_streams, mono_launches = run(
+            model, params, cfg, "", gaps)
+    finally:
+        sampling.sample_batched = sample
+    split, split_wall, split_streams, split_launches = run(
+        model, params, cfg, "prefill,decode")
+    mono.alloc.check_invariants(drained=True)
+    for e in (split.pre, split.dec):
+        e.alloc.check_invariants(drained=True)
+    burst, _ = bench.prompts_of(cfg.vocab_size, sizes)
+    full = sum(len(p) >= sizes["bs"] for p in burst)
+    if split.num_handoffs != full or split._staged or split._pending_handoffs:
+        raise AssertionError(
+            f"handoffs {split.num_handoffs} != {full}, or staging left "
+            f"{split._staged} {list(split._pending_handoffs)}")
+    if not mono_launches or not split_launches:
+        raise AssertionError("the burst launched no ragged kernel")
+    out = {}
+    for tag, eng, wall, launches in (("mono", mono, mono_wall, mono_launches),
+                                     ("split", split, split_wall,
+                                      split_launches)):
+        m = eng.metrics()
+        out[tag] = dict(wall=wall, launches=launches, finished=m["finished"],
+                        **{k: m[k] for k in ("p50_tpot_s", "p99_tpot_s",
+                                             "p50_ttft_s", "p99_ttft_s")})
+        line = (f"  {tag:5s}: wall {wall:.3f}s  TPOT p50 "
+                f"{m['p50_tpot_s'] * 1e3:.2f} / p99 "
+                f"{m['p99_tpot_s'] * 1e3:.2f} ms  TTFT p50 "
+                f"{m['p50_ttft_s'] * 1e3:.1f} / p99 "
+                f"{m['p99_ttft_s'] * 1e3:.1f} ms  ragged launches {launches}")
+        if tag == "split":
+            r = m["roles"]
+            out[tag].update(handoffs=m["handoffs"],
+                            handoff_p50_ms=m["handoff_ms"]["p50"],
+                            prefill_steps=r["prefill"]["steps"],
+                            decode_steps=r["decode"]["steps"])
+            line += (f"  handoffs {m['handoffs']} (p50 "
+                     f"{m['handoff_ms']['p50']:.2f} ms)  steps prefill "
+                     f"{r['prefill']['steps']} / decode "
+                     f"{r['decode']['steps']}")
+        else:
+            out[tag]["steps"] = m["steps"]
+            line += f"  steps {m['steps']}"
+        log(line + f"  [{card}]")
+        if m["finished"] != sizes["n_req"]:
+            raise AssertionError(f"{tag}: finished {m['finished']}")
+    parity = {}
+    for rid, want in sorted(mono_streams.items()):
+        got = split_streams[rid]
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if j is None:
+            if len(got) != len(want):
+                raise AssertionError(f"request {rid}: {len(got)} tokens "
+                                     f"split, {len(want)} mono")
+            parity[rid] = "identical"
+            continue
+        top1, top2 = (float(v) for v in gaps[(rid, j)].cpu())
+        ulps = (top1 - top2) / bf16_ulp(top1)
+        parity[rid] = f"token {j}: mono's top-2 gap {ulps:.2f} bf16 ulps"
+        if not ulps <= 2:
+            raise AssertionError(f"request {rid}: split leaves mono's stream "
+                                 f"at token {j} where mono's top two logits "
+                                 f"are {ulps:.2f} bf16 ulps apart")
+    log("  split against mono, bf16: " + "; ".join(
+        f"{rid} {v}" for rid, v in parity.items()))
+    out["parity_bf16"] = parity
+    del mono, split
+    cfg4 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    model4 = build_model(cfg4, device=dev)
+    params4 = model4.init(seed=0)
+    _, _, mono4, _ = run(model4, params4, cfg4, "")
+    split4_eng, _, split4, _ = run(model4, params4, cfg4, "prefill,decode")
+    if split4 != mono4:
+        diff = [i for i in mono4 if split4.get(i) != mono4[i]]
+        raise AssertionError(f"float32 depth 4: split streams differ from "
+                             f"mono's for requests {diff}")
+    for e in (split4_eng.pre, split4_eng.dec):
+        e.alloc.check_invariants(drained=True)
+    log(f"  float32, depth 4: split streams identical to mono's "
+        f"({len(mono4)} requests x {sizes['max_new']} tokens)")
+    out["parity_f32_depth4"] = "identical"
+    return out
 
 
 def replay_parity(torch, counted, dev):

@@ -15,10 +15,11 @@ raises is reported and the others still run; the harness then exits 1.
 | paged_attention_bench  | Fig 17 a-c (S4.2)  |
 | recsys_e2e             | Fig 11 / Table 3   |
 
-The reference's ``--backend``, ``--policy``, ``--spec`` and ``--devices``
-sweeps, and its ``collectives``, ``llm_e2e``, ``saturation``, ``disagg``
-and ``trace_replay`` modules, wait for the slices that port what they
-sweep.
+The reference's ``trace_replay`` and ``disagg`` modules run on their own
+(``python -m repro_torch.bench.trace_replay``, ``python -m
+repro_torch.bench.disagg``); its ``--backend``, ``--policy``, ``--spec``
+and ``--devices`` sweeps, and its ``collectives``, ``llm_e2e`` and
+``saturation`` modules, wait for the slices that port what they sweep.
 
     python -m repro_torch.bench.run [--only stream,gather_scatter] [--full]
         [--device cpu] [--json out.json]

@@ -60,10 +60,11 @@ class ServeConfig:
 
     The port serves one device, with ``attn_impl="ragged"`` or
     ``"chunked"`` (``q_chunk`` and ``prefetch_depth`` tune the chunked
-    kernel), the overlapped loop (``overlap``) and speculative decoding
-    (``spec``, up to ``spec_k`` drafts a request a step); ``devices > 1``,
-    ``roles`` and ``host_blocks`` are refused by the engine.  ``trace`` is
-    the launcher's replay trace path.
+    kernel), the overlapped loop (``overlap``), speculative decoding
+    (``spec``, up to ``spec_k`` drafts a request a step), the host KV tier
+    (``host_blocks``) and, through ``repro_torch.serving.disagg``, split
+    prefill / decode roles (``roles``); the engine refuses
+    ``devices > 1``.  ``trace`` is the launcher's replay trace path.
     """
 
     model: str

@@ -1,2 +1,11 @@
 """Architecture registry of the port (importing registers every config)."""
-from repro_torch.configs import rm1, rm2, smollm_360m  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    internlm2_20b,
+    llama31_8b,
+    llama31_70b,
+    qwen2_1_5b,
+    qwen3_32b,
+    rm1,
+    rm2,
+    smollm_360m,
+)

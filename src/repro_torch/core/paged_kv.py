@@ -496,6 +496,17 @@ class BlockAllocator:
     def written(self, block: int) -> int:
         return self._written.get(block, 0)
 
+    def transferable(self, req_id: int) -> bool:
+        """True iff every committed token's KV is watermark-covered: the
+        prefill-to-decode handoff may copy the request's blocks out of this
+        pool without reading unwritten slots."""
+        pos = self._lens[req_id]
+        for i, blk in enumerate(self._tables[req_id]):
+            need = min(max(pos - i * self.block_size, 0), self.block_size)
+            if self._written.get(blk, 0) < need:
+                return False
+        return True
+
     def block_stats(self, block: int) -> BlockStats:
         return self._stats.setdefault(block, BlockStats())
 
@@ -643,6 +654,28 @@ def copy_pool_blocks(pool: torch.Tensor, srcs, dsts) -> torch.Tensor:
                       for t in (srcs, dsts))
     if dsts.numel():
         pool[:, dsts] = pool[:, srcs]       # advanced index reads a copy
+    return pool
+
+
+def host_read(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in host memory.  On a card this waits for the device:
+    the two deliberate syncs of serving go through it, a host-tier demote
+    (the block's content must be read before its block is reused) and a
+    disaggregated handoff between pools on different devices."""
+    return t.to("cpu", copy=True)
+
+
+def read_pool_block(pool: torch.Tensor, blk: int) -> torch.Tensor:
+    """Block ``blk`` of every layer, ``pool[:, blk]``, copied to the host
+    (a host-tier demote)."""
+    return host_read(pool[:, blk])
+
+
+def write_pool_block(pool: torch.Tensor, blk: int,
+                     data: torch.Tensor) -> torch.Tensor:
+    """Write a block saved by :func:`read_pool_block` back into block
+    ``blk`` of every layer, in place (a host-tier promote)."""
+    pool[:, blk].copy_(data)
     return pool
 
 

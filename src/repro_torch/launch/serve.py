@@ -9,7 +9,11 @@ ragged`` or ``chunked``) —
 time instead of the synthetic workload and prints the SLO scorecard
 against ``--slo-ttft`` / ``--slo-tpot``; under a trace, ``auto`` policies
 resolve from the committed ``BENCH_009.json`` for the trace's scenario and
-``predicted-length`` learns from the trace.
+``predicted-length`` learns from the trace.  ``--policy`` names all three
+policy axes at once (one name, or ``admission/preemption/eviction``).
+``--roles prefill,decode`` serves through the disaggregated two-role
+frontend (:mod:`repro_torch.serving.disagg`) and ``--host-blocks N`` adds
+the host-memory KV tier (pair it with ``--eviction tiered``).
 
 Weights are random, drawn from a seeded generator on the device.  Pass
 ``--device cpu`` (with ``--reduced`` for a tiny float32 model) to run the
@@ -22,6 +26,7 @@ import contextlib
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.config import ServeConfig, get_config
 from repro_torch.models.api import build_model
@@ -30,6 +35,7 @@ from repro_torch.perf.table import perf_context
 from repro_torch.perf.trace import LengthModel, Trace
 from repro_torch.serving import policy as policy_lib
 from repro_torch.serving import spec as spec_lib
+from repro_torch.serving.disagg import DisaggEngine
 from repro_torch.serving.engine import Request, ServingEngine
 
 
@@ -60,6 +66,10 @@ def main(argv=None) -> None:
         p.add_argument(f"--{axis}", default=policy_lib.DEFAULTS[axis],
                        choices=policy_lib.names(axis),
                        help=f"serving {axis} policy")
+    p.add_argument("--policy", default="",
+                   help="one name for all three policy axes, or "
+                        "'admission/preemption/eviction'; overrides the "
+                        "per-axis flags")
     p.add_argument("--spec", default=spec_lib.OFF,
                    choices=spec_lib.names() + sorted(spec_lib.ALIASES),
                    help="speculative-decoding proposer; 'off' decodes one "
@@ -76,7 +86,24 @@ def main(argv=None) -> None:
                    help="p99 TTFT target in virtual seconds (--trace)")
     p.add_argument("--slo-tpot", type=float, default=0.3,
                    help="p99 TPOT target in virtual seconds (--trace)")
+    p.add_argument("--roles", default="",
+                   help="'' = one engine; 'prefill,decode' (or 'split') = "
+                        "disaggregated serving: prompts prefill on one "
+                        "engine, their KV blocks are handed to the other, "
+                        "which decodes")
+    p.add_argument("--host-blocks", type=int, default=0,
+                   help="host-memory KV tier in blocks (0 = none): evicted "
+                        "cached-free blocks are demoted to a host LRU and "
+                        "promoted back on a prefix hit; pair with "
+                        "--eviction tiered")
     args = p.parse_args(argv)
+    if args.policy:
+        parts = args.policy.split("/")
+        if len(parts) == 1:
+            parts = parts * 3
+        if len(parts) != 3:
+            p.error("--policy takes one name or admission/preemption/eviction")
+        args.admission, args.preemption, args.eviction = parts
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -89,6 +116,7 @@ def main(argv=None) -> None:
                         attn_impl=args.attn_impl, q_chunk=args.q_chunk,
                         prefetch_depth=args.prefetch_depth, spec=args.spec,
                         spec_k=args.spec_k, overlap=args.overlap == "on",
+                        roles=args.roles, host_blocks=args.host_blocks,
                         trace=args.trace)
     trace, ctx = None, contextlib.nullcontext()
     if serve.trace:
@@ -102,10 +130,21 @@ def main(argv=None) -> None:
     else:
         total_blocks = args.requests * (
             -(-(args.prompt_len + args.max_new) // args.block_size) + 1)
+    # roles: each engine gets the whole pool; on a host with two cards
+    # the roles run on separate cards
     with ctx:
-        engine = ServingEngine(model, params, cfg, serve,
-                               num_blocks=total_blocks, seed=args.seed,
-                               device=args.device)
+        if serve.roles:
+            pair = None
+            if (torch.device(args.device).type == "cuda"
+                    and torch.cuda.device_count() >= 2):
+                pair = ("cuda:0", "cuda:1")
+            engine = DisaggEngine(model, params, cfg, serve,
+                                  num_blocks=total_blocks, seed=args.seed,
+                                  devices=pair, device=args.device)
+        else:
+            engine = ServingEngine(model, params, cfg, serve,
+                                   num_blocks=total_blocks, seed=args.seed,
+                                   device=args.device)
     t0 = time.time()
     if trace is not None:
         result = replay_lib.replay(engine, trace)
@@ -136,7 +175,7 @@ def main(argv=None) -> None:
               f"(targets {args.slo_ttft}s / {args.slo_tpot}s)")
     print(f"served {m['finished']} requests, {m['output_tokens']} tokens "
           f"in {dt:.2f}s ({m['output_tokens']/dt:.1f} tok/s) "
-          f"[attention={m['backend']} device={engine.device} "
+          f"[attention={m['backend']} device={args.device} "
           f"steps={m['steps']} overlap={m['overlap']}]")
     print(f"TTFT p50 {m['p50_ttft_s']*1e3:.1f} / p99 {m['p99_ttft_s']*1e3:.1f} "
           f"ms  TPOT p50 {m['p50_tpot_s']*1e3:.1f} / p99 "
@@ -148,6 +187,17 @@ def main(argv=None) -> None:
           f"cow copies {m['cow_copies']}")
     print(f"policies {m['admission_policy']}/{m['preemption_policy']}/"
           f"{m['eviction_policy']}  counters {m['policy_counters']}")
+    t = m["tier"]
+    print(f"role {m['role']}  tier hbm={t['hbm_blocks']} "
+          f"host={t['host_blocks']} (used {t['host_blocks_used']})  "
+          f"demotes {t['demotes']}  promotes {t['promotes']}  "
+          f"hits {t['hits']}  drops {t['drops']}")
+    if serve.roles:
+        h = m["handoff_ms"]
+        print(f"handoffs {m['handoffs']}  latency p50 {h['p50']:.2f} / "
+              f"p99 {h['p99']:.2f} ms  prefill steps "
+              f"{m['roles']['prefill']['steps']}  decode steps "
+              f"{m['roles']['decode']['steps']}")
     s = m["spec"]
     print(f"spec {s['proposer']} k={s['k']}  "
           f"accept_rate {s['acceptance_rate']:.2f}  "

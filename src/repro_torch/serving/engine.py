@@ -22,14 +22,23 @@ layer a hand-written paged-attention kernel on a card) and samples
   Drafted steps are synchronous (:meth:`_step_sync`): the overlapped loop
   resolves its pending step first.
 
+* ``ServeConfig.host_blocks > 0``: the host-memory KV tier.  A
+  cached-free block the eviction policy lets go is demoted (its content
+  read to host memory) instead of dropped, and a later prefix hit promotes
+  it back into a fresh block; :meth:`sync_pools` applies this traffic in
+  order, before the copy-on-write copies.
+* ``role="prefill"``: a prefill-only engine for disaggregated serving
+  (:mod:`repro_torch.serving.disagg`).  A request whose last prompt chunk
+  commits is parked, its blocks live, until :meth:`take_prefilled` hands
+  it to the frontend.
+
 ``ServeConfig.attn_impl`` picks the attention kernel of every layer:
 ``"ragged"`` (the default) or ``"chunked"`` (tuned by ``q_chunk`` and
 ``prefetch_depth``).  Greedy streams are identical under either kernel,
-with overlap on or off, and with or without a proposer.
+with overlap on or off, and with or without a proposer or the host tier.
 
 Not in the port yet, refused at construction with ``NotImplementedError``:
-a mesh or ``devices > 1``, the host KV tier (``host_blocks > 0``) and
-disaggregated serving (``roles``, the prefill role).
+a mesh or ``devices > 1``.
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.core.paged_kv import (
-    BlockAllocator, copy_pool_blocks, make_fused_pool)
+    BlockAllocator, HostPool, copy_pool_blocks, make_fused_pool,
+    read_pool_block, write_pool_block)
 from repro_torch.serving import policy as policy_lib
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving import spec as spec_lib
@@ -91,16 +101,12 @@ def _refuse(serve: ServeConfig, mesh, role: str) -> None:
     unsupported = {
         "a mesh": mesh is not None,
         f"devices={serve.devices}": serve.devices > 1,
-        f"host_blocks={serve.host_blocks}": serve.host_blocks > 0,
-        f"roles={serve.roles!r}": bool(serve.roles),
-        f"role={role!r}": role == "prefill",
     }
     for what, hit in unsupported.items():
         if hit:
             raise NotImplementedError(
-                f"{what}: the port serves one device, without a host KV "
-                "tier or disaggregated roles")
-    if role != "full":
+                f"{what}: the port's engine serves one device")
+    if role not in ("full", "prefill"):
         raise ValueError(f"unknown engine role {role!r}")
     if serve.attn_impl not in ("ragged", "chunked"):
         raise ValueError(f"attn_impl {serve.attn_impl!r}: expected 'ragged' "
@@ -120,7 +126,11 @@ class ServingEngine:
         self.cfg = cfg
         self.serve = serve
         self.eos_id = eos_id
+        # a prefill-role engine parks a request whose last prompt chunk
+        # commits (state PREFILLING, blocks live) for take_prefilled()
         self.role = role
+        self.prefill_only = role == "prefill"
+        self.prefilled: List[Request] = []
         bs = serve.kv_block_size
         nb = num_blocks or serve.max_blocks or serve.max_batch * 64
         a = cfg.attention
@@ -131,6 +141,10 @@ class ServingEngine:
         self._policy_objs = (adm, pre, evi)
         self.alloc = BlockAllocator(num_blocks=nb, block_size=bs,
                                     eviction_policy=evi)
+        self.host_pool: Optional[HostPool] = None
+        if serve.host_blocks > 0:
+            self.host_pool = HostPool(serve.host_blocks)
+            self.alloc.host_pool = self.host_pool
         self.pools = {"kv": make_fused_pool(
             cfg.num_layers, nb, bs, a.num_kv_heads, a.head_dim,
             model.dtype, self.device)}
@@ -414,8 +428,29 @@ class ServingEngine:
             for p in self.pools.values():
                 copy_pool_blocks(p, srcs, dsts)
 
+    def _drain_tier(self) -> None:
+        """Apply the queued host-tier traffic to the device pool, in order.
+
+        A demote reads its block to host memory before anything can reuse
+        the block (a deliberate sync: the read waits for the steps that
+        wrote it); a promote writes a saved copy into its fresh block.
+        Runs before the CoW drain, whose destinations may be reused demoted
+        blocks."""
+        channels = sorted(self.pools)
+        for kind, entry, blk in self.alloc.drain_tier_ops():
+            if kind == "demote":
+                entry.data = tuple(read_pool_block(self.pools[c], blk)
+                                   for c in channels)
+            else:
+                assert entry.data is not None, "promote before demote copy"
+                for c, val in zip(channels, entry.data):
+                    write_pool_block(self.pools[c], blk, val)
+
     def sync_pools(self) -> None:
-        """Flush allocator-queued device-pool traffic (CoW copies)."""
+        """Flush allocator-queued device-pool traffic: tier ops, then CoW.
+        Public because the disaggregation frontend flushes the decode pool
+        before it writes handed-off KV into freshly reserved slots."""
+        self._drain_tier()
         self._drain_cow()
 
     def _forward(self, plan: StepPlan, lists_np, tokens: torch.Tensor):
@@ -463,10 +498,15 @@ class ServingEngine:
                                            req.prefill_pos, start=start)
                 out_idx = None
                 if req.prefill_remaining == 0:  # final chunk samples a token
-                    req.to_state(RequestState.DECODING)
-                    req.output.append(0)
-                    chain[rid] = req.slot
-                    out_idx = len(req.output) - 1
+                    if self.prefill_only:
+                        # parked for the handoff: no token sampled; the
+                        # decode engine recomputes the last position
+                        self.prefilled.append(req)
+                    else:
+                        req.to_state(RequestState.DECODING)
+                        req.output.append(0)
+                        chain[rid] = req.slot
+                        out_idx = len(req.output) - 1
                 actions.append(("prefill", req, n, pos0, out_idx))
         self._chain = chain
         if self.proposer is not None:
@@ -575,6 +615,9 @@ class ServingEngine:
                 self.alloc.register_prefix(req.req_id, req.active_prompt,
                                            req.prefill_pos, start=start)
                 if req.prefill_remaining == 0:
+                    if self.prefill_only:
+                        self.prefilled.append(req)
+                        continue
                     req.to_state(RequestState.DECODING)
                     if req.first_token_at is None:
                         req.first_token_at = now
@@ -638,6 +681,18 @@ class ServingEngine:
         """Work queued, running, or still in flight."""
         return self.scheduler.has_work() or self._pending is not None
 
+    def take_prefilled(self) -> List[Request]:
+        """Prefill role: pop the requests whose prompt KV is committed.
+
+        Each leaves the scheduler with its blocks kept under its req_id;
+        the caller hands them off, then ``alloc.free(req_id)`` releases
+        this engine's copy (published blocks park cached-free, so repeated
+        prompts still hit this engine's prefix cache)."""
+        out, self.prefilled = self.prefilled, []
+        for req in out:
+            self.scheduler.detach(req)
+        return out
+
     def run_until_done(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):
             if not self.busy:
@@ -662,7 +717,6 @@ class ServingEngine:
             "prefix_misses": misses,
             "prefix_hit_rate": hits / (hits + misses) if hits + misses else 0.0,
             "cow_copies": self.alloc.cow_copies,
-            "role": self.role,
         })
         c = self._spec_counters
         m["spec"] = {
@@ -685,4 +739,18 @@ class ServingEngine:
         m["policy_counters"] = {
             f"{p.axis}.{k}": v
             for p in self._policy_objs for k, v in sorted(p.counters.items())}
+        # the role and the host tier: pool sizes and the demote / promote /
+        # hit / drop traffic, also flattened beside the policy counters
+        m["role"] = self.role
+        hp = self.host_pool
+        tier_counters = (dict(hp.counters) if hp is not None else
+                         {"demotes": 0, "promotes": 0, "hits": 0, "drops": 0})
+        m["tier"] = {
+            "hbm_blocks": self.alloc.num_blocks,
+            "host_blocks": hp.capacity if hp is not None else 0,
+            "host_blocks_used": len(hp) if hp is not None else 0,
+            **tier_counters,
+        }
+        m["policy_counters"].update(
+            {f"tier.{k}": v for k, v in sorted(tier_counters.items())})
         return m

@@ -31,6 +31,11 @@ class LatencyTracker:
     def mean(self) -> float:
         return sum(self.samples) / len(self.samples) if self.samples else 0.0
 
+    def summary(self) -> Dict[str, float]:
+        return {"mean": self.mean, "p50": self.percentile(50),
+                "p90": self.percentile(90), "p99": self.percentile(99),
+                "n": float(len(self.samples))}
+
 
 @dataclass
 class EngineMetrics:

@@ -146,6 +146,15 @@ class Scheduler:
         del self.running[req.req_id]
         self.free_slots.append(req.slot)
 
+    def detach(self, req: Request) -> None:
+        """Remove a running request KEEPING its blocks (the prefill-to-decode
+        handoff): its slot returns to the free list, its allocator table
+        stays live, and the caller frees the request id once the blocks
+        are transferred."""
+        del self.running[req.req_id]
+        self.free_slots.append(req.slot)
+        req.slot = -1
+
     def _preempt(self, req: Request) -> None:
         self.preemption.on_preempt(req, self.alloc)
         self.release(req)

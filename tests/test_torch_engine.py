@@ -162,9 +162,7 @@ def test_filter_logits_matches_jax_and_samples_stay_in_support():
         assert np.all(np.isfinite(want[np.arange(5), tok]))
 
 
-@pytest.mark.parametrize("kw", [dict(roles="prefill,decode"),
-                                dict(mesh=object()), dict(devices=2),
-                                dict(host_blocks=4), dict(role="prefill")])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(devices=2)])
 def test_engine_refuses_what_the_port_leaves_out(models, kw):
     _, (cfg_t, model_t, params_t) = models
     ctor = {k: kw.pop(k) for k in ("mesh", "role") if k in kw}
@@ -233,5 +231,5 @@ def test_policy_sweep_matches_jax(models, admission, eviction):
             assert mt[key] == mj[key], (preemption, key)
         assert mt["policy_counters"] == {
             k: v for k, v in mj["policy_counters"].items()
-            if k.split(".")[0] in tpolicy.AXES}, preemption
+            if k.split(".")[0] in (*tpolicy.AXES, "tier")}, preemption
         et.alloc.check_invariants(drained=True)

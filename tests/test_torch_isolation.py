@@ -62,6 +62,11 @@ import repro_torch.perf.table, repro_torch.perf.trace
 import repro_torch.serving.spec, repro_torch.serving.spec.draft_model
 import repro_torch.serving.spec.ngram, repro_torch.serving.spec.proposer
 import repro_torch.serving.spec.verify, repro_torch.bench.trace_replay
+import repro_torch.serving.disagg, repro_torch.serving.disagg.frontend
+import repro_torch.bench.disagg, repro_torch.examples.serve_llm
+import repro_torch.configs.llama31_8b, repro_torch.configs.llama31_70b
+import repro_torch.configs.qwen2_1_5b, repro_torch.configs.qwen3_32b
+import repro_torch.configs.internlm2_20b
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """
@@ -154,3 +159,27 @@ def test_chip_smoke_fails_without_a_card_or_alone(tmp_path, alone):
     r = _run_smoke(cwd)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_disagg_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.bench import disagg
+    from repro_torch.config import ServeConfig, get_config
+    from repro_torch.examples import serve_llm
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.disagg import DisaggEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        disagg.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_llm.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "llama31-8b", "--reduced", "--roles",
+                    "prefill,decode", "--host-blocks", "4"])
+    cfg = get_config("llama31-8b").reduced(dtype="float32")
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DisaggEngine(model, model.init(0), cfg,
+                     ServeConfig(model=cfg.name, roles="prefill,decode"),
+                     num_blocks=8)

@@ -1,0 +1,72 @@
+"""The port's serving entry points on the CPU: ``bench.disagg`` at the
+reference's smoke sizes against ``benchmarks/disagg.py`` (the same
+deterministic counters), the launcher's ``--policy``, ``--roles`` and
+``--host-blocks``, and the ``serve_llm`` example with its asserts."""
+import numpy as np
+import pytest
+
+from repro_torch.bench import disagg as tdisagg
+from repro_torch.bench.trace_replay import build
+from repro_torch.examples import serve_llm
+from repro_torch.launch import serve
+
+# the rows' fields that are host decisions, not times
+COUNTERS = ("finished", "handoffs", "prefill_steps", "decode_steps",
+            "prefix_hit_rate", "prefix_hits", "evictions", "demotes",
+            "promotes", "tier_hits", "drops", "eviction", "roles", "tier")
+
+
+def _fields(derived):
+    kv = dict(f.split("=", 1) for f in derived.split(";"))
+    return {k: v for k, v in kv.items() if k in COUNTERS}
+
+
+def test_bench_disagg_smoke_counters_equal_the_reference(monkeypatch):
+    import jax  # noqa: F401  (the reference's benchmark runs on it)
+    from benchmarks import common as jcommon
+    from benchmarks import disagg as jdisagg
+
+    monkeypatch.setenv("REPRO_BENCH_SMOKE", "1")
+    start = len(jcommon.RECORDS)
+    jdisagg.run()
+    want = jcommon.RECORDS[start:]
+    del jcommon.RECORDS[start:]
+    cfg, model, params = build("smollm-360m", True, "cpu")
+    got = tdisagg.run(model, params, cfg, device="cpu", sizes=tdisagg.SMOKE)
+    assert [r["name"] for r in got] == [r["name"] for r in want]
+    for g, w in zip(got, want):
+        assert _fields(g["derived"]) == _fields(w["derived"]), g["name"]
+    hits = [float(_fields(r["derived"])["prefix_hit_rate"]) for r in got[2:]]
+    assert hits[1] > hits[0]                # tiered beats HBM-only
+
+
+@pytest.mark.parametrize("argv,expect", [
+    (["--policy", "priority/fewest-remaining-tokens/hit-rate"],
+     ["policies priority/fewest-remaining-tokens/hit-rate"]),
+    (["--policy", "fcfs/latest-arrival/tiered", "--host-blocks", "8"],
+     ["role full  tier hbm=", "host=8"]),
+    (["--roles", "prefill,decode", "--host-blocks", "4", "--eviction",
+      "tiered"],
+     ["role prefill,decode", "handoffs 4 ", "served 4 requests"]),
+])
+def test_launcher_policy_roles_and_host_blocks(capsys, argv, expect):
+    serve.main(["--arch", "smollm-360m", "--requests", "4", "--prompt-len",
+                "12", "--max-new", "6", "--block-size", "8", "--reduced",
+                "--device", "cpu"] + argv)
+    out = capsys.readouterr().out
+    for e in expect:
+        assert e in out, (e, out)
+
+
+def test_launcher_policy_takes_one_name_or_three():
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+                    "--policy", "fcfs/lru"])
+
+
+def test_serve_llm_example_runs_with_its_asserts(capsys):
+    serve_llm.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "pool leak check: 128 == 128" in out
+    assert "policies priority/fewest-remaining-tokens/hit-rate" in out
+    assert np.isfinite(float(out.split("(")[1].split(" tok/s")[0]))
