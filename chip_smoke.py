@@ -221,11 +221,48 @@ Phases, each of which raises on failure (the script catches none):
    Split's bf16 streams must equal mono's or leave them only at a token
    where mono's top two logits lie within two bf16 ulps (recorded by a
    sampling hook that calls the original); the same burst in float32 at
-   depth 4 must give identical streams.
+   depth 4 must give identical streams;
+31. the paged kernels' tunables (``core/attention_api.py``) against the
+   plain version: B1 at decode splits of 64 / 128 / 256 / 512 keys
+   crossed with 128 and 64 query rows a tensor-core tile (128 // G and
+   64 // G lanes), B2 and B3 at each split, on phase 3's cases, phase 13's
+   decode cases and the captured layer-0 steps of phases 6 and 28a (f32
+   atol 2e-5; bf16 atol 2e-2 and phase 3's limit); at each split the tile
+   heights and B2 give B1's bits, and B3 gives B1's and B2's on decode
+   lanes (the captured decode-only steps too); ``vmem_limit_bytes`` at
+   each kernel's request gives the uncapped bits, one byte below it a
+   ValueError naming both sizes; no instance of the three kernels spills;
+32. the autotune sweep (``bench.paged_attention_bench.autotune_sweep``) on
+   the steps phases 6 and 28a captured, (16, 64, cuda) and (16, 128,
+   cuda), each point's time (31 decode steps + 4 mixed steps) beside the
+   default's; the committed ``src/repro_torch/perf/data/tune_h100.json``
+   holds both cells with the defaults in each grid; an engine with every
+   key at 0 resolves it (``tune.tuned_resolved`` 1); llama31-8b (kept
+   from phase 28; its cell's winner is not the default) serves phase 5's
+   workload with the resolved and with the default tunables in turns
+   (TPOT, B1's decode / mixed ms of each), whose greedy streams are
+   identical or part only at a top-2 gap of at most two bf16 ulps where
+   the splits differ;
+33. sanitized serving: the reference's sanitized smoke (reduced
+   smollm-360m f32, overlap, ``tiered`` with 12 host / 7 HBM blocks) with
+   zero retraces and trips and allowlisted host syncs; phase 5's workload
+   at full width with overlap on, sanitized (streams equal phase 5's);
+   controls: ``.item()`` inside ``no_host_sync`` and a host read of a
+   reason off the allowlist must raise, and the sync debug mode must be
+   restored;
+34. MoE: reduced granite-moe-1b-a400m and qwen3-moe-235b-a22b in float32,
+   card against CPU (one fused step's logits atol 1e-3, greedy streams
+   identical); then granite-moe-1b-a400m at full width (24 layers, 32
+   experts top-8 at full capacity, H 16 / KV 8 / hd 64, G 2, bf16, seeded
+   weights): phase 5's requests through B1 (launches steps x 24, the pool
+   drains) and B2 (streams equal B1's), the init peak, TTFT / TPOT, the
+   profile of three decode-only steps, B1 / B2 on their layer-0 steps
+   beside the plain version and the bounds, the MoE layer's device ms a
+   step; then the paper path through B3.
 
-Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29 and
-30) runs with every kernel's launch count set to 0 just before it and
-read just after.  The card's peaks come
+Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29, 30
+and 34b-d) runs with every kernel's launch count set to 0 just before it
+and read just after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
 
 The ragged and chunked kernels run bf16 prefill owners (two or more lanes)
@@ -233,7 +270,7 @@ on the tensor-core tile and everything else on the SIMT tile; their JSON
 records say so in ``tile`` and carry the mixed and decode steps' times,
 steps and launches (at llama31-8b's width too, under ``llama31_8b``).
 Phases 28-30's readings are one JSON line with the card's name and power
-limit.  The line before the last is the kernels' JSON record; the last
+limit, and phases 31-34's another.  The line before the last is the kernels' JSON record; the last
 line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
 nonzero before printing either.
@@ -283,14 +320,17 @@ CHUNKED_CASE = dict(kv_lens=[300, 37, 0, 250, 17, 700],
 DECODE_CASE = dict(seq_lens=[300, 1, 0, 250, 16, 17, 700, 33],
                    num_entries=160)
 DTYPES = (("float32", 2e-5), ("bfloat16", 2e-2))
+TUNE_SPLITS = (64, 128, 256, 512)   # decode splits, in keys, of phase 31
 # the kernels JSON line's "tile" of the ragged and chunked kernels, and of
 # the decode kernel
 PAGED_TILE = ("bf16 owners of >= 2 lanes: attend_tile_mma (wgmma at hd "
               "64/128, mma.sync at 16/32); owners of 1 lane (decode "
-              "lanes), f32 or bf16: the decode tile (splits of 256 keys, "
-              "combined in the launch); f32 owners of >= 2 lanes and "
-              "padding: attend_tile (SIMT)")
-DECODE_TILE = ("the decode tile: one block per (split of 256 keys, kv head),"
+              "lanes), f32 or bf16: the decode tile (splits of "
+              "num_kv_pages_per_block pages, 256 keys by default, combined "
+              "in the launch); f32 owners of >= 2 lanes and padding: "
+              "attend_tile (SIMT)")
+DECODE_TILE = ("the decode tile: one block per (split of "
+               "num_kv_pages_per_block pages, 256 keys by default, kv head),"
                " the splits combined in the launch")
 EMB_BATCH = 4096
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
@@ -334,6 +374,29 @@ FLASH_CHECK_SHAPES = FLASH_SHAPES + (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def split_pages(cfg, block_size):
+    """The decode split, in pages, that a ragged engine of ``cfg`` resolves
+    on the card (the measured table's, else the default): a chunked engine
+    whose streams are held to a ragged one's runs the same split, since the
+    split sets the bits of a decode lane's softmax."""
+    from repro_torch.core import attention_api as api
+    from repro_torch.perf import autotune
+
+    a = cfg.attention
+    tuned = autotune.resolve_tunables(block_size, a.head_dim, "cuda") or {}
+    return api.check_tunables(block_size, a.num_heads // a.num_kv_heads,
+                              **tuned)["num_kv_pages_per_block"]
+
+
+def serve_config(cfg_mod, cfg, attn_impl="ragged", **kw):
+    """A ServeConfig for ``cfg``; a chunked one pins the ragged engine's
+    split (:func:`split_pages`)."""
+    if attn_impl == "chunked":
+        kw.setdefault("num_kv_pages_per_block",
+                      split_pages(cfg, kw.get("kv_block_size", 128)))
+    return cfg_mod.ServeConfig(model=cfg.name, attn_impl=attn_impl, **kw)
 
 
 def compare(torch, got, want, atol, what):
@@ -577,13 +640,13 @@ def decode_bound(torch, inputs):
 
 
 def reference_check(torch, np, cfg_mod, build_model, engine_mod,
-                    attn_impl="ragged"):
-    """Reduced float32 smollm-360m on the card and on the CPU: one fused
+                    attn_impl="ragged", arch="smollm-360m"):
+    """Reduced float32 ``arch`` on the card and on the CPU: one fused
     step's logits on the same rendered lists, and whole greedy streams
     (returned)."""
-    cfg = cfg_mod.get_config("smollm-360m").reduced(dtype="float32")
-    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=4, max_batch=4,
-                                prefill_chunk=16, attn_impl=attn_impl)
+    cfg = cfg_mod.get_config(arch).reduced(dtype="float32")
+    serve = serve_config(cfg_mod, cfg, attn_impl, kv_block_size=4,
+                         max_batch=4, prefill_chunk=16)
     params_cpu = build_model(cfg, device="cpu").init(0)
 
     def engine(dev):
@@ -607,13 +670,14 @@ def reference_check(torch, np, cfg_mod, build_model, engine_mod,
         logits[dev], _ = eng.model.decode_tokens_paged(
             eng.params, eng.pools,
             {k: torch.from_numpy(v).to(dev) for k, v in lists.items()},
-            torch.from_numpy(tokens).to(dev), attn_impl=attn_impl)
+            torch.from_numpy(tokens).to(dev), attn_impl=attn_impl,
+            attn_tunables=eng.attn_tunables)
         eng = engine(dev)
         eng.run_until_done()
         streams[dev] = {r.req_id: list(r.output) for r in eng.finished}
     err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
-    log(f"  reduced f32 fused step ({attn_impl}), card vs CPU: logits "
-        f"max_abs_err {err:.3e} (atol 1e-3)")
+    log(f"  reduced f32 {arch} fused step ({attn_impl}), card vs CPU: "
+        f"logits max_abs_err {err:.3e} (atol 1e-3)")
     if not err <= 1e-3:
         raise AssertionError(f"card logits disagree with the CPU: {err}")
     if streams["cuda"] != streams["cpu"]:
@@ -807,43 +871,47 @@ def decode_check(torch, np, api, dev):
     return max(errs)
 
 
-def split_counts(np, block_req, block_pos, owners, kvls, block_size):
+def split_counts(np, block_req, block_pos, owners, kvls, block_size, kw):
     """'kvl:splits' of each decode-tile owner (one lane): the keys of its
-    pages below its kvl (its compacted list) in splits of SPLIT_KEYS."""
-    from repro_torch.core.attention_api import SPLIT_KEYS
+    pages below its kvl (its compacted list) in splits of the call's
+    ``num_kv_pages_per_block`` pages (``kw``; default SPLIT_KEYS keys)."""
+    from repro_torch.core.attention_api import split_keys_for
 
+    split = split_keys_for(block_size, kw.get("num_kv_pages_per_block", 0))
     req = block_req.cpu().numpy()
     pos = block_pos.cpu().numpy().astype(np.int64)
     out = []
     for o, k in zip(owners, kvls):
         keys = int(((req == o) & (pos * block_size < k)).sum()) * block_size
-        out.append(f"{int(k)}:{max(1, -(-keys // SPLIT_KEYS))}")
-    return " ".join(out)
+        out.append(f"{int(k)}:{max(1, -(-keys // split))}")
+    return f"(splits of {split} keys) " + " ".join(out)
 
 
-def ragged_splits(np, inputs):
+def ragged_splits(np, inputs, kw):
     """split_counts of a ragged call's sequences of one lane."""
     _, pool, _, br, bp, cu_q, cu_kv, ss = inputs
     cu_q, cu_kv = cu_q.cpu().numpy(), cu_kv.cpu().numpy()
     one = [j for j in range(len(cu_q) - 1) if cu_q[j + 1] - cu_q[j] == 1]
     return split_counts(np, br, bp, ss.cpu().numpy()[one],
-                        [cu_kv[j + 1] - cu_kv[j] for j in one], pool.shape[1])
+                        [cu_kv[j + 1] - cu_kv[j] for j in one], pool.shape[1],
+                        kw)
 
 
-def decode_splits(np, inputs):
+def decode_splits(np, inputs, kw):
     """split_counts of a decode call's requests."""
     _, pk, _, _, br, bp, seq_lens = inputs
     lens = seq_lens.cpu().numpy()
-    return split_counts(np, br, bp, range(len(lens)), lens, pk.shape[1])
+    return split_counts(np, br, bp, range(len(lens)), lens, pk.shape[1], kw)
 
 
-def chunked_splits(np, inputs):
+def chunked_splits(np, inputs, kw):
     """split_counts of a chunked call's owners of one lane."""
     _, pk, _, _, br, bp, kv_lens, treq, _ = inputs
     kvl = kv_lens.cpu().numpy()
     owners, lanes = np.unique(treq.cpu().numpy(), return_counts=True)
     one = [o for o, n in zip(owners, lanes) if n == 1 and 0 <= o < len(kvl)]
-    return split_counts(np, br, bp, one, [kvl[o] for o in one], pk.shape[1])
+    return split_counts(np, br, bp, one, [kvl[o] for o in one], pk.shape[1],
+                        kw)
 
 
 def serve_chunked(torch, np, cfg_mod, engine_mod, api, counted, model,
@@ -851,9 +919,8 @@ def serve_chunked(torch, np, cfg_mod, engine_mod, api, counted, model,
     """Phase 15: phase 5's requests through attn_impl="chunked"; returns
     the chunked kernel's launches and the captured layer-0 inputs."""
     def engine(attn_impl, num_blocks):
-        serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
-                                    max_batch=SERVE_BATCH,
-                                    attn_impl=attn_impl)
+        serve = serve_config(cfg_mod, cfg, attn_impl,
+                             kv_block_size=SERVE_BS, max_batch=SERVE_BATCH)
         return engine_mod.ServingEngine(model, params, cfg, serve,
                                         num_blocks=num_blocks, device=dev)
 
@@ -991,7 +1058,7 @@ def fig17(torch, dev, card):
     from repro_torch.bench import paged_attention_bench as bench
 
     t0 = time.perf_counter()
-    rows = bench.run(dev)
+    rows = bench.run(dev, tune=False)   # phase 32 runs the sweep
     log(f"  Fig 17 benchmark {time.perf_counter() - t0:.1f}s  [{card}]")
     if any(r.get("kernel_ms", 0) is None for r in rows):
         raise AssertionError("a decode kernel time is missing")
@@ -1031,7 +1098,7 @@ def kernel_times(torch, op, inputs, kw, out_run, bound, what, card,
     err = compare(torch, again, op.plain(*inputs, **kw), 2e-2, f"bf16 {what}")
     limit = None
     if share is not None:
-        limit = share(again, *inputs, **kw)
+        limit = share(again, *inputs)
         log(f"    on f32 q, k: largest |err| / (2^-7 (M + |want|) + 1e-4) "
             f"{limit:.4f}")
         if not limit <= 1:
@@ -1053,6 +1120,26 @@ def kernel_times(torch, op, inputs, kw, out_run, bound, what, card,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                 bytes_ms=bound["bytes_ms"], ops_ms=bound["ops_ms"],
                 tflops=tflops, bf16_share=limit, profiled_ms=by_kernel)
+
+
+def busy_ms(torch, fn, n=5):
+    """Device ms per call of ``fn``: its kernels' device time summed under
+    torch.profiler over ``n`` calls, after one untimed call (the card's
+    work without the gaps the host's launches leave)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        total += us if us is not None else getattr(e, "self_cuda_time_total",
+                                                   0)
+    return total / n / 1e3
 
 
 def launch_device_ms(torch, op, inputs, kw, n=20):
@@ -1266,7 +1353,7 @@ def main() -> int:
         log(f"  {kind} step (nq, kvl) per sequence: "
             f"{lanes_by_sequence(cu_q, cu_kv)}")
         log(f"  {kind} step decode-tile sequences (one lane), kvl:splits "
-            f"{ragged_splits(np, inputs)}")
+            f"{ragged_splits(np, inputs, kw)}")
         steps[kind] = kernel_times(
             torch, api.paged_attention_ragged_op, inputs, kw, out_run,
             ragged_bound(torch, inputs),
@@ -1287,6 +1374,7 @@ def main() -> int:
     mixed_profile = profile_mixed(torch, model, params, cfg, serve,
                                   engine_mod, prompts, dev)
 
+    smollm_steps = {k: capture.got[k][:2] for k in ("decode", "mixed")}
     del engine, capture
     torch.cuda.empty_cache()
 
@@ -1357,7 +1445,7 @@ def main() -> int:
     for kind in ("decode", "mixed"):
         inputs, kw, out_run = c_capture[kind]
         log(f"  chunked {kind} step decode-tile owners (one lane), "
-            f"kvl:splits {chunked_splits(np, inputs)}")
+            f"kvl:splits {chunked_splits(np, inputs, kw)}")
         chunked_steps[kind] = kernel_times(
             torch, api.paged_attention_chunked_op, inputs, kw, out_run,
             chunked_bound(torch, inputs),
@@ -1374,7 +1462,7 @@ def main() -> int:
     inputs, kw, out_run = d_capture["decode"]
     phase16_ms = d_capture["ms_per_step"]
     log(f"  decode_step_paged last step, kvl:splits per request "
-        f"{decode_splits(np, inputs)}")
+        f"{decode_splits(np, inputs, kw)}")
     decode_top = kernel_times(
         torch, api.paged_attention_op, inputs, kw, out_run,
         decode_bound(torch, inputs),
@@ -1482,7 +1570,7 @@ def main() -> int:
         f"device memory held before it "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t28 = time.perf_counter()
-    llama, model8, params8 = llama_phase28(
+    llama, model8, params8, llama_steps = llama_phase28(
         torch, np, cfg_mod, engine_mod, api, counted, build_model, prompts,
         phase5, phase16_ms, dev, card)
     cfg8 = model8.cfg
@@ -1499,10 +1587,38 @@ def main() -> int:
                                     build_model, model8, params8, cfg8, dev,
                                     card)
     log(f"  phase 30: {time.perf_counter() - t30:.1f} s")
-    del model8, params8
+    log(json.dumps({"llama31_8b": llama, "card": card}))
+
+    # 31-34. the tunables, the sweep, the sanitizers, MoE serving ----------
+    captures = {"smollm-360m": smollm_steps, "llama31-8b": llama_steps}
+    log("== 31. the paged kernels' tunables against the plain version")
+    t31 = time.perf_counter()
+    tunables = tunables_phase(torch, np, api, pa_kernel, build, builds,
+                              captures, ragged_case, dev, card)
+    log(f"  phase 31: {time.perf_counter() - t31:.1f} s")
+    log("== 32. the autotune sweep, the committed table, resolved against "
+        "default")
+    t32 = time.perf_counter()
+    tune = tune_phase(torch, np, cfg_mod, engine_mod, api, captures,
+                      prompts, model8, params8, cfg8, dev, card)
+    log(f"  phase 32: {time.perf_counter() - t32:.1f} s")
+    del captures, smollm_steps, llama_steps, model8, params8
     gc.collect()
     torch.cuda.empty_cache()
-    log(json.dumps({"llama31_8b": llama, "card": card}))
+    log("== 33. sanitized serving")
+    t33 = time.perf_counter()
+    sanitized = sanitize_phase(torch, np, cfg_mod, engine_mod, build_model,
+                               prompts, served, dev, card)
+    log(f"  phase 33: {time.perf_counter() - t33:.1f} s")
+    log("== 34. MoE: reduced granite-moe and qwen3-moe card vs CPU, then "
+        "granite-moe-1b-a400m at full width")
+    t34 = time.perf_counter()
+    granite = moe_phase(torch, np, cfg_mod, engine_mod, api, counted,
+                        build_model, prompts, dev, card)
+    log(f"  phase 34: {time.perf_counter() - t34:.1f} s")
+    log(json.dumps({"tunables": tunables, "tune": tune,
+                    "sanitize": sanitized, "granite_moe": granite,
+                    "card": card}, default=str))
 
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
@@ -1520,6 +1636,10 @@ def main() -> int:
         "verify": verify["ragged"], "replay": replay, "overlap": overlap,
         "llama31_8b": dict(llama["ragged"]["kernel"],
                            launches=llama["ragged"]["launches"]),
+        "granite_moe": dict(granite["ragged"]["kernel"],
+                            launches=granite["ragged"]["launches"]),
+        "tunables": {k: tunables[k] for k in ("max_abs_err", "bf16_share")},
+        "tune_table": tune["table"],
         "instances": ragged_inst}, {
         "name": CHUNKED_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{CHUNKED_KERNEL}.cu",
@@ -1530,6 +1650,8 @@ def main() -> int:
         "verify": verify["chunked"],
         "llama31_8b": dict(llama["chunked"]["kernel"],
                            launches=llama["chunked"]["launches"]),
+        "granite_moe": dict(granite["chunked"]["kernel"],
+                            launches=granite["chunked"]["launches"]),
         "instances": chunked_inst}, {
         "name": DECODE_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{DECODE_KERNEL}.cu",
@@ -1537,7 +1659,8 @@ def main() -> int:
         "launches": d_launches, **dict(decode_top, max_abs_err=max(
             decode_top["max_abs_err"], decode_err)),
         "library_ms": None, "tile": DECODE_TILE,
-        "llama31_8b": llama["decode"], "instances": decode_inst}, {
+        "llama31_8b": llama["decode"], "granite_moe": granite["decode"],
+        "instances": decode_inst}, {
         "name": EMB_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
         "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
@@ -1570,16 +1693,16 @@ def main() -> int:
     return 0
 
 
-def llama_serve(torch, np, cfg_mod, engine_mod, api, counted, model, params,
-                cfg, prompts, attn_impl, dev, card):
-    """One run of phase 5's requests at llama31-8b's width through
-    ``attn_impl``: a short warm-up engine first, then the run with layer
+def serve_at_width(torch, np, cfg_mod, engine_mod, api, counted, model,
+                   params, cfg, prompts, attn_impl, dev, card):
+    """One run of phase 5's requests at the width of ``cfg`` (llama31-8b,
+    granite-moe-1b-a400m) through ``attn_impl``: a short warm-up engine first, then the run with layer
     0's inputs of a mixed and a decode-only step captured; the kernel's
     launches must equal steps x layers (the other paged kernel's 0), the
     allocator's invariants must hold and the pool must drain.  Returns
     (greedy streams, metrics, launches, capture)."""
-    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
-                                max_batch=SERVE_BATCH, attn_impl=attn_impl)
+    serve = serve_config(cfg_mod, cfg, attn_impl, kv_block_size=SERVE_BS,
+                         max_batch=SERVE_BATCH)
     warm = engine_mod.ServingEngine(model, params, cfg, serve,
                                     num_blocks=256, device=dev)
     for i, p in prompts[:2]:
@@ -1632,7 +1755,8 @@ def llama_serve(torch, np, cfg_mod, engine_mod, api, counted, model, params,
                          tok_s=m["output_tokens"] / wall), launches, capture
 
 
-def llama_kernel_steps(torch, np, api, capture, attn_impl, card):
+def llama_kernel_steps(torch, np, api, capture, attn_impl, card,
+                       label="llama31-8b"):
     """The paged kernel of ``attn_impl`` on the captured layer-0 inputs of
     a decode-only and a mixed step: against its plain version at phase
     3's bf16 limit, its time beside both bounds (phase 6's readings)."""
@@ -1649,10 +1773,10 @@ def llama_kernel_steps(torch, np, api, capture, attn_impl, card):
             log(f"  {kind} step (nq, kvl) per sequence: "
                 f"{lanes_by_sequence(inputs[5], inputs[6])}")
         log(f"  {kind} step decode-tile owners, kvl:splits "
-            f"{splits(np, inputs)}")
+            f"{splits(np, inputs, kw)}")
         out[kind] = kernel_times(
             torch, op, inputs, kw, out_run, bound(torch, inputs),
-            f"llama31-8b {attn_impl} {kind} step T={inputs[0].shape[0]} "
+            f"{label} {attn_impl} {kind} step T={inputs[0].shape[0]} "
             f"H={inputs[0].shape[1]} hd={inputs[0].shape[2]}", card,
             share=share)
         out[kind].update(steps=capture.steps.get(kind, 0),
@@ -1664,7 +1788,9 @@ def llama_phase28(torch, np, cfg_mod, engine_mod, api, counted, build_model,
                   prompts, phase5, phase16_ms, dev, card):
     """Phases 28a-c: llama31-8b at full width (32 layers, bf16, seeded
     weights) through the ragged kernel, the chunked kernel and the paper
-    path.  Returns (the phase's readings, model, params)."""
+    path.  Returns (the phase's readings, model, params, the ragged
+    kernel's layer-0 inputs and keywords of 28a's decode-only and mixed
+    steps)."""
     cfg = cfg_mod.get_config("llama31-8b")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1681,12 +1807,13 @@ def llama_phase28(torch, np, cfg_mod, engine_mod, api, counted, build_model,
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     out = dict(params=n_params)
     log("== 28a. llama31-8b: phase 5's requests, ragged (B1)")
-    streams, out["ragged"], launches, cap = llama_serve(
+    streams, out["ragged"], launches, cap = serve_at_width(
         torch, np, cfg_mod, engine_mod, api, counted, model, params, cfg,
         prompts, "ragged", dev, card)
     out["ragged"]["launches"] = launches
     out["ragged"]["kernel"] = llama_kernel_steps(torch, np, api, cap,
                                                  "ragged", card)
+    steps = {k: cap.got[k][:2] for k in ("decode", "mixed")}
     del cap
     log("  three decode-only steps under torch.profiler (phase 7's "
         "workload at this width):")
@@ -1703,7 +1830,7 @@ def llama_phase28(torch, np, cfg_mod, engine_mod, api, counted, build_model,
     out["decode_profile"] = {k: prof[k] for k in
                              ("wall_ms", "busy_ms", "busy_share", "launches")}
     log("== 28b. llama31-8b: the same requests, attn_impl='chunked' (B2)")
-    c_streams, out["chunked"], c_launches, c_cap = llama_serve(
+    c_streams, out["chunked"], c_launches, c_cap = serve_at_width(
         torch, np, cfg_mod, engine_mod, api, counted, model, params, cfg,
         prompts, "chunked", dev, card)
     if c_streams != streams:
@@ -1723,7 +1850,8 @@ def llama_phase28(torch, np, cfg_mod, engine_mod, api, counted, build_model,
     log(f"  {d_cap['ms_per_step']:.2f} ms/step (smollm-360m, phase 16: "
         f"{phase16_ms:.2f})  [{card}]")
     inputs, kw, out_run = d_cap["decode"]
-    log(f"  last step, kvl:splits per request {decode_splits(np, inputs)}")
+    log(f"  last step, kvl:splits per request "
+        f"{decode_splits(np, inputs, kw)}")
     out["decode"] = kernel_times(
         torch, api.paged_attention_op, inputs, kw, out_run,
         decode_bound(torch, inputs),
@@ -1731,7 +1859,7 @@ def llama_phase28(torch, np, cfg_mod, engine_mod, api, counted, build_model,
         f"H={inputs[0].shape[1]} hd={inputs[0].shape[2]}", card)
     out["decode"].update(launches=d_launches,
                          ms_per_step=d_cap["ms_per_step"])
-    return out, model, params
+    return out, model, params, steps
 
 
 def tier_copy_ms(torch, pool, reps=5):
@@ -2227,9 +2355,9 @@ def serve_spec(torch, cfg_mod, engine_mod, api, counted, model, params, cfg,
     out = {}
     for attn_impl, attr in (("ragged", "paged_attention_ragged_op"),
                             ("chunked", "paged_attention_chunked_op")):
-        serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
-                                    max_batch=SERVE_BATCH, spec="ngram",
-                                    spec_k=3, attn_impl=attn_impl)
+        serve = serve_config(cfg_mod, cfg, attn_impl,
+                             kv_block_size=SERVE_BS, max_batch=SERVE_BATCH,
+                             spec="ngram", spec_k=3)
         eng = engine_mod.ServingEngine(model, params, cfg, serve,
                                        num_blocks=SERVE_BLOCKS, device=dev)
         op = getattr(api, attr)                 # holds the launch count
@@ -3028,6 +3156,612 @@ def ptxas_instances(kernel, smem_bytes, ptxas_log, build, card, tile_of):
         out.append(dict(dtype=dtype, hd=hd, tile=tile,
                         registers=r["registers"], smem_static=r["smem"],
                         smem_dynamic=dynamic))
+    return out
+
+
+def bf16_refs(api, q, pool_k, pool_v, ints):
+    """``want`` and ``M`` of phase 3's bf16 limit (``chunked_bf16_share``)
+    on float32 q and k, computed once for many outputs."""
+    qf, kf = q.float(), pool_k.float()
+    return (api.paged_attention_chunked(qf, kf, pool_v, *ints).float(),
+            api.paged_attention_chunked(qf, kf, pool_v.abs(), *ints).float())
+
+
+def bf16_limit(got, want, m):
+    """Largest |got - want| / (2^-7 (M + |want|) + 1e-4): at most 1."""
+    from repro_torch.kernels.flash_attention.ref import BF16_FLOOR, BF16_REL
+
+    return ((got.float() - want).abs()
+            / (BF16_REL * (m + want.abs()) + BF16_FLOOR)).max().item()
+
+
+def tune_points(block_size):
+    """Phase 31's (pages per split, [rows per tile]) of the ragged kernel:
+    each split of TUNE_SPLITS that holds whole pages, at 128 and 64 query
+    rows a tensor-core tile (128 // G and 64 // G lanes)."""
+    return [(split // block_size, [64, 128]) for split in TUNE_SPLITS
+            if split % block_size == 0]
+
+
+def held_to_plain(torch, got, want, atol, refs, what):
+    """``got`` against the plain version's ``want`` (atol), and in bf16 the
+    per-element limit against ``refs`` (:func:`bf16_refs`).  Returns
+    (max_abs_err, limit share or None)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= atol:
+        raise AssertionError(f"{what}: kernel disagrees with the plain "
+                             f"version: {err} > {atol}")
+    if refs is None:
+        return err, None
+    share = bf16_limit(got, *refs)
+    if not share <= 1:
+        raise AssertionError(f"{what}: {share:.3f}x the bf16 limit")
+    return err, share
+
+
+def tunables_ragged(torch, api, args, kw, what):
+    """B1 at every split and rows per tile of :func:`tune_points`, and B2
+    at every split, on one set of ragged lanes: each held to the plain
+    version (f32 atol 2e-5; bf16 atol 2e-2 and phase 3's limit), the two
+    tile heights and B2 bitwise equal to one another at each split.
+    Returns (max_abs_err, worst bf16 share)."""
+    from repro_torch.core.paged_kv import fused_kv_views
+
+    q, pool, bl, br, bp, cu_q, cu_kv, ss = args
+    BS, G = pool.shape[1], q.shape[1] * 2 // pool.shape[2]
+    pk, pv = fused_kv_views(pool)
+    treq, tpos, kvl = api.ragged_lane_metadata(cu_q, cu_kv, ss, q.shape[0],
+                                               ss.shape[0])
+    ints = (bl, br, bp, kvl, treq, tpos)
+    bf16 = q.dtype == torch.bfloat16
+    atol = 2e-2 if bf16 else 2e-5
+    want = api.paged_attention_ragged(*args)
+    refs = bf16_refs(api, q, pk, pv, ints) if bf16 else None
+    errs, shares, seen = [0.0], [0.0], []
+    for pages, rows in tune_points(BS):
+        outs = [api.paged_attention_ragged_op(
+            *args, **dict(kw, num_queries_per_block=n,
+                          num_kv_pages_per_block=pages)) for n in rows]
+        outs.append(api.paged_attention_chunked_op(
+            q, pk, pv, *ints, num_kv_pages_per_block=pages))
+        torch.cuda.synchronize()
+        for got in outs:
+            err, share = held_to_plain(torch, got, want, atol, refs,
+                                       f"{what} split {pages * BS}")
+            errs.append(err)
+            shares.append(share or 0.0)
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"{what} split {pages * BS}: rows per "
+                                 "tile or the chunked kernel changed a bit")
+        seen.append(pages * BS)
+    log(f"  {what}: splits {seen} keys x rows per tile {[64, 128]} (lanes "
+        f"{[64 // G, 128 // G]} at G {G}), and B2: max_abs_err "
+        f"{max(errs):.3e}"
+        + (f", bf16 limit {max(shares):.4f}" if bf16 else "")
+        + "; at each split both tile heights and B2 bitwise equal")
+    return max(errs), max(shares)
+
+
+def tunables_decode(torch, np, api, c, dtype, what, dev):
+    """B3 at every split of TUNE_SPLITS that holds whole pages on a decode
+    case, held to ``paged_attention_opt``, and B2 and B1 on the same lanes
+    (``cases.decode_lanes``) bitwise equal to it at each split."""
+    from repro_torch.core.paged_kv import fused_kv_views
+    from repro_torch.kernels.paged_attention.cases import (
+        ARG_ORDER, CHUNKED_ARG_ORDER, DECODE_ARG_ORDER, decode_lanes)
+
+    lanes = decode_lanes(c)
+    args = [torch.from_numpy(c[k]).to(dev) for k in DECODE_ARG_ORDER]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    rargs = [torch.from_numpy(lanes[k]).to(dev) for k in ARG_ORDER]
+    rargs[:2] = [a.to(dtype) for a in rargs[:2]]
+    cargs = [rargs[0], *fused_kv_views(rargs[1]),
+             *[torch.from_numpy(lanes[k]).to(dev) for k in CHUNKED_ARG_ORDER]]
+    bf16 = dtype == torch.bfloat16
+    want = api.paged_attention_opt(*args)
+    refs = bf16_refs(api, cargs[0], cargs[1], cargs[2], cargs[3:]) \
+        if bf16 else None
+    BS = args[1].shape[1]
+    errs, seen = [0.0], []
+    for split in TUNE_SPLITS:
+        if split % BS:
+            continue
+        kw = dict(num_kv_pages_per_block=split // BS)
+        d = api.paged_attention_op(*args, **kw)
+        ch = api.paged_attention_chunked_op(*cargs, **kw)
+        r = api.paged_attention_ragged_op(*rargs, **kw)
+        torch.cuda.synchronize()
+        errs.append(held_to_plain(torch, d, want, 2e-2 if bf16 else 2e-5,
+                                  refs, f"{what} split {split}")[0])
+        if not (torch.equal(d, ch) and torch.equal(d, r)):
+            raise AssertionError(f"{what} split {split}: decode, chunked "
+                                 "and ragged not bitwise equal")
+        seen.append(split)
+    log(f"  {what}: B3 at splits {seen}: max_abs_err {max(errs):.3e}; "
+        "decode == chunked == ragged bitwise at each")
+    return max(errs)
+
+
+def decode_form(torch, np, api, args):
+    """A decode-only ragged step as the decode kernel's call: request s is
+    slot s, its q row the lane the slot owns (``seq_lens`` 0 for a slot
+    with none), the BlockList as it is.  Returns (args, the lane of each
+    slot or -1)."""
+    from repro_torch.core.paged_kv import fused_kv_views
+
+    q, pool, bl, br, bp, cu_q, cu_kv, ss = args
+    _, _, kvl = api.ragged_lane_metadata(cu_q, cu_kv, ss, q.shape[0],
+                                         ss.shape[0])
+    S = ss.shape[0]
+    cu, slots = cu_q.cpu().numpy(), ss.cpu().numpy()
+    lane_of = np.full((S,), -1, np.int64)
+    for j in range(S):
+        if cu[j + 1] - cu[j] == 1 and 0 <= slots[j] < S:
+            lane_of[slots[j]] = cu[j]
+    has = torch.from_numpy(lane_of >= 0).to(q.device)
+    qd = q[torch.from_numpy(lane_of.clip(0)).to(q.device)].contiguous()
+    lens = torch.where(has, kvl, 0).to(torch.int32)
+    return [qd, *fused_kv_views(pool), bl, br, bp, lens], lane_of
+
+
+def cap_check(torch, api, pa_kernel, source, op, args, kw, what):
+    """``vmem_limit_bytes`` at the launch's request and one byte below it:
+    the first must give the uncapped bits, the second a ValueError naming
+    both sizes."""
+    q = args[0]
+    G = q.shape[1] * 2 // args[1].shape[2] if op is \
+        api.paged_attention_ragged_op else q.shape[1] // args[1].shape[2]
+    need = pa_kernel.smem_bytes(source, q.shape[2],
+                                int(q.dtype == torch.bfloat16), G)
+    base = op(*args, **kw)
+    got = op(*args, **dict(kw, vmem_limit_bytes=need))
+    torch.cuda.synchronize()
+    if not torch.equal(got, base):
+        raise AssertionError(f"{what}: a cap of {need} B changed a bit")
+    try:
+        op(*args, **dict(kw, vmem_limit_bytes=need - 1))
+    except ValueError as e:
+        if str(need - 1) not in str(e) or str(need) not in str(e):
+            raise AssertionError(f"{what}: the refusal names neither size: "
+                                 f"{e}") from e
+    else:
+        raise AssertionError(f"{what}: a launch requesting {need} B ran "
+                             f"under a cap of {need - 1} B")
+    steps = [f"{need} B runs, same bits", f"{need - 1} B refused"]
+    log(f"  {what} vmem_limit_bytes: " + "; ".join(steps))
+    return steps
+
+
+def tunables_phase(torch, np, api, pa_kernel, build, builds, captures,
+                   ragged_case, dev, card):
+    """Phase 31: the kernels' tunables against the plain version."""
+    from repro_torch.kernels.paged_attention.cases import (
+        ARG_ORDER, LONG_DECODE, LONG_WIDTHS, decode_case)
+
+    errs = []
+    for name, shape in synthetic_cases():
+        c = ragged_case(np.random.default_rng(0), **shape)
+        for dname, _ in DTYPES:
+            dtype = getattr(torch, dname)
+            args = [torch.from_numpy(c[k]).to(dev) for k in ARG_ORDER]
+            args[:2] = [a.to(dtype) for a in args[:2]]
+            errs.append(tunables_ragged(torch, api, args, {},
+                                        f"{name} {dname}")[0])
+    cases = [("decode, sorted BlockList", dict(FULL_WIDTHS, **DECODE_CASE))]
+    cases += [(f"long-context decode, {n} widths",
+               dict(LONG_WIDTHS[n], **LONG_DECODE))
+              for n in sorted(LONG_WIDTHS)]
+    for name, shape in cases:
+        c = decode_case(np.random.default_rng(1), **shape)
+        for dname, _ in DTYPES:
+            errs.append(tunables_decode(torch, np, api, c,
+                                        getattr(torch, dname),
+                                        f"{name} {dname}", dev))
+    shares = [0.0]
+    for arch, steps in sorted(captures.items()):
+        for kind in ("decode", "mixed"):
+            args, kw = steps[kind]
+            e, sh = tunables_ragged(torch, api, args, kw,
+                                    f"{arch} captured {kind} step bf16")
+            errs.append(e)
+            shares.append(sh)
+        args, kw = steps["decode"]
+        dargs, lane_of = decode_form(torch, np, api, args)
+        has = lane_of >= 0
+        BS = args[1].shape[1]
+        for split in TUNE_SPLITS:
+            pages = dict(num_kv_pages_per_block=split // BS)
+            r = api.paged_attention_ragged_op(*args, **dict(kw, **pages))
+            d = api.paged_attention_op(*dargs, **pages)
+            torch.cuda.synchronize()
+            if not torch.equal(d[torch.from_numpy(has).to(dev)],
+                               r[torch.from_numpy(lane_of[has]).to(dev)]):
+                raise AssertionError(f"{arch} captured decode step, split "
+                                     f"{split}: B3 != B1 on its lanes")
+        log(f"  {arch} captured decode step: B3 == B1 bitwise on its "
+            f"{int(has.sum())} decode lanes at splits {list(TUNE_SPLITS)}")
+    caps = {}
+    c = decode_case(np.random.default_rng(1),
+                    **dict(LONG_WIDTHS["smollm-360m"], **LONG_DECODE))
+    lanes = decode_lanes_on(torch, c, dev)
+    for dname, _ in DTYPES:
+        dtype = getattr(torch, dname)
+        for source, op, key in (
+                (KERNEL, api.paged_attention_ragged_op, "ragged"),
+                (CHUNKED_KERNEL, api.paged_attention_chunked_op, "chunked"),
+                (DECODE_KERNEL, api.paged_attention_op, "decode")):
+            args = [a.to(dtype) if a.is_floating_point() else a
+                    for a in lanes[key]]
+            caps[f"{key} {dname}"] = cap_check(
+                torch, api, pa_kernel, source, op, args, {},
+                f"{key} {dname} (long-context decode lanes)")
+    spills = []
+    for source in (KERNEL, CHUNKED_KERNEL, DECODE_KERNEL):
+        rows = build.ptxas_report(builds[source]["log"])
+        spills += [r["entry"] for r in rows
+                   if r.get("spill_stores") or r.get("spill_loads")]
+        log(f"  {source}: {len(rows)} instances, registers "
+            f"{min(r['registers'] for r in rows)}-"
+            f"{max(r['registers'] for r in rows)}, no spill  [{card}]")
+    if spills:
+        raise AssertionError(f"spills: {spills}")
+    return dict(max_abs_err=max(errs), bf16_share=max(shares), caps=caps)
+
+
+def decode_lanes_on(torch, c, dev):
+    """A decode case's arguments of the three kernels on ``dev`` (float32):
+    ``{"decode", "chunked", "ragged"}``."""
+    from repro_torch.core.paged_kv import fused_kv_views
+    from repro_torch.kernels.paged_attention.cases import (
+        ARG_ORDER, CHUNKED_ARG_ORDER, DECODE_ARG_ORDER, decode_lanes)
+
+    lanes = decode_lanes(c)
+    ragged = [torch.from_numpy(lanes[k]).to(dev) for k in ARG_ORDER]
+    return {"decode": [torch.from_numpy(c[k]).to(dev)
+                       for k in DECODE_ARG_ORDER],
+            "ragged": ragged,
+            "chunked": [ragged[0], *fused_kv_views(ragged[1]),
+                        *[torch.from_numpy(lanes[k]).to(dev)
+                          for k in CHUNKED_ARG_ORDER]]}
+
+
+def tune_phase(torch, np, cfg_mod, engine_mod, api, captures, prompts,
+               model, params, cfg, dev, card):
+    """Phase 32: the autotune sweep on the captured steps, the committed
+    table, an engine of ``cfg`` (llama31-8b, the cell whose winner is not
+    the default) that resolves from it, and phase 5's workload served by
+    that model with the resolved tunables and with the defaults in
+    turns."""
+    from repro_torch.bench import paged_attention_bench as bench
+    from repro_torch.perf import autotune
+    from repro_torch.perf.table import parse_derived
+
+    vocab = cfg_mod.get_config("smollm-360m").vocab_size
+    if not all(np.array_equal(a, b) for a, (_, b) in
+               zip(bench.phase5_prompts(vocab), prompts)):
+        raise AssertionError("the sweep's workload is not phase 5's")
+    cells = {(16, 64): captures["smollm-360m"],
+             (16, 128): captures["llama31-8b"]}
+    rows = bench.autotune_sweep(dev, cells, card)
+    sweep = {}
+    for r in rows:
+        cell = f"({r['page_size']}, {r['head_dim']}, {r['backend']})"
+        split = api.split_keys_for(r["page_size"],
+                                   r["num_kv_pages_per_block"])
+        log(f"  {cell} rows {r['num_queries_per_block']:3d} pages "
+            f"{r['num_kv_pages_per_block']:3d} (split {split} keys): "
+            f"{r['ms']:.4f} ms = 31 x {r['decode_ms']:.4f} + 4 x "
+            f"{r['mixed_ms']:.4f}; default {r['default_ms']:.4f} ms"
+            + ("  [default]" if r["default"] else "")
+            + ("  BEST" if r["best"] else ""))
+        sweep.setdefault(cell, []).append(
+            {k: r[k] for k in ("num_queries_per_block",
+                               "num_kv_pages_per_block", "ms", "decode_ms",
+                               "mixed_ms", "best", "default")})
+    log(f"  [{card}]")
+    # the committed table: both cells, defaults in each grid, its card
+    path = str(autotune.PACKAGED_TUNE_TABLE)
+    results = json.loads(Path(path).read_text())
+    table = autotune.TuneTable.load(path)
+    for BS, HD in cells:
+        if table.lookup(BS, HD, "cuda") is None:
+            raise AssertionError(f"{path}: no cell ({BS}, {HD}, cuda)")
+        grid = [parse_derived(r["derived"]) for res in results
+                for r in res["rows"] if "tune=1" in r["derived"]]
+        grid = [d for d in grid if d["page_size"] == str(BS)
+                and d["head_dim"] == str(HD) and d["backend"] == "cuda"]
+        if not any(all(d[k] == str(v)
+                       for k, v in api.TUNABLE_DEFAULTS.items())
+                   for d in grid):
+            raise AssertionError(f"{path} ({BS}, {HD}): no default point")
+        log(f"  committed table ({BS}, {HD}, cuda): "
+            f"{table.lookup(BS, HD, 'cuda')} of {len(grid)} points, "
+            f"measured on {grid[0].get('card')}")
+    # an engine with every key at 0 resolves from it
+    resolved = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                   max_batch=SERVE_BATCH)
+    eng = engine_mod.ServingEngine(model, params, cfg, resolved,
+                                   num_blocks=256, device=dev)
+    m = eng.metrics()
+    want = table.lookup(SERVE_BS, cfg.attention.head_dim, "cuda")
+    got = {k: m[k] for k in autotune.TUNABLE_KEYS}
+    if m["policy_counters"]["tune.tuned_resolved"] != 1 or got != want:
+        raise AssertionError(f"the engine did not resolve the table: {got} "
+                             f"{m['policy_counters']}")
+    log(f"  a {cfg.name} engine with the keys at 0: tune.tuned_resolved 1, "
+        f"{got}")
+    del eng
+    # the defaults, given explicitly: 0 pages (the kernels' own split)
+    # would consult the table, so the same split in pages
+    default = api.check_tunables(SERVE_BS, 1)
+    explicit = cfg_mod.ServeConfig(
+        model=cfg.name, kv_block_size=SERVE_BS, max_batch=SERVE_BATCH,
+        num_queries_per_block=default["num_queries_per_block"],
+        num_kv_pages_per_block=api.SPLIT_KEYS // SERVE_BS)
+    out = dict(sweep=sweep, table={f"{k}": v for k, v in
+                                   table.best.items()})
+    # B1 on this model's captured steps at each config
+    cell = cells[(SERVE_BS, cfg.attention.head_dim)]
+    b1 = {}
+    for tag, tun in (("resolved", got), ("default", default)):
+        b1[tag] = {kind: kernel_ms(api.paged_attention_ragged_op,
+                                   *cell[kind][0], device=dev, reps=100,
+                                   **dict(cell[kind][1], **tun))
+                   for kind in ("decode", "mixed")}
+    sampling = engine_mod.sampling_lib
+    sample = sampling.sample_batched
+    last, gaps, runs = {}, {}, {}
+
+    def hooked(gen, logits, *args):
+        tok = sample(gen, logits, *args)
+        last["top2"] = logits.float().topk(2, dim=-1).values
+        return tok
+
+    for tag in ("resolved", "default", "default", "resolved"):
+        eng = engine_mod.ServingEngine(
+            model, params, cfg, resolved if tag == "resolved" else explicit,
+            num_blocks=SERVE_BLOCKS, device=dev)
+        record = tag == "resolved" and tag not in runs
+        if record:
+            build_half = eng._build
+
+            def build_and_record(*args):
+                pend = build_half(*args)
+                for _, req, _, _, out_idx in pend.actions:
+                    if out_idx is not None:
+                        gaps[(req.req_id, out_idx)] = last["top2"][
+                            pend.slots[req.req_id]]
+                return pend
+
+            eng._build = build_and_record
+            sampling.sample_batched = hooked
+        try:
+            wall = serve_phase5(engine_mod, eng, prompts, torch)
+        finally:
+            sampling.sample_batched = sample
+        m = eng.metrics()
+        eng.alloc.check_invariants(drained=True)
+        streams = {r.req_id: list(r.output) for r in eng.finished}
+        runs.setdefault(tag, []).append(dict(
+            wall=wall, p50_tpot_s=m["p50_tpot_s"], p99_tpot_s=m["p99_tpot_s"],
+            streams=streams))
+        log(f"  in turns, {tag:8s}: TPOT p50 {m['p50_tpot_s'] * 1e3:.2f} / "
+            f"p99 {m['p99_tpot_s'] * 1e3:.2f} ms  wall {wall:.3f}s  B1 "
+            f"decode {b1[tag]['decode']:.4f} / mixed {b1[tag]['mixed']:.4f}"
+            f" ms  [{card}]")
+        del eng
+    want_s, got_s = runs["resolved"][0]["streams"], runs["default"][0][
+        "streams"]
+    parity = {}
+    for rid, w in sorted(want_s.items()):
+        g = got_s[rid]
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            parity[rid] = "identical"
+            continue
+        if api.split_keys_for(SERVE_BS, got["num_kv_pages_per_block"]) \
+                == api.SPLIT_KEYS:
+            raise AssertionError(f"request {rid}: streams differ at an "
+                                 "equal split")
+        top1, top2 = (float(v) for v in gaps[(rid, j)].cpu())
+        ulps = (top1 - top2) / bf16_ulp(top1)
+        parity[rid] = f"token {j}: top-2 gap {ulps:.2f} bf16 ulps"
+        if not ulps <= 2:
+            raise AssertionError(f"request {rid}: the default split leaves "
+                                 f"the resolved stream at token {j}, a top-2 "
+                                 f"gap of {ulps:.2f} bf16 ulps")
+    for tag in runs:
+        if any(r["streams"] != runs[tag][0]["streams"] for r in runs[tag]):
+            raise AssertionError(f"{tag}: two runs gave other streams")
+    log("  resolved against default streams: " + "; ".join(
+        f"{rid} {v}" for rid, v in parity.items()))
+    out.update(b1=b1, parity=parity, turns={
+        tag: [{k: v for k, v in r.items() if k != "streams"} for r in rs]
+        for tag, rs in runs.items()})
+    return out
+
+
+def sanitize_phase(torch, np, cfg_mod, engine_mod, build_model, prompts,
+                   served, dev, card):
+    """Phase 33: the reference's sanitized smoke on the card, phase 5's
+    workload sanitized with overlap on, and a control that must trip."""
+    from repro_torch.analysis import sanitize as san_lib
+
+    cfg = cfg_mod.get_config("smollm-360m").reduced(dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=8, max_batch=1,
+                                overlap=True, eviction="tiered",
+                                host_blocks=12, sanitize=True)
+    eng = engine_mod.ServingEngine(model, params, cfg, serve, num_blocks=7,
+                                   device=dev)
+    rng = np.random.default_rng(1)
+    three = [rng.integers(0, cfg.vocab_size, (24,), dtype=np.int32)
+             for _ in range(3)]
+    rid = 0
+    for _ in range(2):
+        for p in three:
+            for _ in range(2):
+                eng.submit(engine_mod.Request(req_id=rid, prompt=p,
+                                              max_new_tokens=4))
+                rid += 1
+            eng.run_until_done()
+    san = eng.metrics()["sanitize"]
+    if not (san["enabled"] and san["retraces"] == 0
+            and san["transfer_guard_trips"] == 0
+            and san["invariant_checks"] > 0 and san["allowed_host_syncs"] > 0):
+        raise AssertionError(f"sanitized smoke: {san}")
+    eng.alloc.check_invariants(drained=True)
+    log(f"  reference smoke (overlap, tiered, 12 host / 7 HBM blocks): {san}")
+    out = {"smoke": san}
+    del eng, model, params
+    cfg = cfg_mod.get_config("smollm-360m")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                max_batch=SERVE_BATCH, overlap=True,
+                                sanitize=True)
+    eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                   num_blocks=SERVE_BLOCKS, device=dev)
+    wall = serve_phase5(engine_mod, eng, prompts, torch)
+    m = eng.metrics()
+    san = m["sanitize"]
+    streams = {r.req_id: list(r.output) for r in eng.finished}
+    if streams != served:
+        raise AssertionError("sanitized streams differ from phase 5's")
+    if san["retraces"] or san["transfer_guard_trips"] or not san[
+            "invariant_checks"]:
+        raise AssertionError(f"sanitized phase 5: {san}")
+    eng.alloc.check_invariants(drained=True)
+    log(f"  phase 5's workload, overlap on, sanitized: {san}; streams equal "
+        f"phase 5's; TPOT p50 {m['p50_tpot_s'] * 1e3:.2f} / p99 "
+        f"{m['p99_tpot_s'] * 1e3:.2f} ms  wall {wall:.3f}s  [{card}]")
+    out["phase5"] = dict(san, p50_tpot_s=m["p50_tpot_s"],
+                         p99_tpot_s=m["p99_tpot_s"], wall=wall)
+    del eng, model, params
+    torch.cuda.empty_cache()
+    guard = san_lib.Sanitizer()
+    x = torch.ones((4,), device=dev)
+    tripped = None
+    try:
+        with guard.no_host_sync("control"):
+            x.sum().item()
+    except (san_lib.SanitizeError, RuntimeError) as e:
+        tripped = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    if tripped is None:
+        raise AssertionError("a device read inside no_host_sync passed")
+    try:
+        with guard.no_host_sync("control"):
+            san_lib.host_read(x, reason="not-allowlisted")
+    except san_lib.SanitizeError as e:
+        tripped_read = str(e)
+    else:
+        raise AssertionError("a host_read of no allowlisted reason passed")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("the sync debug mode was not restored")
+    log(f"  control: .item() inside no_host_sync raised {tripped}; a "
+        f"non-allowlisted host_read raised SanitizeError ({tripped_read}); "
+        "the sync debug mode is back to 0")
+    out["control"] = tripped
+    return out
+
+
+def moe_phase(torch, np, cfg_mod, engine_mod, api, counted, build_model,
+              prompts, dev, card):
+    """Phase 34: MoE serving: reduced granite-moe and qwen3-moe card
+    against CPU, then granite-moe-1b-a400m at full width through B1, B2
+    and B3."""
+    from repro_torch.layers.moe import moe_apply
+
+    out = {}
+    for arch in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b"):
+        reference_check(torch, np, cfg_mod, build_model, engine_mod,
+                        arch=arch)
+    cfg = cfg_mod.get_config("granite-moe-1b-a400m")
+    a = cfg.attention
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  granite-moe-1b-a400m: params {n_params / 1e9:.3f} B "
+        f"({n_params * 2 / 1e9:.2f} GB bf16), {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+        f"H {a.num_heads} KV {a.num_kv_heads} hd {a.head_dim} G "
+        f"{a.num_heads // a.num_kv_heads}; init "
+        f"{time.perf_counter() - t0:.1f}s, peak device memory after init "
+        f"{peak:.2f} GiB")
+    out.update(params=n_params, init_peak_gib=peak)
+    log("== 34b. granite-moe-1b-a400m: phase 5's requests, ragged (B1)")
+    streams, out["ragged"], launches, cap = serve_at_width(
+        torch, np, cfg_mod, engine_mod, api, counted, model, params, cfg,
+        prompts, "ragged", dev, card)
+    out["ragged"]["launches"] = launches
+    out["ragged"]["kernel"] = llama_kernel_steps(
+        torch, np, api, cap, "ragged", card, label="granite-moe")
+    lanes = {k: cap.got[k][0][0].shape[0] for k in ("decode", "mixed")}
+    del cap
+    serve = cfg_mod.ServeConfig(model=cfg.name, kv_block_size=SERVE_BS,
+                                max_batch=SERVE_BATCH)
+    prof = profile_decode(torch, np, model, params, cfg, serve, engine_mod,
+                          dev)
+    log(f"  decode-only steps: busy share {prof['busy_share']:.1%} of "
+        f"{prof['wall_ms']:.3f} ms/step, {prof['launches']:.0f} "
+        f"cudaLaunchKernel / step  [{card}]")
+    out["decode_profile"] = {k: prof[k] for k in
+                             ("wall_ms", "busy_ms", "busy_share", "launches")}
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    moe_ms = {}
+    for kind, T in lanes.items():
+        h = torch.randn((T, 1, cfg.d_model), generator=gen, device=dev,
+                        dtype=model.dtype)
+
+        def layer():
+            return moe_apply(lp, h, cfg.moe, full_capacity=True)
+
+        wall = device_ms(layer, device=dev, reps=10)
+        busy = busy_ms(torch, layer)
+        moe_ms[kind] = dict(lanes=T, layer_device_ms=busy,
+                            step_device_ms=busy * cfg.num_layers,
+                            layer_events_ms=wall)
+        log(f"  MoE layer at full capacity, {kind} step ({T} lanes): device "
+            f"{busy:.4f} ms a layer (profiler, the kernels' sum), "
+            f"{busy * cfg.num_layers:.3f} ms a step of {cfg.num_layers} "
+            f"layers; back-to-back calls {wall:.4f} ms a layer (CUDA "
+            f"events: the host's enqueue where it is slower)  [{card}]")
+    out["moe_ms"] = moe_ms
+    log("== 34c. granite-moe-1b-a400m: the same requests, chunked (B2)")
+    c_streams, out["chunked"], c_launches, c_cap = serve_at_width(
+        torch, np, cfg_mod, engine_mod, api, counted, model, params, cfg,
+        prompts, "chunked", dev, card)
+    if c_streams != streams:
+        diff = [i for i in streams if c_streams.get(i) != streams[i]]
+        raise AssertionError(f"granite chunked greedy streams differ from "
+                             f"ragged for requests {diff}")
+    log(f"  greedy streams identical to the ragged run ({len(streams)} "
+        f"requests x {SERVE_NEW} tokens)")
+    out["chunked"]["launches"] = c_launches
+    out["chunked"]["kernel"] = llama_kernel_steps(
+        torch, np, api, c_cap, "chunked", card, label="granite-moe")
+    del c_cap
+    log("== 34d. granite-moe-1b-a400m: decode_step_paged (B3)")
+    d_launches, d_cap = paper_path(torch, np, api, counted, model, params,
+                                   cfg, dev)
+    inputs, kw, out_run = d_cap["decode"]
+    out["decode"] = kernel_times(
+        torch, api.paged_attention_op, inputs, kw, out_run,
+        decode_bound(torch, inputs),
+        f"granite-moe decode_step_paged last step B={inputs[0].shape[0]} "
+        f"H={inputs[0].shape[1]} hd={inputs[0].shape[2]}", card)
+    out["decode"].update(launches=d_launches,
+                         ms_per_step=d_cap["ms_per_step"])
+    log(f"  {d_cap['ms_per_step']:.2f} ms/step  [{card}]")
+    del d_cap, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 

@@ -12,8 +12,29 @@ chunked sweep times the chunked kernel.  The reference's XLA
 only the effectual ones.  Their ratio is the hardware-independent form of
 the paper's 7.4x / 55.7x.  The layout sweep runs the same mixed
 prefill+decode lanes through chunked (split pools) and ragged (fused pool)
-and records whether they agree bitwise.  The reference's ragged autotune
-sweep is not ported.
+and records whether they agree bitwise.
+
+The autotune sweep (:func:`autotune_sweep`, the reference's
+``_autotune_sweep``) times the ragged kernel's tunables
+(``attention_api`` says what each means on the card) over a grid that
+always holds the port's defaults: splits of 64 / 128 / 256 / 512 keys
+crossed with 128 and 64 query rows per tensor-core tile (``128 // G`` and
+``64 // G`` lanes), the shared-memory cap at 0.  A split of
+``attention_api.SPLIT_KEYS`` keys is written as 0 pages, the default's
+own value, so a winner there holds at any block size.  A point's time is
+the step mix of the serving phase (``chip_smoke.py`` phase 5): 31 x the
+kernel on layer 0 of a decode-only step + 4 x on a mixed step, each from
+CUDA events over back-to-back launches (``bench.common.kernel_ms``).  On
+the card it sweeps two cells, (16, 64, cuda) on smollm-360m's steps and
+(16, 128, cuda) on llama31-8b's, captured by serving that phase's
+workload at full width (:func:`capture_steps`); on the CPU one tiny cell
+of the plain version (host times), so its rows can be tested.  Each point
+is one row with the reference's attribution (``tune=1;page_size=..;
+head_dim=..;backend=..;<keys>;best=0|1;vs_default=..``) plus the card's
+name and power limit; the fastest point of each cell carries ``best=1``.
+``python -m repro_torch.bench.run --only paged_attention_bench --json
+PATH`` on the card writes the table that ``repro_torch.perf.autotune``
+reads.
 
 Times come from ``bench.common.time_ms`` and every row names its device.
 
@@ -22,13 +43,13 @@ Times come from ``bench.common.time_ms`` and every row names its device.
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.bench.common import device_name, emit, time_ms
+from repro_torch.bench.common import device_name, emit, kernel_ms, time_ms
 from repro_torch.core import attention_api as api
 from repro_torch.core.paged_kv import (BlockAllocator, fuse_kv_heads,
                                       fused_kv_views)
@@ -41,6 +62,18 @@ BATCHES = {True: ((8, 8), (32, 16)),
 CHUNKS = {True: (1, 4, 16), False: (1, 8, 64, 256)}
 CHUNK_BATCH = {True: (4, 8), False: (16, 32)}       # (requests, blocks)
 LAYOUTS = {True: ((4, 4), (8, 8)), False: ((4, 4), (8, 8), (16, 16))}
+# The autotune sweep's cells on the card, (page size, head dim): the config
+# whose serving steps time it; on the CPU, the reduced float32 smollm-360m.
+TUNE_CELLS = {(16, 64): "smollm-360m", (16, 128): "llama31-8b"}
+TUNE_SPLITS = (64, 128, 256, 512)            # keys per decode split
+TUNE_MIX = (("decode", 31), ("mixed", 4))    # phase 5's steps by kind
+# phase 5's workload (chip_smoke.py): 16 requests of 128-1024 prompt tokens
+# (every fourth one longer than 512 opens with a shared 256-token prefix),
+# 32 new tokens, max_batch 16, 16-token blocks, a 4096-block pool
+SERVE = dict(requests=16, lo=128, hi=1025, new=32, batch=16, block=16,
+             blocks=4096, chunk=2048)
+SERVE_CPU = dict(requests=6, lo=5, hi=30, new=4, batch=4, block=4,
+                 blocks=64, chunk=16)
 
 
 def _setup(B, seq_lens, max_blocks, NB, BS, KV, HD, H, gen, dev):
@@ -238,16 +271,185 @@ def layout_sweep(dev, sizes, BS=16, KV=4, HD=64,
     return rows
 
 
-def run(device="cuda", quick: bool = False) -> List[Dict[str, object]]:
-    """All four sweeps at the reference's quick or full sizes."""
+def phase5_prompts(vocab_size: int, sizes=None) -> List[np.ndarray]:
+    """The prompts of the serving phase's workload, drawn as
+    ``chip_smoke.py`` phase 5 draws them (its two warm-up prompts first,
+    from the same generator)."""
+    z = SERVE if sizes is None else sizes
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab_size, (256,), dtype=np.int32)
+
+    def draw(n, lo, hi):
+        out = []
+        for i in range(n):
+            length = int(rng.integers(lo, hi))
+            p = rng.integers(0, vocab_size, (length,), dtype=np.int32)
+            if i % 4 == 0 and length > 2 * len(shared):
+                p[:len(shared)] = shared
+            out.append(p)
+        return out
+
+    draw(2, 64, 65)                               # phase 5's warm-up
+    return draw(z["requests"], z["lo"], z["hi"])
+
+
+def capture_steps(arch: str, dev: torch.device,
+                  sizes=None) -> Dict[str, Tuple]:
+    """Layer 0's ragged-kernel arguments (inputs, keywords) of the first
+    decode-only and the first mixed step of the serving workload
+    (:func:`phase5_prompts`, ``sizes``: :data:`SERVE`) served by ``arch``
+    with seeded weights: at full width in bf16 on a card, as
+    ``chip_smoke.py`` phases 6 and 28 capture them; reduced float32 on the
+    CPU."""
+    from repro_torch.config import ServeConfig, get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import engine as engine_mod
+
+    z = SERVE if sizes is None else sizes
+    cfg = get_config(arch)
+    if dev.type != "cuda":
+        cfg = cfg.reduced(dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    serve = ServeConfig(model=cfg.name, kv_block_size=z["block"],
+                        max_batch=z["batch"], prefill_chunk=z["chunk"])
+    eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                   num_blocks=z["blocks"], device=dev)
+    got: Dict[str, Tuple] = {}
+    want = [None]
+    render, op = eng._render, api.paged_attention_ragged_op
+
+    def kind_render(plan):
+        kind = ("mixed" if plan.decode and plan.prefill else
+                "decode" if plan.decode else "prefill")
+        want[0] = kind if kind != "prefill" and kind not in got else None
+        return render(plan)
+
+    def first_layer(*args, **kw):
+        out = op(*args, **kw)
+        if want[0] is not None:
+            got[want[0]] = ([a.clone() for a in args], dict(kw))
+            want[0] = None
+        return out
+
+    eng._render = kind_render
+    api.paged_attention_ragged_op = first_layer
+    try:
+        for i, p in enumerate(phase5_prompts(cfg.vocab_size, z)):
+            eng.submit(engine_mod.Request(req_id=i, prompt=p,
+                                          max_new_tokens=z["new"]))
+        eng.run_until_done()
+    finally:
+        api.paged_attention_ragged_op = op
+    return got
+
+
+def tune_grid(block_size: int) -> List[Tuple[int, int]]:
+    """(rows per tile, pages per split) points: the defaults, and the
+    splits of :data:`TUNE_SPLITS` that hold whole pages crossed with 128
+    and 64 rows; a split of ``SPLIT_KEYS`` keys is 0 pages, as in the
+    defaults."""
+    d = api.TUNABLE_DEFAULTS
+    grid = {(d["num_queries_per_block"], d["num_kv_pages_per_block"])}
+    for rows in (128, 64):
+        for split in TUNE_SPLITS:
+            if split % block_size == 0:
+                pages = 0 if split == api.SPLIT_KEYS else split // block_size
+                grid.add((rows, pages))
+    return sorted(grid)
+
+
+def _step_ms(dev, inputs, kw) -> float:
+    """The ragged kernel's ms on one captured step (back-to-back launches
+    on a card, the plain version's host time on the CPU)."""
+    if dev.type == "cuda":
+        return kernel_ms(api.paged_attention_ragged_op, *inputs, device=dev,
+                         reps=100, **kw)
+    return time_ms(lambda: api.paged_attention_ragged_op(*inputs, **kw),
+                   device=dev)
+
+
+def autotune_sweep(dev, steps: Dict[Tuple[int, int], Dict[str, Tuple]],
+                   card: str) -> List[Dict[str, object]]:
+    """Time :func:`tune_grid` on each cell's captured steps ``{(page size,
+    head dim): {"decode": (inputs, kw), "mixed": ...}}``; one row per
+    point, ``best=1`` on the fastest of each cell (never slower than the
+    defaults, which the grid holds)."""
+    backend = "cuda" if dev.type == "cuda" else "plain"
+    rows = []
+    for (BS, HD), captured in sorted(steps.items()):
+        q, pool = captured["decode"][0][:2]
+        group = q.shape[1] * 2 // pool.shape[2]
+        default = api.check_tunables(BS, group)
+        timed = []
+        for tile_rows, pages in tune_grid(BS):
+            tun = dict(num_queries_per_block=tile_rows,
+                       num_kv_pages_per_block=pages, vmem_limit_bytes=0)
+            parts = {kind: _step_ms(dev, captured[kind][0],
+                                    dict(captured[kind][1], **tun))
+                     for kind, _ in TUNE_MIX}
+            ms = sum(n * parts[kind] for kind, n in TUNE_MIX)
+            timed.append((ms, tun, parts))
+        default_ms = next(ms for ms, tun, _ in timed if tun == default)
+        best_ms = min(ms for ms, _, _ in timed)
+        assert best_ms <= default_ms, (BS, HD, timed)
+        best_done = False
+        for ms, tun, parts in timed:
+            best = not best_done and ms == best_ms
+            best_done = best_done or best
+            row = emit(
+                f"ragged_tune_p{BS}_h{HD}_{backend}"
+                f"_q{tun['num_queries_per_block']}"
+                f"_k{tun['num_kv_pages_per_block']}", ms,
+                f"tune=1;page_size={BS};head_dim={HD};backend={backend};"
+                + "".join(f"{k}={v};" for k, v in tun.items())
+                + f"best={int(best)};vs_default={default_ms / ms:.4f};"
+                f"split_keys="
+                f"{api.split_keys_for(BS, tun['num_kv_pages_per_block'])};"
+                f"decode_ms={parts['decode']:.4f};"
+                f"mixed_ms={parts['mixed']:.4f};default_ms={default_ms:.4f};"
+                f"device={device_name(dev)};card={card}")
+            row.update(tun, page_size=BS, head_dim=HD, backend=backend,
+                       best=best, default=tun == default,
+                       default_ms=default_ms, **{f"{k}_ms": v
+                                                 for k, v in parts.items()})
+            rows.append(row)
+    return rows
+
+
+def tune_steps(dev) -> Dict[Tuple[int, int], Dict[str, Tuple]]:
+    """The sweep's captured steps: on a card, each cell of
+    :data:`TUNE_CELLS` served at full width (one model at a time); on the
+    CPU, reduced smollm-360m at :data:`SERVE_CPU`'s sizes."""
+    if dev.type != "cuda":
+        got = capture_steps("smollm-360m", dev, SERVE_CPU)
+        q, pool = got["decode"][0][:2]
+        return {(pool.shape[1], q.shape[2]): got}
+    out = {}
+    for cell, arch in sorted(TUNE_CELLS.items()):
+        out[cell] = capture_steps(arch, dev)
+        torch.cuda.empty_cache()
+    return out
+
+
+def run(device="cuda", quick: bool = False,
+        tune: bool = True) -> List[Dict[str, object]]:
+    """All four sweeps at the reference's quick or full sizes, then (with
+    ``tune``) the autotune sweep."""
+    from repro_torch.bench.turns import card_line
+
     dev = device_lib.resolve(device)
     B, BS, KV, HD, H, full_blocks = SIZES[quick]
     requests, blocks = CHUNK_BATCH[quick]
-    return (padding_sweep(dev, B, BS, KV, HD, H, full_blocks)
+    rows = (padding_sweep(dev, B, BS, KV, HD, H, full_blocks)
             + batch_sweep(dev, BS, KV, HD, H, BATCHES[quick])
             + chunked_sweep(dev, BS, KV, HD, H, requests, blocks,
                             CHUNKS[quick])
             + layout_sweep(dev, LAYOUTS[quick]))
+    if tune:
+        card = card_line() if dev.type == "cuda" else "cpu"
+        rows += autotune_sweep(dev, tune_steps(dev), card)
+    return rows
 
 
 def main(argv=None) -> None:

@@ -3,7 +3,8 @@
 
 Prints ``name,ms,derived`` rows.  ``--full`` runs the reference's full
 sizes (default: its quick ones); ``--device`` chooses the card (default)
-or the CPU; ``--json PATH`` writes each module's rows.  A module that
+or the CPU; ``--json PATH`` writes each module's rows, with the schema
+version ``repro_torch.perf`` reads and the card's name and power limit.  A module that
 raises is reported and the others still run; the harness then exits 1.
 
 | module                 | paper figure/table |
@@ -36,6 +37,8 @@ from typing import Callable, Dict, List
 
 from repro_torch import device as device_lib
 from repro_torch.bench.common import device_name
+from repro_torch.bench.turns import card_line
+from repro_torch.perf.table import SCHEMA_VERSION
 
 MODULES = ("gemm_roofline", "stream", "gather_scatter", "embedding_tables",
            "paged_attention_bench", "recsys_e2e")
@@ -66,6 +69,8 @@ def main(argv=None) -> List[Dict[str, object]]:
         raise SystemExit(f"--only: unknown module(s) {unknown}; the port "
                          f"has {list(MODULES)}")
     dev = device_lib.resolve(args.device)
+    # the card's name and power limit (nvidia-smi), or "cpu"
+    card = card_line() if dev.type == "cuda" else "cpu"
     print("name,ms,derived", flush=True)
     results, failures = [], 0
     for m in mods:
@@ -76,7 +81,8 @@ def main(argv=None) -> List[Dict[str, object]]:
             traceback.print_exc()
             failures += 1
             rows = []
-        results.append({"module": m, "device": device_name(dev),
+        results.append({"module": m, "schema_version": SCHEMA_VERSION,
+                        "device": device_name(dev), "card": card,
                         "full": args.full, "rows": rows})
         print(f"# {m} done in {time.perf_counter() - t0:.1f}s",
               file=sys.stderr, flush=True)

@@ -12,6 +12,20 @@ from typing import Any, Dict, Optional, Tuple
 
 RECSYS = "recsys"
 
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts sub-config (token-choice top-k, capacity-based)."""
+
+    num_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden size
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # shared dense expert, as granite's / qwen-moe's (0 disables)
+    d_shared_expert: int = 0
+
+
 @dataclass(frozen=True)
 class AttentionConfig:
     num_heads: int
@@ -25,7 +39,8 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A single architecture (the dense decoder fields of the reference)."""
+    """A single architecture (the dense and MoE decoder fields of the
+    reference)."""
 
     name: str
     family: str
@@ -34,6 +49,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "silu"              # silu (swiglu) | gelu
@@ -50,6 +66,10 @@ class ModelConfig:
             kv = max(1, 4 // ratio)
             small["attention"] = dataclasses.replace(
                 ah, num_heads=kv * ratio, num_kv_heads=kv, head_dim=16)
+        if self.moe is not None:
+            small["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=2, d_expert=32,
+                d_shared_expert=32 if self.moe.d_shared_expert else 0)
         small.update(overrides)
         return dataclasses.replace(self, **small)
 
@@ -65,6 +85,12 @@ class ServeConfig:
     (``host_blocks``) and, through ``repro_torch.serving.disagg``, split
     prefill / decode roles (``roles``); the engine refuses
     ``devices > 1``.  ``trace`` is the launcher's replay trace path.
+
+    The ragged kernel's tunables keep the reference's names (what each
+    means on the card: ``core.attention_api``); 0 consults the measured
+    table (``repro_torch.perf.autotune``), then the port's defaults, and a
+    value > 0 wins.  ``sanitize`` turns on the runtime guards of
+    ``repro_torch.analysis.sanitize``.
     """
 
     model: str
@@ -81,9 +107,13 @@ class ServeConfig:
     prefetch_depth: int = 0        # chunked kernel: page staging depth
     q_chunk: int = 16              # chunked kernel: lanes per query tile
     attn_impl: str = "ragged"      # ragged | chunked
+    num_queries_per_block: int = 0   # ragged: query rows per tensor tile
+    num_kv_pages_per_block: int = 0  # paged kernels: pages per decode split
+    vmem_limit_bytes: int = 0        # paged kernels: shared-memory cap
     devices: int = 0
     roles: str = ""
     host_blocks: int = 0
+    sanitize: bool = False
     trace: str = ""
 
 

@@ -30,6 +30,28 @@ Shapes: q (T, H, HD) (decode: (B, H, HD)); kv_pool (NB, BS, 2*KV, HD)
 with ``[K0,V0,K1,V1,...]`` on the head axis; split pools (NB, BS, KV, HD);
 BlockList arrays (Tb,); cu_q_lens/cu_kv_lens (S+1,); seq_slot (S,).  GQA
 maps q head ``h`` to kv head ``h // (H // KV)``.
+
+Tunables, with the reference's names (its ``paged_attention_ragged``
+family) and what each means on the card; :data:`TUNABLE_DEFAULTS` holds
+the port's defaults, which give the kernels' bits of before the keys
+existed.  A tunable changes speed, and the split also the bits of the
+online softmax; never the function.  The plain versions check the keys
+and ignore them.
+
+* ``num_kv_pages_per_block``: pages per split of the decode tile, so
+  ``split_keys = pages * BS`` keys, whole 64-key stages and at most
+  :data:`MAX_SPLIT_KEYS`; 0 (the default) is the kernels' own split of
+  :data:`SPLIT_KEYS` keys at any block size.  All three kernels take it,
+  and at an equal split decode == chunked == ragged bit for bit on decode
+  lanes.
+* ``num_queries_per_block``: query rows (lanes x G) per tensor-core tile
+  of a bf16 owner of two or more lanes in the ragged kernel, from G to
+  128; the tile takes ``rows // G`` lanes.  Counted in rows, one value
+  means the same tile height at every G.  The chunked kernel's tile is
+  ``min(q_chunk, 128 // G)`` lanes: its own tunable, ``q_chunk``.
+* ``vmem_limit_bytes``: a cap on the dynamic shared memory a launch
+  requests, 0 for none.  A cap below the kernel's request is refused:
+  the wrapper raises ``ValueError`` naming both sizes.
 """
 from __future__ import annotations
 
@@ -48,9 +70,59 @@ _PLAIN_SCORE_ELEMS = 1 << 26
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 64             # q heads per kv head: a tile's 64 rows
-# Keys per split of the kernels' decode tile: kSplitKeys of
-# kernels/csrc/paged_decode_tile.cuh, which sizes the split workspace.
+_MMA_ROWS = 128             # query rows of the tensor-core tile
+STAGE_KEYS = 64             # keys per stage of the decode tile
+# Keys per split of the decode tile: the port's default, and at most
+# kMaxSplitKeys of kernels/csrc/paged_decode_tile.cuh (whose page list in
+# shared memory is sized for it).
 SPLIT_KEYS = 256
+MAX_SPLIT_KEYS = 512
+
+
+# The port's defaults of the ragged family's tunables, the same at every
+# block size and G: the reference's registry defaults stand here
+# (``kernels/paged_attention/ops.py``).  They give the kernels' bits of
+# before the keys existed: 128 rows a tensor-core tile (``128 // G`` lanes)
+# and, at 0 pages, splits of :data:`SPLIT_KEYS` keys.
+TUNABLE_DEFAULTS = {"num_queries_per_block": _MMA_ROWS,
+                    "num_kv_pages_per_block": 0, "vmem_limit_bytes": 0}
+
+
+def split_keys_for(block_size: int, num_kv_pages_per_block: int) -> int:
+    """Keys per split of the decode tile: :data:`SPLIT_KEYS` at 0 pages,
+    else ``pages * block_size``."""
+    return (num_kv_pages_per_block * block_size if num_kv_pages_per_block
+            else SPLIT_KEYS)
+
+
+def check_tunables(block_size: int, group: int, *,
+                   num_queries_per_block: Optional[int] = None,
+                   num_kv_pages_per_block: Optional[int] = None,
+                   vmem_limit_bytes: int = 0) -> Dict[str, int]:
+    """The tunables with None taken from :data:`TUNABLE_DEFAULTS`, checked:
+    ``ValueError`` on a negative page count, on a page count whose split is
+    not whole 64-key stages or is above :data:`MAX_SPLIT_KEYS` keys, on
+    rows per tile outside ``[G, 128]`` and on a negative cap."""
+    out = dict(TUNABLE_DEFAULTS)
+    for k, v in (("num_queries_per_block", num_queries_per_block),
+                 ("num_kv_pages_per_block", num_kv_pages_per_block),
+                 ("vmem_limit_bytes", vmem_limit_bytes)):
+        if v is not None:
+            out[k] = int(v)
+    rows, pages = out["num_queries_per_block"], out["num_kv_pages_per_block"]
+    split = pages * block_size
+    if pages < 0 or pages and (split % STAGE_KEYS or split > MAX_SPLIT_KEYS):
+        raise ValueError(
+            f"num_kv_pages_per_block={pages} at block size {block_size}: a "
+            f"split of {split} keys; the decode tile takes whole "
+            f"{STAGE_KEYS}-key stages, at most {MAX_SPLIT_KEYS} keys")
+    if not group <= rows <= _MMA_ROWS:
+        raise ValueError(
+            f"num_queries_per_block={rows} at G {group}: the tensor-core "
+            f"tile takes {group}..{_MMA_ROWS} query rows (rows // G lanes)")
+    if out["vmem_limit_bytes"] < 0:
+        raise ValueError(f"vmem_limit_bytes={out['vmem_limit_bytes']} < 0")
+    return out
 
 
 def ragged_lane_metadata(cu_q_lens, cu_kv_lens, seq_slot, num_lanes: int,
@@ -356,15 +428,34 @@ def ragged_scratch_ints(num_seqs: int, num_entries: int,
     return 2 * num_seqs * num_entries + num_seqs + num_seqs * num_kv
 
 
-def split_capacity(num_owners: int, num_entries: int,
-                   block_size: int) -> int:
-    """Splits of :data:`SPLIT_KEYS` keys the decode tile's workspace holds:
+def split_capacity(num_owners: int, num_entries: int, block_size: int,
+                   split_keys: int = SPLIT_KEYS) -> int:
+    """Splits of ``split_keys`` keys the decode tile's workspace holds:
     every owner of one lane has at least one, and its pages add one per
-    :data:`SPLIT_KEYS` keys, so when each of the ``num_entries`` BlockList
+    ``split_keys`` keys, so when each of the ``num_entries`` BlockList
     entries belongs to one owner there are at most ``ceil(num_entries *
-    block_size / SPLIT_KEYS) + num_owners`` (no host sync: the owners' key
+    block_size / split_keys) + num_owners`` (no host sync: the owners' key
     counts stay on the card)."""
-    return -(-num_entries * block_size // SPLIT_KEYS) + num_owners
+    return -(-num_entries * block_size // split_keys) + num_owners
+
+
+def _launch_tunables(source: str, q, block_size: int, group: int, kw):
+    """The checked tunables of a launch (:func:`check_tunables`), and the
+    split in keys; ``ValueError`` naming both sizes when the kernel's
+    shared memory exceeds ``vmem_limit_bytes``."""
+    from repro_torch.kernels import paged_attention as kernel
+
+    tun = check_tunables(block_size, group, **kw)
+    cap = tun["vmem_limit_bytes"]
+    if cap:
+        need = kernel.smem_bytes(source, q.shape[2], _DTYPE_CODE[q.dtype],
+                                 group)
+        if need > cap:
+            raise ValueError(
+                f"vmem_limit_bytes={cap}: {source} at head dim "
+                f"{q.shape[2]}, {q.dtype}, G {group} requests {need} bytes "
+                "of shared memory")
+    return tun, split_keys_for(block_size, tun["num_kv_pages_per_block"])
 
 
 def _scratch(q, ints: int, max_splits: int):
@@ -384,18 +475,30 @@ class _RaggedAttentionOp(KernelOp):
     """Ragged paged attention over the fused pool; plain version
     :func:`paged_attention_ragged`.  The fused pool must be contiguous.
     In bf16 the tiles of a sequence with two or more lanes run on the
-    tensor cores, a sequence of one lane (a decode lane, either dtype) on
-    the split decode tile, the rest (float32 prefill, padding) on the SIMT
-    tile; either way a lane's bits are the chunked kernel's."""
+    tensor cores, ``num_queries_per_block // G`` lanes a tile, a sequence
+    of one lane (a decode lane, either dtype) on the split decode tile, its
+    keys in splits of ``num_kv_pages_per_block`` pages, the rest (float32
+    prefill, padding) on the SIMT tile; either way a lane's bits are the
+    chunked kernel's at the same split.  ``vmem_limit_bytes`` caps the
+    launch's shared memory (module docstring).  Tunables left None take
+    :data:`TUNABLE_DEFAULTS`."""
 
     name = "paged_attention_ragged"
 
-    def plain(self, *args, **kw):
-        return paged_attention_ragged(*args, **kw)
+    def plain(self, q, kv_pool, *args, num_queries_per_block=None,
+              num_kv_pages_per_block=None, vmem_limit_bytes: int = 0, **kw):
+        check_tunables(kv_pool.shape[1], q.shape[1] * 2 // kv_pool.shape[2],
+                       num_queries_per_block=num_queries_per_block,
+                       num_kv_pages_per_block=num_kv_pages_per_block,
+                       vmem_limit_bytes=vmem_limit_bytes)
+        return paged_attention_ragged(q, kv_pool, *args, **kw)
 
     def prepare(self, q, kv_pool, block_list, block_req, block_pos,
                 cu_q_lens, cu_kv_lens, seq_slot, *,
-                sm_scale: Optional[float] = None) -> Launch:
+                sm_scale: Optional[float] = None,
+                num_queries_per_block: Optional[int] = None,
+                num_kv_pages_per_block: Optional[int] = None,
+                vmem_limit_bytes: int = 0) -> Launch:
         from repro_torch.kernels import paged_attention as kernel
 
         if kv_pool.dim() != 4 or kv_pool.shape[2] % 2:
@@ -417,8 +520,13 @@ class _RaggedAttentionOp(KernelOp):
         if not 1 <= S <= 1024:
             raise ValueError(f"{S} sequence entries: the kernel takes "
                              "1..1024")
+        tun, split_keys = _launch_tunables(
+            kernel.SOURCE, q, BS, H * 2 // KV2,
+            dict(num_queries_per_block=num_queries_per_block,
+                 num_kv_pages_per_block=num_kv_pages_per_block,
+                 vmem_limit_bytes=vmem_limit_bytes))
         out = torch.empty_like(q)
-        splits = split_capacity(S, Tb, BS)
+        splits = split_capacity(S, Tb, BS, split_keys)
         scratch, partials = _scratch(
             q, ragged_scratch_ints(S, Tb, KV2 // 2), splits)
         argv = (q.data_ptr(), kv_pool.data_ptr(), out.data_ptr(),
@@ -426,7 +534,10 @@ class _RaggedAttentionOp(KernelOp):
                 block_pos.data_ptr(), cu_q_lens.data_ptr(),
                 cu_kv_lens.data_ptr(), seq_slot.data_ptr(),
                 scratch.data_ptr(), partials, T, H, KV2 // 2, HD, NB, BS, Tb,
-                S, splits, _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
+                S, splits, split_keys,
+                tun["num_queries_per_block"] // (H * 2 // KV2),
+                tun["vmem_limit_bytes"], _DTYPE_CODE[q.dtype],
+                _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.SOURCE).paged_attention_ragged
         return Launch(fn, argv, out, scratch)
@@ -444,19 +555,28 @@ class _ChunkedAttentionOp(KernelOp):
     lane runs on the split decode tile.  ``prefetch_depth`` chose the TPU
     kernel's page DMA ring; the CUDA kernel stages each 64-key stage
     through shared memory and ignores it.  Neither changes a result.
+    ``num_kv_pages_per_block`` and ``vmem_limit_bytes`` are the ragged
+    kernel's (module docstring): at an equal split a lane's bits are the
+    ragged kernel's.
     """
 
     name = "paged_attention_chunked"
 
-    def plain(self, q, *args, q_chunk: int = 16, prefetch_depth: int = 0,
-              **kw):
+    def plain(self, q, pool_k, *args, q_chunk: int = 16,
+              prefetch_depth: int = 0, num_kv_pages_per_block=None,
+              vmem_limit_bytes: int = 0, **kw):
         _check_tunables(q_chunk, prefetch_depth)
-        return paged_attention_chunked(q, *args, **kw)
+        check_tunables(pool_k.shape[1], q.shape[1] // pool_k.shape[2],
+                       num_kv_pages_per_block=num_kv_pages_per_block,
+                       vmem_limit_bytes=vmem_limit_bytes)
+        return paged_attention_chunked(q, pool_k, *args, **kw)
 
     def prepare(self, q, pool_k, pool_v, block_list, block_req, block_pos,
                 kv_lens, token_req, token_pos, *,
                 sm_scale: Optional[float] = None, q_chunk: int = 16,
-                prefetch_depth: int = 0) -> Launch:
+                prefetch_depth: int = 0,
+                num_kv_pages_per_block: Optional[int] = None,
+                vmem_limit_bytes: int = 0) -> Launch:
         from repro_torch.kernels import paged_attention as kernel
 
         _check_tunables(q_chunk, prefetch_depth)
@@ -473,8 +593,12 @@ class _ChunkedAttentionOp(KernelOp):
                              "lane of q")
         if B < 1:
             raise ValueError("kv_lens must have at least one slot")
+        tun, split_keys = _launch_tunables(
+            kernel.CHUNKED_SOURCE, q, BS, H // KV,
+            dict(num_kv_pages_per_block=num_kv_pages_per_block,
+                 vmem_limit_bytes=vmem_limit_bytes))
         out = torch.empty_like(q)
-        splits = split_capacity(B, Tb, BS)
+        splits = split_capacity(B, Tb, BS, split_keys)
         scratch, partials = _scratch(
             q, 2 * B * Tb + 3 * B + T + 1 + B * KV, splits)
         sb, sr, sh, _ = pool_k.stride()
@@ -483,8 +607,8 @@ class _ChunkedAttentionOp(KernelOp):
                 block_pos.data_ptr(), kv_lens.data_ptr(),
                 token_req.data_ptr(), token_pos.data_ptr(),
                 scratch.data_ptr(), partials, T, H, KV, HD, NB, BS, Tb, B,
-                int(q_chunk), splits, sb, sr, sh, _DTYPE_CODE[q.dtype],
-                _scale(sm_scale, HD),
+                int(q_chunk), splits, split_keys, tun["vmem_limit_bytes"], sb,
+                sr, sh, _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.CHUNKED_SOURCE).paged_attention_chunked
         return Launch(fn, argv, out, scratch)
@@ -502,16 +626,23 @@ class _DecodeAttentionOp(KernelOp):
     """Decode-shape BlockList paged attention, one query per request, over
     split pools; plain version :func:`paged_attention_opt`.  Each request
     runs on the split decode tile, as a decode lane of the ragged and
-    chunked kernels does, with the same bits.  A request with no BlockList
-    entry reads 0."""
+    chunked kernels does, with the same bits at the same split
+    (``num_kv_pages_per_block``; ``vmem_limit_bytes`` as theirs: module
+    docstring).  A request with no BlockList entry reads 0."""
 
     name = "paged_attention_decode"
 
-    def plain(self, *args, **kw):
-        return paged_attention_opt(*args, **kw)
+    def plain(self, q, pool_k, *args, num_kv_pages_per_block=None,
+              vmem_limit_bytes: int = 0, **kw):
+        check_tunables(pool_k.shape[1], q.shape[1] // pool_k.shape[2],
+                       num_kv_pages_per_block=num_kv_pages_per_block,
+                       vmem_limit_bytes=vmem_limit_bytes)
+        return paged_attention_opt(q, pool_k, *args, **kw)
 
     def prepare(self, q, pool_k, pool_v, block_list, block_req, block_pos,
-                seq_lens, *, sm_scale: Optional[float] = None) -> Launch:
+                seq_lens, *, sm_scale: Optional[float] = None,
+                num_kv_pages_per_block: Optional[int] = None,
+                vmem_limit_bytes: int = 0) -> Launch:
         from repro_torch.kernels import paged_attention as kernel
 
         _check_split_pools(q, pool_k, pool_v)
@@ -524,16 +655,20 @@ class _DecodeAttentionOp(KernelOp):
         if seq_lens.shape[0] != B or B < 1:
             raise ValueError(f"seq_lens {tuple(seq_lens.shape)} must have "
                              f"one entry per query of q {tuple(q.shape)}")
+        tun, split_keys = _launch_tunables(
+            kernel.DECODE_SOURCE, q, BS, H // KV,
+            dict(num_kv_pages_per_block=num_kv_pages_per_block,
+                 vmem_limit_bytes=vmem_limit_bytes))
         out = torch.empty_like(q)
-        splits = split_capacity(B, Tb, BS)
+        splits = split_capacity(B, Tb, BS, split_keys)
         scratch, partials = _scratch(q, 2 * B * Tb + B + B * KV, splits)
         sb, sr, sh, _ = pool_k.stride()
         argv = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                 out.data_ptr(), block_list.data_ptr(), block_req.data_ptr(),
                 block_pos.data_ptr(), seq_lens.data_ptr(),
                 scratch.data_ptr(), partials, B, H, KV, HD, NB, BS, Tb,
-                splits, sb, sr, sh, _DTYPE_CODE[q.dtype],
-                _scale(sm_scale, HD),
+                splits, split_keys, tun["vmem_limit_bytes"], sb, sr, sh,
+                _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.DECODE_SOURCE).paged_attention_decode
         return Launch(fn, argv, out, scratch)

@@ -28,6 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as sanitize_lib
+
 
 class OutOfBlocksError(RuntimeError):
     pass
@@ -657,25 +659,24 @@ def copy_pool_blocks(pool: torch.Tensor, srcs, dsts) -> torch.Tensor:
     return pool
 
 
-def host_read(t: torch.Tensor) -> torch.Tensor:
-    """A copy of ``t`` in host memory.  On a card this waits for the device:
-    the two deliberate syncs of serving go through it, a host-tier demote
-    (the block's content must be read before its block is reused) and a
-    disaggregated handoff between pools on different devices."""
-    return t.to("cpu", copy=True)
-
-
 def read_pool_block(pool: torch.Tensor, blk: int) -> torch.Tensor:
     """Block ``blk`` of every layer, ``pool[:, blk]``, copied to the host
-    (a host-tier demote)."""
-    return host_read(pool[:, blk])
+    (a host-tier demote).  On a card this waits for the device, a
+    deliberate sync declared to the sanitizer as ``tier-drain``: the
+    block's content must be read before its block is reused."""
+    return sanitize_lib.host_read(pool[:, blk], reason="tier-drain")
 
 
 def write_pool_block(pool: torch.Tensor, blk: int,
                      data: torch.Tensor) -> torch.Tensor:
     """Write a block saved by :func:`read_pool_block` back into block
-    ``blk`` of every layer, in place (a host-tier promote)."""
-    pool[:, blk].copy_(data)
+    ``blk`` of every layer, in place (a host-tier promote).  On a card the
+    copy is staged in pinned memory and does not wait for the device, so a
+    promote may run inside the overlapped loop's build half; PyTorch's
+    pinned-memory cache keeps the staging buffer until the copy has run."""
+    if pool.is_cuda:
+        data = data.pin_memory()
+    pool[:, blk].copy_(data, non_blocking=True)
     return pool
 
 

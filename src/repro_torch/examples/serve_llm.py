@@ -4,8 +4,14 @@ decode step, prefix-cached paged KV, per-request sampling and preemption
 under block pressure, with a non-default policy triple (priority
 admission, fewest-remaining-tokens preemption, hit-rate eviction).
 
+``--arch`` picks the config (the reference's reduced float32 qwen2-1.5b by
+default; any dense or MoE config of the port), ``--full`` serves it at its
+full width in its own dtype (on a card: granite-moe-1b-a400m fits one,
+qwen3-moe-235b-a22b does not).
+
     python -m repro_torch.examples.serve_llm                # on the card
     PYTHONPATH=src python -m repro_torch.examples.serve_llm --device cpu
+    python -m repro_torch.examples.serve_llm --arch granite-moe-1b-a400m --full
 """
 from __future__ import annotations
 
@@ -23,8 +29,14 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
+    p.add_argument("--arch", default="qwen2-1.5b")
+    p.add_argument("--full", action="store_true",
+                   help="the config at full width (default: reduced, "
+                        "float32)")
     args = p.parse_args(argv)
-    cfg = get_config("qwen2-1.5b").reduced(dtype="float32")
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced(dtype="float32")
     model = build_model(cfg, device=args.device)
     params = model.init(0)
     serve = ServeConfig(model=cfg.name, kv_block_size=8, max_batch=4,

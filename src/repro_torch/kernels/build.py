@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_compile_events = 0
 
 
 def nvcc_path() -> str:
@@ -120,8 +121,19 @@ def build(name: str) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Each first load of a library in the process counts one compile event
+    (:func:`compile_events`)."""
+    global _compile_events
     if name not in _loaded:
         build(name)
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        _compile_events += 1
     return _loaded[name]
+
+
+def compile_events() -> int:
+    """Libraries built or loaded by :func:`load` in this process so far:
+    what the runtime sanitizer's retrace guard counts as compiles
+    (``repro_torch.analysis.sanitize``)."""
+    return _compile_events

@@ -36,8 +36,10 @@
 // (wgmma at HD 64/128, mma.sync at 16/32, K/V in bf16 through a two-stage
 // cp.async ring), in tiles of min(q_chunk, 128 / G) lanes; an owner of one
 // lane (a decode lane, f32 or bf16) runs on the decode tile
-// (paged_decode_tile.cuh), its keys cut into splits of kSplitKeys, one
-// block per (split, kv head), combined in this launch; everything else runs
+// (paged_decode_tile.cuh), its keys cut into splits of split_keys (a launch
+// argument), one block per (split, kv head), combined in this launch; a cap
+// on the dynamic shared memory (smem_cap, 0: none) below the launch's
+// request refuses the launch; everything else runs
 // on the SIMT paged::attend_tile in tiles of min(q_chunk, 64 / G) lanes:
 // float32 owners of two or more lanes and padding lanes.  A row's result on
 // each tile depends only on its owner's page list, its position and the
@@ -159,14 +161,16 @@ __global__ void __launch_bounds__(kThreads,
                              int* __restrict__ counters,
                              float* __restrict__ partials, int num_lanes,
                              int H, int KV, int B, int BS, int Tb,
-                             int split_blocks, int max_splits, float scale) {
+                             int split_blocks, int max_splits, int split_keys,
+                             float scale) {
   extern __shared__ __align__(16) float smem[];
   const int kvh = blockIdx.y;
   const int G = H / KV;
   if (blockIdx.x < split_blocks) {          // the decode tile's splits
     const auto nsplit = [=](int b) {
       return paged::decode_owner(lane_count[b])
-                 ? paged::num_splits(static_cast<long long>(counts[b]) * BS)
+                 ? paged::num_splits(static_cast<long long>(counts[b]) * BS,
+                                     split_keys)
                  : 0;
     };
     paged::run_splits(split_blocks, B, nsplit,
@@ -176,7 +180,7 @@ __global__ void __launch_bounds__(kThreads,
       paged::decode_split<T, HD>(
           q, out, H, G, h, lane, token_pos[lane], kv_lens[b],
           list_blk + list0, list_pos + list0, counts[b], BS, pool, scale,
-          split, nsplit(b), w, KV, max_splits, partials,
+          split, nsplit(b), split_keys, w, KV, max_splits, partials,
           counters + b * KV + h, reinterpret_cast<unsigned char*>(smem));
     });
     return;
@@ -215,6 +219,13 @@ __global__ void __launch_bounds__(kThreads,
   }
 }
 
+// The launch tunables: keys per decode split, and the cap on the dynamic
+// shared memory (0: none).
+struct Tunables {
+  int split_keys;
+  int smem_cap;
+};
+
 // The scratch buffer: list_blk, list_pos (B * Tb each), counts (B),
 // lane_count (B), tile_start (T), num_tiles (1), owner_lane (B), the decode
 // tile's arrival counters (B * KV); beside it the decode tile's workspace,
@@ -223,14 +234,16 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    void* out, const int* token_req, const int* token_pos,
                    const int* kv_lens, int* scratch, float* partials,
-                   int max_splits, int T_lanes, int H, int KV, int B, int BS,
-                   int Tb, int tq, long long sb, long long sr, long long sh,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t smem = paged::PagedKernel<T, HD>::kSmem;
+                   int max_splits, Tunables tun, int T_lanes, int H, int KV,
+                   int B, int BS, int Tb, int tq, long long sb, long long sr,
+                   long long sh, float scale, cudaStream_t stream) {
   static bool configured = false;
   const cudaError_t err = paged::configure<T, HD>(
       chunked_attention_kernel<T, HD>, &configured);
   if (err != cudaSuccess) return err;
+  constexpr size_t smem = paged::PagedKernel<T, HD>::kSmem;
+  if (tun.smem_cap > 0 && smem > static_cast<size_t>(tun.smem_cap))
+    return cudaErrorInvalidValue;
   const int* list_blk = scratch;
   const int* list_pos = list_blk + static_cast<size_t>(B) * Tb;
   const int* counts = list_pos + static_cast<size_t>(B) * Tb;
@@ -254,7 +267,7 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
       static_cast<const T*>(q), pool, static_cast<T*>(out), token_req,
       token_pos, kv_lens, lane_count, tile_start, num_tiles, list_blk,
       list_pos, counts, owner_lane, counters, partials, T_lanes, H, KV, B,
-      BS, Tb, split_blocks, max_splits, scale);
+      BS, Tb, split_blocks, max_splits, tun.split_keys, scale);
   return cudaGetLastError();
 }
 
@@ -262,27 +275,31 @@ template <typename T>
 cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
                       const void* pool_v, void* out, const int* token_req,
                       const int* token_pos, const int* kv_lens, int* scratch,
-                      float* partials, int max_splits, int T_lanes, int H,
-                      int KV, int B, int BS, int Tb, int tq, long long sb,
-                      long long sr, long long sh, float scale,
-                      cudaStream_t stream) {
+                      float* partials, int max_splits, Tunables tun,
+                      int T_lanes, int H, int KV, int B, int BS, int Tb,
+                      int tq, long long sb, long long sr, long long sh,
+                      float scale, cudaStream_t stream) {
   switch (HD) {
     case 16:
       return launch<T, 16>(q, pool_k, pool_v, out, token_req, token_pos,
-                           kv_lens, scratch, partials, max_splits, T_lanes,
-                           H, KV, B, BS, Tb, tq, sb, sr, sh, scale, stream);
+                           kv_lens, scratch, partials, max_splits, tun,
+                           T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
+                           stream);
     case 32:
       return launch<T, 32>(q, pool_k, pool_v, out, token_req, token_pos,
-                           kv_lens, scratch, partials, max_splits, T_lanes,
-                           H, KV, B, BS, Tb, tq, sb, sr, sh, scale, stream);
+                           kv_lens, scratch, partials, max_splits, tun,
+                           T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
+                           stream);
     case 64:
       return launch<T, 64>(q, pool_k, pool_v, out, token_req, token_pos,
-                           kv_lens, scratch, partials, max_splits, T_lanes,
-                           H, KV, B, BS, Tb, tq, sb, sr, sh, scale, stream);
+                           kv_lens, scratch, partials, max_splits, tun,
+                           T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
+                           stream);
     case 128:
       return launch<T, 128>(q, pool_k, pool_v, out, token_req, token_pos,
-                            kv_lens, scratch, partials, max_splits, T_lanes,
-                            H, KV, B, BS, Tb, tq, sb, sr, sh, scale, stream);
+                            kv_lens, scratch, partials, max_splits, tun,
+                            T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -293,20 +310,24 @@ cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
 // Plain C entry point, bound with ctypes.  scratch holds
 // 2 * B * Tb + 3 * B + T + 1 + B * KV int32; partials max_splits x KV x
 // partial_floats(H / KV, HD) floats, max_splits >= 1 (the decode tile's
-// splits over all owners of one lane: at most ceil(Tb * BS / kSplitKeys) +
+// splits over all owners of one lane: at most ceil(Tb * BS / split_keys) +
 // B).  q, out, pool_k, pool_v and partials must be 16-byte aligned, and sb,
 // sr, sh (the pools' strides in elements over blocks, rows and kv heads)
-// multiples of 16 bytes.  dtype: 0 = float32, 1 = bfloat16.  Returns
-// cudaGetLastError() after the launches (0 = ok).
+// multiples of 16 bytes.  split_keys: whole 64-key stages, at most
+// kMaxSplitKeys; smem_cap: 0 (none) or the cap a launch must fit under.
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// launches (0 = ok).
 extern "C" int paged_attention_chunked(
     const void* q, const void* pool_k, const void* pool_v, void* out,
     const void* block_list, const void* block_req, const void* block_pos,
     const void* kv_lens, const void* token_req, const void* token_pos,
     void* scratch, void* partials, int T_lanes, int H, int KV, int HD,
-    int NB, int BS, int Tb, int B, int q_chunk, int max_splits, long long sb,
-    long long sr, long long sh, int dtype, float scale, void* stream) {
+    int NB, int BS, int Tb, int B, int q_chunk, int max_splits,
+    int split_keys, int smem_cap, long long sb, long long sr, long long sh,
+    int dtype, float scale, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kRows || BS < 1 ||
-      NB < 1 || q_chunk < 1 || T_lanes < 0 || Tb < 0 || max_splits < 1)
+      NB < 1 || q_chunk < 1 || T_lanes < 0 || Tb < 0 || max_splits < 1 ||
+      !paged::valid_split(split_keys) || smem_cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* ints = static_cast<int*>(scratch);
@@ -336,14 +357,16 @@ extern "C" int paged_attention_chunked(
   if (err != cudaSuccess) return static_cast<int>(err);
   const int* tpos = static_cast<const int*>(token_pos);
   float* part = static_cast<float*>(partials);
+  const Tunables tun{split_keys, smem_cap};
   if (dtype == 0)
     err = launch_hd<float>(HD, q, pool_k, pool_v, out, treq, tpos, kvl, ints,
-                           part, max_splits, T_lanes, H, KV, B, BS, Tb, tq,
-                           sb, sr, sh, scale, st);
+                           part, max_splits, tun, T_lanes, H, KV, B, BS, Tb,
+                           tq, sb, sr, sh, scale, st);
   else if (dtype == 1)
     err = launch_hd<__nv_bfloat16>(HD, q, pool_k, pool_v, out, treq, tpos,
-                                   kvl, ints, part, max_splits, T_lanes, H,
-                                   KV, B, BS, Tb, tq, sb, sr, sh, scale, st);
+                                   kvl, ints, part, max_splits, tun, T_lanes,
+                                   H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
+                                   st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -24,9 +24,11 @@
 // request's pages in BlockList order (sorted or not), and every request,
 // an owner of one lane, runs on the decode tile (paged_decode_tile.cuh),
 // as the ragged and chunked kernels run their decode lanes: its keys cut
-// into splits of kSplitKeys, one block per (split, kv head), the splits
-// combined in this launch by the last of them to finish.  So a request's
-// bits equal the chunked and ragged kernels' on the same lane.
+// into splits of split_keys (a launch argument), one block per (split, kv
+// head), the splits combined in this launch by the last of them to finish.
+// So a request's bits equal the chunked and ragged kernels' on the same
+// lane at an equal split_keys.  A cap on the dynamic shared memory
+// (smem_cap, 0: none) below the launch's request refuses the launch.
 // Bound on the H100: the bytes of the K/V rows the requests hold, plus q
 // and out, at 3.35 TB/s.  The splits spread a request's keys over many
 // SMs, every warp of a block works on the request's G rows, and the next
@@ -48,10 +50,11 @@ __global__ void __launch_bounds__(kThreads,
     const int* __restrict__ seq_lens, const int* __restrict__ list_blk,
     const int* __restrict__ list_pos, const int* __restrict__ counts,
     int* __restrict__ counters, float* __restrict__ partials, int B, int H,
-    int KV, int BS, int Tb, int max_splits, float scale) {
+    int KV, int BS, int Tb, int max_splits, int split_keys, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const auto nsplit = [=](int b) {
-    return paged::num_splits(static_cast<long long>(counts[b]) * BS);
+    return paged::num_splits(static_cast<long long>(counts[b]) * BS,
+                             split_keys);
   };
   paged::run_splits(gridDim.x, B, nsplit,
                     [&](int b, int split, int w, int h) {
@@ -59,25 +62,35 @@ __global__ void __launch_bounds__(kThreads,
     const size_t list0 = static_cast<size_t>(b) * Tb;
     paged::decode_split<T, HD>(q, out, H, H / KV, h, b, kvl - 1, kvl,
                                list_blk + list0, list_pos + list0, counts[b],
-                               BS, pool, scale, split, nsplit(b), w, KV,
-                               max_splits, partials, counters + b * KV + h,
-                               smem);
+                               BS, pool, scale, split, nsplit(b), split_keys,
+                               w, KV, max_splits, partials,
+                               counters + b * KV + h, smem);
   });
 }
+
+// The launch tunables: keys per split, and the cap on the dynamic shared
+// memory (0: none).
+struct Tunables {
+  int split_keys;
+  int smem_cap;
+};
 
 // The scratch buffer: list_blk, list_pos (B * Tb each), counts (B), the
 // decode tile's arrival counters (B * KV).
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    void* out, const int* seq_lens, int* scratch,
-                   float* partials, int max_splits, int B, int H, int KV,
-                   int BS, int Tb, long long sb, long long sr, long long sh,
-                   float scale, cudaStream_t stream) {
+                   float* partials, int max_splits, Tunables tun, int B,
+                   int H, int KV, int BS, int Tb, long long sb, long long sr,
+                   long long sh, float scale, cudaStream_t stream) {
   using Tile = paged::DecodeTile<T, HD>;
   static bool configured = false;
   const cudaError_t err = paged::allow_smem(
       decode_attention_kernel<T, HD>, Tile::smem_bytes(kRows), &configured);
   if (err != cudaSuccess) return err;
+  const size_t smem = Tile::smem_bytes(H / KV);
+  if (tun.smem_cap > 0 && smem > static_cast<size_t>(tun.smem_cap))
+    return cudaErrorInvalidValue;
   const int* list_blk = scratch;
   const int* list_pos = list_blk + static_cast<size_t>(B) * Tb;
   const int* counts = list_pos + static_cast<size_t>(B) * Tb;
@@ -86,38 +99,37 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                             static_cast<const T*>(pool_v), sb, sr, sh};
   const dim3 grid(
       paged::split_grid_x(max_splits, KV, paged::kDecodeGridBlocks), KV);
-  decode_attention_kernel<T, HD>
-      <<<grid, kThreads, Tile::smem_bytes(H / KV), stream>>>(
-          static_cast<const T*>(q), pool, static_cast<T*>(out), seq_lens,
-          list_blk, list_pos, counts, counters, partials, B, H, KV, BS, Tb,
-          max_splits, scale);
+  decode_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), pool, static_cast<T*>(out), seq_lens,
+      list_blk, list_pos, counts, counters, partials, B, H, KV, BS, Tb,
+      max_splits, tun.split_keys, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
                       const void* pool_v, void* out, const int* seq_lens,
-                      int* scratch, float* partials, int max_splits, int B,
-                      int H, int KV, int BS, int Tb, long long sb,
-                      long long sr, long long sh, float scale,
+                      int* scratch, float* partials, int max_splits,
+                      Tunables tun, int B, int H, int KV, int BS, int Tb,
+                      long long sb, long long sr, long long sh, float scale,
                       cudaStream_t stream) {
   switch (HD) {
     case 16:
       return launch<T, 16>(q, pool_k, pool_v, out, seq_lens, scratch,
-                           partials, max_splits, B, H, KV, BS, Tb, sb, sr, sh,
-                           scale, stream);
+                           partials, max_splits, tun, B, H, KV, BS, Tb, sb,
+                           sr, sh, scale, stream);
     case 32:
       return launch<T, 32>(q, pool_k, pool_v, out, seq_lens, scratch,
-                           partials, max_splits, B, H, KV, BS, Tb, sb, sr, sh,
-                           scale, stream);
+                           partials, max_splits, tun, B, H, KV, BS, Tb, sb,
+                           sr, sh, scale, stream);
     case 64:
       return launch<T, 64>(q, pool_k, pool_v, out, seq_lens, scratch,
-                           partials, max_splits, B, H, KV, BS, Tb, sb, sr, sh,
-                           scale, stream);
+                           partials, max_splits, tun, B, H, KV, BS, Tb, sb,
+                           sr, sh, scale, stream);
     case 128:
       return launch<T, 128>(q, pool_k, pool_v, out, seq_lens, scratch,
-                            partials, max_splits, B, H, KV, BS, Tb, sb, sr,
-                            sh, scale, stream);
+                            partials, max_splits, tun, B, H, KV, BS, Tb, sb,
+                            sr, sh, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -129,19 +141,22 @@ cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
 // 2 * B * Tb + B + B * KV int32: list_blk, list_pos, counts and the decode
 // tile's arrival counters; partials max_splits x KV x partial_floats(H /
 // KV, HD) floats, max_splits >= 1 (the splits over all requests: at most
-// ceil(Tb * BS / kSplitKeys) + B).  q, out, pool_k, pool_v and partials
+// ceil(Tb * BS / split_keys) + B).  q, out, pool_k, pool_v and partials
 // must be 16-byte aligned, and sb, sr, sh (the pools' strides in elements
-// over blocks, rows and kv heads) multiples of 16 bytes.  dtype: 0 =
-// float32, 1 = bfloat16.  Returns cudaGetLastError() after the launches
-// (0 = ok).
+// over blocks, rows and kv heads) multiples of 16 bytes.  split_keys:
+// whole 64-key stages, at most kMaxSplitKeys; smem_cap: 0 (none) or the cap
+// a launch must fit under.  dtype: 0 = float32, 1 = bfloat16.  Returns
+// cudaGetLastError() after the launches (0 = ok).
 extern "C" int paged_attention_decode(
     const void* q, const void* pool_k, const void* pool_v, void* out,
     const void* block_list, const void* block_req, const void* block_pos,
     const void* seq_lens, void* scratch, void* partials, int B, int H, int KV,
-    int HD, int NB, int BS, int Tb, int max_splits, long long sb,
-    long long sr, long long sh, int dtype, float scale, void* stream) {
+    int HD, int NB, int BS, int Tb, int max_splits, int split_keys,
+    int smem_cap, long long sb, long long sr, long long sh, int dtype,
+    float scale, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || H / KV > kRows || BS < 1 || NB < 1 ||
-      Tb < 0 || max_splits < 1)
+      Tb < 0 || max_splits < 1 || !paged::valid_split(split_keys) ||
+      smem_cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* list_blk = static_cast<int*>(scratch);
@@ -157,14 +172,15 @@ extern "C" int paged_attention_decode(
   if (err != cudaSuccess) return static_cast<int>(err);
   float* part = static_cast<float*>(partials);
   int* ints = static_cast<int*>(scratch);
+  const Tunables tun{split_keys, smem_cap};
   if (dtype == 0)
     err = launch_hd<float>(HD, q, pool_k, pool_v, out, lens, ints, part,
-                           max_splits, B, H, KV, BS, Tb, sb, sr, sh, scale,
-                           st);
+                           max_splits, tun, B, H, KV, BS, Tb, sb, sr, sh,
+                           scale, st);
   else if (dtype == 1)
     err = launch_hd<__nv_bfloat16>(HD, q, pool_k, pool_v, out, lens, ints,
-                                   part, max_splits, B, H, KV, BS, Tb, sb, sr,
-                                   sh, scale, st);
+                                   part, max_splits, tun, B, H, KV, BS, Tb,
+                                   sb, sr, sh, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

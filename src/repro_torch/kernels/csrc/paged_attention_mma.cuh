@@ -8,18 +8,24 @@
 //     query rows per block on the tensor cores, kMmaRows / G lanes a tile;
 //   * an owner with exactly one lane in the launch (a decode lane), float32
 //     or bf16, at any G <= kRows: paged::decode_split (paged_decode_tile.cuh),
-//     its G rows over splits of kSplitKeys keys, one block per (split, kv
-//     head), combined in the launch.  Every request of the decode kernel is
-//     such an owner;
+//     its G rows over splits of split_keys keys (a launch argument), one
+//     block per (split, kv head), combined in the launch.  Every request of
+//     the decode kernel is such an owner;
 //   * everything else: paged::attend_tile (paged_attention_common.cuh), 64
 //     rows on the SIMT cores, kRows / G lanes a tile: float32 owners of two
 //     or more lanes (a tensor-core f32 product would be TF32) and padding.
 // A row's result on each tile depends only on its owner's page list, its
 // position and the owner's key count, never on its tile or the rest of the
 // launch (the keys stream in list order, 64 per stage, and the decode
-// tile's splits are cut from the list alone), so the rule keeps the ragged
-// and chunked kernels bitwise equal, and the decode kernel equal to both on
-// decode lanes.
+// tile's splits are cut from the list and split_keys alone), so the rule
+// keeps the ragged and chunked kernels bitwise equal, and the decode kernel
+// equal to both on decode lanes, at an equal split_keys.
+//
+// The launch tunables (repro_torch.core.attention_api says how the
+// reference's names map onto them): split_keys, keys per decode split;
+// the query lanes per tensor-core tile (at most kMmaRows / G); and a cap on
+// the dynamic shared memory a launch requests, which refuses a launch whose
+// request is larger.
 #pragma once
 
 #include <cuda_bf16.h>

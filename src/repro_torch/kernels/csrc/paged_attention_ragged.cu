@@ -24,10 +24,11 @@
 // the tiles of a sequence with two or more lanes in the launch (prefill
 // chunks) run on paged::attend_tile_mma, 128 query rows per block on the
 // tensor cores (wgmma at HD 64/128, mma.sync at 16/32, K/V in bf16 through
-// a two-stage cp.async ring); a sequence of one lane (a decode lane, f32
-// or bf16) runs on the decode tile (paged_decode_tile.cuh): its keys cut
-// into splits of kSplitKeys, one block per (split, kv head), combined in
-// this launch; everything else runs on the SIMT paged::attend_tile, 64
+// a two-stage cp.async ring), q_tile lanes a tile (a launch argument, at
+// most 128 / G); a sequence of one lane (a decode lane, f32 or bf16) runs
+// on the decode tile (paged_decode_tile.cuh): its keys cut into splits of
+// split_keys (a launch argument), one block per (split, kv head), combined
+// in this launch; everything else runs on the SIMT paged::attend_tile, 64
 // rows per block: float32 sequences of two or more lanes and padding
 // tiles.  The choice is the sequence's alone, and the chunked and decode
 // kernels make it the same way; a row's result on each tile depends only
@@ -104,7 +105,7 @@ __global__ void __launch_bounds__(kThreads,
                             float* __restrict__ partials, int num_lanes,
                             int H, int KV, int BS, int S, int Tb, int tq,
                             int tq_mma, int split_blocks, int max_splits,
-                            float scale) {
+                            int split_keys, float scale) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int sCu[kMaxSeqs + 1];
   __shared__ int sInfo[3];
@@ -122,7 +123,8 @@ __global__ void __launch_bounds__(kThreads,
       const int lane = cu_q[j];
       return paged::decode_owner(cu_q[j + 1] - lane) && lane >= 0 &&
                      lane < num_lanes
-                 ? paged::num_splits(static_cast<long long>(counts[j]) * BS)
+                 ? paged::num_splits(static_cast<long long>(counts[j]) * BS,
+                                     split_keys)
                  : 0;
     };
     paged::run_splits(split_blocks, S, nsplit,
@@ -131,9 +133,9 @@ __global__ void __launch_bounds__(kThreads,
       const size_t list0 = static_cast<size_t>(j) * Tb;
       paged::decode_split<T, HD>(
           q, out, H, G, h, cu_q[j], kvl - 1, kvl, list_blk + list0,
-          list_pos + list0, counts[j], BS, pool, scale, split, nsplit(j), w,
-          KV, max_splits, partials, counters + j * KV + h,
-          reinterpret_cast<unsigned char*>(smem));
+          list_pos + list0, counts[j], BS, pool, scale, split, nsplit(j),
+          split_keys, w, KV, max_splits, partials,
+          counters + j * KV + h, reinterpret_cast<unsigned char*>(smem));
     });
     return;
   }
@@ -216,50 +218,62 @@ struct Lists {
   int max_splits;
 };
 
+// The launch tunables: keys per decode split, lanes per tensor-core tile,
+// and the cap on the dynamic shared memory (0: none).
+struct Tunables {
+  int split_keys;
+  int q_tile;
+  int smem_cap;
+};
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* kv_pool, void* out,
                    const int* cu_q, const int* cu_kv, Lists lists,
-                   int T_lanes, int H, int KV, int BS, int S, int Tb,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t smem = paged::PagedKernel<T, HD>::kSmem;
+                   Tunables tun, int T_lanes, int H, int KV, int BS, int S,
+                   int Tb, float scale, cudaStream_t stream) {
   static bool configured = false;
   const cudaError_t err = paged::configure<T, HD>(
       ragged_attention_kernel<T, HD>, &configured);
   if (err != cudaSuccess) return err;
   const int G = H / KV;
+  constexpr size_t smem = paged::PagedKernel<T, HD>::kSmem;
+  if (tun.smem_cap > 0 && smem > static_cast<size_t>(tun.smem_cap))
+    return cudaErrorInvalidValue;
   const int tq = kRows / G;
-  const int tq_mma = paged::kMmaRows / G;
+  const int tq_mma = tun.q_tile;
   // the split blocks, which loop when there are more splits, then enough
-  // tile blocks (a tensor-core sequence's tiles are longer)
+  // tile blocks for the shorter of the two tile lengths
   const int split_blocks =
       paged::split_grid_x(lists.max_splits, KV, paged::kSplitGridBlocks);
-  const dim3 grid(split_blocks + (T_lanes + tq - 1) / tq + S + 1, KV);
+  const int tmin = paged::PagedKernel<T, HD>::kMma && tq_mma < tq ? tq_mma
+                                                                  : tq;
+  const dim3 grid(split_blocks + (T_lanes + tmin - 1) / tmin + S + 1, KV);
   ragged_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv_pool),
       static_cast<T*>(out), cu_q, cu_kv, lists.blk, lists.pos, lists.counts,
       lists.counters, lists.partials, T_lanes, H, KV, BS, S, Tb, tq, tq_mma,
-      split_blocks, lists.max_splits, scale);
+      split_blocks, lists.max_splits, tun.split_keys, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int HD, const void* q, const void* kv_pool, void* out,
                       const int* cu_q, const int* cu_kv, Lists lists,
-                      int T_lanes, int H, int KV, int BS, int S, int Tb,
-                      float scale, cudaStream_t stream) {
+                      Tunables tun, int T_lanes, int H, int KV, int BS,
+                      int S, int Tb, float scale, cudaStream_t stream) {
   switch (HD) {
     case 16:
-      return launch<T, 16>(q, kv_pool, out, cu_q, cu_kv, lists, T_lanes, H,
-                           KV, BS, S, Tb, scale, stream);
+      return launch<T, 16>(q, kv_pool, out, cu_q, cu_kv, lists, tun, T_lanes,
+                           H, KV, BS, S, Tb, scale, stream);
     case 32:
-      return launch<T, 32>(q, kv_pool, out, cu_q, cu_kv, lists, T_lanes, H,
-                           KV, BS, S, Tb, scale, stream);
+      return launch<T, 32>(q, kv_pool, out, cu_q, cu_kv, lists, tun, T_lanes,
+                           H, KV, BS, S, Tb, scale, stream);
     case 64:
-      return launch<T, 64>(q, kv_pool, out, cu_q, cu_kv, lists, T_lanes, H,
-                           KV, BS, S, Tb, scale, stream);
+      return launch<T, 64>(q, kv_pool, out, cu_q, cu_kv, lists, tun, T_lanes,
+                           H, KV, BS, S, Tb, scale, stream);
     case 128:
-      return launch<T, 128>(q, kv_pool, out, cu_q, cu_kv, lists, T_lanes, H,
-                            KV, BS, S, Tb, scale, stream);
+      return launch<T, 128>(q, kv_pool, out, cu_q, cu_kv, lists, tun,
+                            T_lanes, H, KV, BS, S, Tb, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -271,17 +285,22 @@ cudaError_t launch_hd(int HD, const void* q, const void* kv_pool, void* out,
 // 2 * S * Tb + S + S * KV int32 (see Lists); partials max_splits x KV x
 // partial_floats(H / KV, HD) floats, max_splits >= 1 (the decode tile's
 // splits over all sequences of one lane: at most ceil(Tb * BS /
-// kSplitKeys) + S when each BlockList entry belongs to one sequence).  q,
-// kv_pool, out and partials must be 16-byte aligned.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns cudaGetLastError() after the launches (0 = ok).
+// split_keys) + S when each BlockList entry belongs to one sequence).  q,
+// kv_pool, out and partials must be 16-byte aligned.  The tunables:
+// split_keys (whole 64-key stages, at most kMaxSplitKeys), q_tile (lanes
+// per tensor-core tile, at most 128 / G) and smem_cap (0: none; a launch
+// whose shared memory exceeds it is refused).  dtype: 0 = float32, 1 =
+// bfloat16.  Returns cudaGetLastError() after the launches (0 = ok).
 extern "C" int paged_attention_ragged(
     const void* q, const void* kv_pool, void* out, const void* block_list,
     const void* block_req, const void* block_pos, const void* cu_q_lens,
     const void* cu_kv_lens, const void* seq_slot, void* scratch,
     void* partials, int T_lanes, int H, int KV, int HD, int NB, int BS,
-    int Tb, int S, int max_splits, int dtype, float scale, void* stream) {
+    int Tb, int S, int max_splits, int split_keys, int q_tile, int smem_cap,
+    int dtype, float scale, void* stream) {
   if (S < 1 || S > kMaxSeqs || KV < 1 || H % KV != 0 || H / KV > kRows ||
-      BS < 1 || NB < 1 || max_splits < 1)
+      BS < 1 || NB < 1 || max_splits < 1 || !paged::valid_split(split_keys) ||
+      q_tile < 1 || q_tile * (H / KV) > paged::kMmaRows || smem_cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* list_blk = static_cast<int*>(scratch);
@@ -300,11 +319,12 @@ extern "C" int paged_attention_ragged(
   if (T_lanes == 0) return 0;
   const Lists lists{list_blk, list_pos, counts, counters,
                     static_cast<float*>(partials), max_splits};
+  const Tunables tun{split_keys, q_tile, smem_cap};
   if (dtype == 0)
-    err = launch_hd<float>(HD, q, kv_pool, out, cq, ck, lists, T_lanes, H, KV,
-                           BS, S, Tb, scale, st);
+    err = launch_hd<float>(HD, q, kv_pool, out, cq, ck, lists, tun, T_lanes,
+                           H, KV, BS, S, Tb, scale, st);
   else if (dtype == 1)
-    err = launch_hd<__nv_bfloat16>(HD, q, kv_pool, out, cq, ck, lists,
+    err = launch_hd<__nv_bfloat16>(HD, q, kv_pool, out, cq, ck, lists, tun,
                                    T_lanes, H, KV, BS, S, Tb, scale, st);
   else
     err = cudaErrorInvalidValue;

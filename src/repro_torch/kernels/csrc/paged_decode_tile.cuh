@@ -10,11 +10,12 @@
 // widths), so paged::attend_tile's 64-row tile left 7 of its 8 warps idle
 // and walked all the owner's keys in one block per kv head.  This tile:
 //   * cuts the owner's compacted key list (list_blk/list_pos, in the order
-//     compact_entries gives) into splits of kSplitKeys keys, one block per
+//     compact_entries gives) into splits of split_keys keys (a launch
+//     argument: whole 64-key stages, at most kMaxSplitKeys), one block per
 //     (split, kv head), so a long owner's keys stream through many SMs at
-//     once.  The boundaries depend on the list alone, so the three kernels,
-//     and a lane with or without neighbours in its launch, cut the same
-//     splits and get the same bits;
+//     once.  The boundaries depend on the list and the split alone, so the
+//     three kernels, and a lane with or without neighbours in its launch,
+//     cut the same splits at an equal split_keys and get the same bits;
 //   * streams a split's keys 64 per stage through a cp.async ring of three
 //     stages in bf16, two in float32 (K and V in the pool's dtype, rows
 //     padded by 16 bytes so 8 neighbouring rows fall in 8 bank groups): the
@@ -51,7 +52,9 @@
 
 namespace paged {
 
-constexpr int kSplitKeys = 256;   // keys per split: whole 64-key stages
+// Keys per split, a launch argument (split_keys): whole 64-key stages, at
+// most this many; the split's page list in shared memory is sized for it.
+constexpr int kMaxSplitKeys = 512;
 // Split blocks per launch over all kv heads, beside other tiles: two per
 // SM of the H100, about what the ragged and chunked kernels keep resident.
 // They run first in their launch, so a larger grid of mostly idle blocks
@@ -59,14 +62,21 @@ constexpr int kSplitKeys = 256;   // keys per split: whole 64-key stages
 // blocks alone, takes eight per SM.  A launch with more splits loops.
 constexpr int kSplitGridBlocks = 2 * 132;
 constexpr int kDecodeGridBlocks = 8 * 132;
-static_assert(kSplitKeys % kKeys == 0, "a split is whole 64-key stages");
+static_assert(kMaxSplitKeys % kKeys == 0, "a split is whole 64-key stages");
 
-// The splits of an owner whose compacted list holds nkeys keys: at least
-// one, so an owner with no key still writes its zeros.
-__host__ __device__ constexpr int num_splits(long long nkeys) {
-  return nkeys <= kSplitKeys
+// Whether split_keys keys a split is a split the tile takes.
+__host__ __device__ constexpr bool valid_split(int split_keys) {
+  return split_keys >= kKeys && split_keys <= kMaxSplitKeys &&
+         split_keys % kKeys == 0;
+}
+
+// The splits of an owner whose compacted list holds nkeys keys, split_keys
+// a split: at least one, so an owner with no key still writes its zeros.
+__host__ __device__ constexpr int num_splits(long long nkeys,
+                                             int split_keys) {
+  return nkeys <= split_keys
              ? 1
-             : static_cast<int>((nkeys + kSplitKeys - 1) / kSplitKeys);
+             : static_cast<int>((nkeys + split_keys - 1) / split_keys);
 }
 
 // Floats of one split's workspace record for one kv head: acc (G x HD),
@@ -97,10 +107,11 @@ struct DecodeTile {
       kRows * kChunks > kThreads ? kRows * kChunks / kThreads : 1;
   static constexpr int kPStride = kKeys + 1;
   static constexpr size_t kPosOff = 2 * kRing;        // after the K, V rings
-  // a split's pages: at most kSplitKeys / BS + 1, kSplitKeys + 1 at BS 1
+  // a split's pages: at most kMaxSplitKeys / BS + 1, kMaxSplitKeys + 1 at
+  // BS 1
   static constexpr size_t kPageOff = kPosOff + kStages * kKeys * sizeof(int);
   static constexpr size_t kQOff =
-      kPageOff + 2 * (kSplitKeys + 4) * sizeof(int);
+      kPageOff + 2 * (kMaxSplitKeys + 4) * sizeof(int);
   static_assert(2 * kRing >= kThreads * kVec * sizeof(float),
                 "the slice sums fit over the rings");
 
@@ -183,20 +194,20 @@ __device__ __forceinline__ void run_splits(int split_x, int n, NSplit nsplit,
 // The owner's query lane `lane` (a row of q and out, (lanes, H, HD)) sits
 // at position row_pos and attends to the key positions kp < kvl with kp <=
 // row_pos of its pages list_blk/list_pos[0, count).  This block serves kv
-// head kvh and split `split` of the owner's nsplit, the w-th split of the
-// launch.  partials holds max_splits x KV records of partial_floats(G, HD)
-// floats, indexed w * KV + kvh; counter is the owner's arrival count for
-// kvh, which the launch's list kernel reset to 0.  An owner whose splits do
-// not fit in partials (only possible if BlockList entries belong to more
-// than one owner) writes 0.  The caller synchronises before it reuses
-// shared memory.
+// head kvh and split `split` of the owner's nsplit (splits of split_keys
+// keys), the w-th split of the launch.  partials holds max_splits x KV
+// records of partial_floats(G, HD) floats, indexed w * KV + kvh; counter
+// is the owner's arrival count for kvh, which the launch's list kernel
+// reset to 0.  An owner whose splits do not fit in partials (only possible
+// if BlockList entries belong to more than one owner) writes 0.  The
+// caller synchronises before it reuses shared memory.
 template <typename T, int HD>
 __device__ __forceinline__ void decode_split(
     const T* __restrict__ q, T* __restrict__ out, int H, int G, int kvh,
     int lane, int row_pos, int kvl, const int* __restrict__ list_blk,
     const int* __restrict__ list_pos, int count, int BS, const Pool<T>& pool,
-    float scale, int split, int nsplit, int w, int KV, int max_splits,
-    float* __restrict__ partials, int* __restrict__ counter,
+    float scale, int split, int nsplit, int split_keys, int w, int KV,
+    int max_splits, float* __restrict__ partials, int* __restrict__ counter,
     unsigned char* smem) {
   using Tile = DecodeTile<T, HD>;
   constexpr int VEC = Tile::kVec, CH = Tile::kChunks;
@@ -213,15 +224,15 @@ __device__ __forceinline__ void decode_split(
   const uint32_t sV = sK + Tile::kRing;
   int* sPos = reinterpret_cast<int*>(smem + Tile::kPosOff);   // [stage][64]
   int* sBlk = reinterpret_cast<int*>(smem + Tile::kPageOff);  // split's pages
-  int* sPage = sBlk + kSplitKeys + 4;
+  int* sPage = sBlk + kMaxSplitKeys + 4;
   float* sQ = reinterpret_cast<float*>(smem + Tile::kQOff);   // [G][HD]
   float* sP = sQ + G * HD;                                    // [G][65]
   float* sM = sP + G * Tile::kPStride;
   float* sL = sM + G;
   float* sCorr = sL + G;
 
-  const int k_begin = split * kSplitKeys;
-  const int k_end = min(count * BS, k_begin + kSplitKeys);
+  const int k_begin = split * split_keys;
+  const int k_end = min(count * BS, k_begin + split_keys);
   const int ntiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys
                                      : 0;
   // The split's pages, read once: no stage waits on the lists in memory.

@@ -18,9 +18,9 @@ _p, _i, _i64, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_float)
 # C signature of each source's entry point (named like the source).
 _ARGTYPES = {
-    SOURCE: [_p] * 11 + [_i] * 10 + [_f, _p],
-    CHUNKED_SOURCE: [_p] * 12 + [_i] * 10 + [_i64] * 3 + [_i, _f, _p],
-    DECODE_SOURCE: [_p] * 10 + [_i] * 8 + [_i64] * 3 + [_i, _f, _p],
+    SOURCE: [_p] * 11 + [_i] * 13 + [_f, _p],
+    CHUNKED_SOURCE: [_p] * 12 + [_i] * 12 + [_i64] * 3 + [_i, _f, _p],
+    DECODE_SOURCE: [_p] * 10 + [_i] * 10 + [_i64] * 3 + [_i, _f, _p],
 }
 
 
@@ -29,7 +29,7 @@ def library(source: str = SOURCE) -> ctypes.CDLL:
     (built on first use; this needs ``nvcc`` and a card).  Each library
     also exports ``<source>_smem_bytes``, the dynamic shared memory of its
     attention instances: ``(hd, dtype)`` for ragged and chunked, ``(hd,
-    dtype, G)`` for decode, whose blocks size it by G."""
+    dtype, G)`` for decode, whose blocks size it by G (:func:`smem_bytes`)."""
     lib = build.load(source)
     fn = getattr(lib, source)
     if fn.argtypes is None:
@@ -39,3 +39,11 @@ def library(source: str = SOURCE) -> ctypes.CDLL:
         smem.argtypes = [_i] * (3 if source == DECODE_SOURCE else 2)
         smem.restype = ctypes.c_int
     return lib
+
+
+def smem_bytes(source: str, hd: int, dtype: int, group: int) -> int:
+    """The dynamic shared memory a launch of ``source``'s kernel requests at
+    head dim ``hd``, dtype code ``dtype`` and ``group`` query heads per kv
+    head."""
+    fn = getattr(library(source), f"{source}_smem_bytes")
+    return fn(hd, dtype, group) if source == DECODE_SOURCE else fn(hd, dtype)

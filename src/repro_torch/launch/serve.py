@@ -14,6 +14,14 @@ policy axes at once (one name, or ``admission/preemption/eviction``).
 ``--roles prefill,decode`` serves through the disaggregated two-role
 frontend (:mod:`repro_torch.serving.disagg`) and ``--host-blocks N`` adds
 the host-memory KV tier (pair it with ``--eviction tiered``).
+``--num-queries-per-block``, ``--num-kv-pages-per-block`` and
+``--vmem-limit-bytes`` pin the paged kernels' tunables (0, the default,
+consults the measured table ``repro_torch/perf/data/tune_h100.json``
+for the ragged kernel, then the port's defaults); ``--sanitize on`` runs
+the engine under its runtime guards.  There is no ``--backend``: the
+kernel follows ``--device``.  ``--arch`` takes the dense and MoE configs
+(granite-moe-1b-a400m fits one card; qwen3-moe-235b-a22b only
+``--reduced``).
 
 Weights are random, drawn from a seeded generator on the device.  Pass
 ``--device cpu`` (with ``--reduced`` for a tiny float32 model) to run the
@@ -62,6 +70,22 @@ def main(argv=None) -> None:
     p.add_argument("--prefetch-depth", type=int, default=0,
                    help="the reference's KV-page DMA ring depth for the "
                         "chunked kernel; the CUDA kernel ignores it")
+    p.add_argument("--num-queries-per-block", type=int, default=0,
+                   help="ragged kernel: query rows (lanes x G) per "
+                        "tensor-core tile, G to 128; 0 = autotune table / "
+                        "default")
+    p.add_argument("--num-kv-pages-per-block", type=int, default=0,
+                   help="paged kernels: KV pages per decode split (whole "
+                        "64-key stages, at most 512 keys); 0 = autotune "
+                        "table / default")
+    p.add_argument("--vmem-limit-bytes", type=int, default=0,
+                   help="paged kernels: cap on a launch's shared memory in "
+                        "bytes, refusing a launch that requests more; 0 = "
+                        "autotune table / none")
+    p.add_argument("--sanitize", default="off", choices=("on", "off"),
+                   help="runtime guards: kernel rebuilds, host syncs in the "
+                        "build half, allocator invariants after each "
+                        "commit")
     for axis in policy_lib.AXES:
         p.add_argument(f"--{axis}", default=policy_lib.DEFAULTS[axis],
                        choices=policy_lib.names(axis),
@@ -117,7 +141,11 @@ def main(argv=None) -> None:
                         prefetch_depth=args.prefetch_depth, spec=args.spec,
                         spec_k=args.spec_k, overlap=args.overlap == "on",
                         roles=args.roles, host_blocks=args.host_blocks,
-                        trace=args.trace)
+                        trace=args.trace,
+                        num_queries_per_block=args.num_queries_per_block,
+                        num_kv_pages_per_block=args.num_kv_pages_per_block,
+                        vmem_limit_bytes=args.vmem_limit_bytes,
+                        sanitize=args.sanitize == "on")
     trace, ctx = None, contextlib.nullcontext()
     if serve.trace:
         trace = Trace.load(serve.trace)
@@ -181,7 +209,10 @@ def main(argv=None) -> None:
           f"ms  TPOT p50 {m['p50_tpot_s']*1e3:.1f} / p99 "
           f"{m['p99_tpot_s']*1e3:.1f} ms")
     print(f"attn {m['attn_impl']}  q_chunk={m['q_chunk']} "
-          f"prefetch_depth={m['prefetch_depth']}")
+          f"prefetch_depth={m['prefetch_depth']} "
+          f"num_queries_per_block={m['num_queries_per_block']} "
+          f"num_kv_pages_per_block={m['num_kv_pages_per_block']} "
+          f"vmem_limit_bytes={m['vmem_limit_bytes']}")
     print(f"preemptions {m['preemptions']}  "
           f"prefix hit rate {m['prefix_hit_rate']:.2f}  "
           f"cow copies {m['cow_copies']}")
@@ -198,6 +229,13 @@ def main(argv=None) -> None:
               f"p99 {h['p99']:.2f} ms  prefill steps "
               f"{m['roles']['prefill']['steps']}  decode steps "
               f"{m['roles']['decode']['steps']}")
+    san = m["sanitize"]
+    print(f"sanitize {'on' if san['enabled'] else 'off'}  "
+          f"retraces={san['retraces']} "
+          f"transfer_guard_trips={san['transfer_guard_trips']} "
+          f"invariant_checks={san['invariant_checks']} "
+          f"allowed_host_syncs={san['allowed_host_syncs']} "
+          f"compiles={san['compiles']}")
     s = m["spec"]
     print(f"spec {s['proposer']} k={s['k']}  "
           f"accept_rate {s['acceptance_rate']:.2f}  "

@@ -1,5 +1,5 @@
-"""Model factory (port of ``repro.models.api.build_model``: the dense
-decoder and DLRM families)."""
+"""Model factory (port of ``repro.models.api.build_model``: the dense and
+MoE decoders and DLRM)."""
 from __future__ import annotations
 
 from typing import Union
@@ -17,8 +17,8 @@ def build_model(cfg: Union[str, ModelConfig, DLRMConfig], *, device="cuda",
         cfg = get_config(cfg)
     if isinstance(cfg, DLRMConfig):
         return DLRM(cfg, device=device, **kw)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port builds dense decoders and "
-            "DLRM only")
+            f"family {cfg.family!r}: the port builds dense and MoE decoders "
+            "and DLRM only")
     return TransformerLM(cfg, device=device, **kw)

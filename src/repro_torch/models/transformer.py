@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM (port of the dense, single-device paths of
-``repro.models.transformer``):
+"""Decoder-only transformer LM (port of the dense and MoE single-device
+paths of ``repro.models.transformer``):
 
 * :meth:`TransformerLM.forward`: prefill / loss logits over whole
   sequences (plain chunked attention);
@@ -12,9 +12,12 @@
 
 Parameters are a dict with the JAX pytree's names and layouts: ``embed``,
 ``layers`` (``ln1``, ``ln2``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``},
-``mlp`` {``w_gate``, ``w_up``, ``w_down``}, each stacked on a leading
-``L`` axis as ``jax.vmap(_layer_init)`` stacks them), ``final_norm`` and,
-for untied models, ``head``.
+``mlp`` {``w_gate``, ``w_up``, ``w_down``} or, for a MoE config, ``moe``
+{``router``, ``w_gate``, ``w_up``, ``w_down``[, ``shared``]}, each stacked
+on a leading ``L`` axis as ``jax.vmap(_layer_init)`` stacks them),
+``final_norm`` and, for untied models, ``head``.  A MoE layer routes with
+capacity dropping in :meth:`TransformerLM.forward` and at full capacity in
+the two decode paths, as the reference does.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.core import attention_api, paged_kv
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.embedding import embed, embedding_init, unembed
 from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norm import rmsnorm, rmsnorm_init
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -36,9 +40,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  q_chunk: int = 512):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port serves dense decoders")
+                f"family {cfg.family!r}: the port serves dense and MoE "
+                "decoders")
         self.cfg = cfg
         self.q_chunk = q_chunk          # forward's attention query chunk
         self.device = device_lib.resolve(device)
@@ -57,7 +62,10 @@ class TransformerLM:
                 "ln2": rmsnorm_init(cfg.d_model, dt, dev),
                 "attn": attn_lib.attention_init(gen, cfg.d_model,
                                                 cfg.attention, dt, dev),
-                "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt, dev),
+                **({"moe": moe_init(gen, cfg.d_model, cfg.moe, dt, dev)}
+                   if cfg.moe is not None else
+                   {"mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt,
+                                    dev)}),
             })
         params = {
             "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt,
@@ -71,14 +79,26 @@ class TransformerLM:
         return params
 
     # --------------------------------------------------------------- forward
+    def _ffn(self, lp, h, *, full_capacity: bool):
+        """The layer's feed-forward on h (B, S, D): the SwiGLU, or the MoE
+        (capacity-dropped, or at full capacity on the decode paths).
+        Returns (out, aux), aux 0 for a dense layer."""
+        cfg = self.cfg
+        if cfg.moe is not None:
+            return moe_apply(lp["moe"], h, cfg.moe,
+                             full_capacity=full_capacity)
+        return (mlp_apply(lp["mlp"], h, cfg.act),
+                torch.zeros((), dtype=torch.float32, device=h.device))
+
     def _block(self, lp, x, positions):
         cfg = self.cfg
         h, kv = attn_lib.attention_block(
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
             cfg.attention, chunk=self.q_chunk)
         x = x + h
-        h = mlp_apply(lp["mlp"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.act)
-        return x + h, kv
+        h, aux = self._ffn(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                           full_capacity=False)
+        return x + h, aux, kv
 
     def _embed_inputs(self, params, tokens):
         return embed(params["embed"], tokens)
@@ -88,15 +108,17 @@ class TransformerLM:
         """tokens (B, S) -> (logits (B, S, V) f32, aux) — and the layers'
         (k, v), each stacked (L, B, S, KV, hd), with ``return_kv``.
         ``last_only`` unembeds the last position only.  ``aux`` is the
-        reference's MoE loss, 0 for a dense model."""
+        reference's MoE loss summed over the layers, 0 for a dense model."""
         cfg = self.cfg
         x = self._embed_inputs(params, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         ks, vs = [], []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.num_layers):
-            x, (k, v) = self._block(_layer(params["layers"], i), x,
-                                    positions)
+            x, layer_aux, (k, v) = self._block(_layer(params["layers"], i),
+                                               x, positions)
+            aux = aux + layer_aux
             if return_kv:
                 ks.append(k)
                 vs.append(v)
@@ -104,7 +126,6 @@ class TransformerLM:
             x = x[:, -1:]
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = unembed(params.get("head", params["embed"]), x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_kv:
             return logits, aux, (torch.stack(ks), torch.stack(vs))
         return logits, aux
@@ -144,7 +165,7 @@ class TransformerLM:
             x = x + torch.matmul(ctx.reshape(x.shape[0], -1),
                                  lp["attn"]["wo"])
             h = rmsnorm(lp["ln2"], x[:, None], cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, cfg.act)[:, 0]
+            x = x + self._ffn(lp, h, full_capacity=True)[0][:, 0]
         x = rmsnorm(params["final_norm"], x[:, None], cfg.norm_eps)
         head = params.get("head", params["embed"])
         return unembed(head, x)[:, 0], pools
@@ -152,7 +173,8 @@ class TransformerLM:
     def decode_tokens_paged(self, params, pools, lists, tokens, *,
                             num_lanes: Optional[int] = None,
                             attn_impl: str = "ragged", q_chunk: int = 16,
-                            prefetch_depth: int = 0):
+                            prefetch_depth: int = 0,
+                            attn_tunables: Optional[Dict[str, int]] = None):
         """Fused chunked-prefill + decode over flat token lanes.
 
         Per layer each lane's K/V is written into the fused pool
@@ -161,8 +183,10 @@ class TransformerLM:
         picks: ``"ragged"`` the ragged kernel on the fused pool and the cu
         prefix sums, ``"chunked"`` the chunked kernel on split views of the
         same pool and the per-lane ``token_req``/``token_pos``/``kv_lens``
-        (tuned by ``q_chunk`` and ``prefetch_depth``).  Greedy outputs are
-        identical either way.
+        (tuned by ``q_chunk`` and ``prefetch_depth``).  ``attn_tunables``
+        (the ragged family's keys; None: the defaults) go to the ragged
+        kernel, their split and cap to the chunked one.  Greedy outputs are
+        identical either way at an equal split.
 
         lists (as the engine renders them): block_list/block_req/block_pos
         (Tb,), kv_lens (B,), token_req/token_pos (T,),
@@ -185,6 +209,9 @@ class TransformerLM:
         a = cfg.attention
         pool = pools["kv"]
         token_pos = lists["token_pos"]
+        tun = dict(attn_tunables or {})
+        split_kw = {k: tun[k] for k in ("num_kv_pages_per_block",
+                                        "vmem_limit_bytes") if k in tun}
         x = embed(params["embed"], tokens)                  # (T, D)
         lp_all = params["layers"]
         for i in range(cfg.num_layers):
@@ -200,18 +227,19 @@ class TransformerLM:
                     q[:, 0].contiguous(), pool[i], lists["block_list"],
                     lists["block_req"], lists["block_pos"],
                     lists["cu_q_lens"], lists["cu_kv_lens"],
-                    lists["seq_slot"])
+                    lists["seq_slot"], **tun)
             else:
                 pk, pv = paged_kv.fused_kv_views(pool[i])
                 ctx = attention_api.paged_attention_chunked_op(
                     q[:, 0].contiguous(), pk, pv, lists["block_list"],
                     lists["block_req"], lists["block_pos"],
                     lists["kv_lens"], lists["token_req"], token_pos,
-                    q_chunk=q_chunk, prefetch_depth=prefetch_depth)
+                    q_chunk=q_chunk, prefetch_depth=prefetch_depth,
+                    **split_kw)
             x = x + torch.matmul(ctx.reshape(x.shape[0], -1),
                                  lp["attn"]["wo"])
             h = rmsnorm(lp["ln2"], x[:, None], cfg.norm_eps)
-            x = x + mlp_apply(lp["mlp"], h, cfg.act)[:, 0]
+            x = x + self._ffn(lp, h, full_capacity=True)[0][:, 0]
         head = params.get("head", params["embed"])
         if "logit_lanes" in lists:
             x_sel = x[lists["logit_lanes"].long()]          # (B, R, D)

@@ -57,8 +57,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.analysis import sanitize as sanitize_lib
 from repro_torch.config import ModelConfig, ServeConfig
-from repro_torch.core.paged_kv import host_read
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.metrics import LatencyTracker
 from repro_torch.serving.request import RequestState
@@ -85,7 +85,8 @@ def copy_block_tokens(dst_pools, src_pools, src_slots: np.ndarray,
     ``src_slots`` / ``dst_slots`` are (n, 2) ``[block, offset]`` arrays (as
     ``reserve_tokens`` returns them).  Pools on one device copy device to
     device, in stream order after the steps that wrote the source; pools
-    on different devices go through host memory (:func:`host_read`).
+    on different devices go through host memory (``sanitize.host_read``,
+    declared as ``disagg-handoff``).
     Returns ``dst_pools``.
     """
     for c, dst in dst_pools.items():     # ONE fused kv channel
@@ -98,7 +99,7 @@ def copy_block_tokens(dst_pools, src_pools, src_slots: np.ndarray,
                   for i in (0, 1))
         vals = src[:, sb, so]                               # (L, n, ...)
         if vals.device != dst.device:
-            vals = host_read(vals)
+            vals = sanitize_lib.host_read(vals, reason="disagg-handoff")
         dst[:, db, do] = vals.to(dst.device, dst.dtype)
     return dst_pools
 

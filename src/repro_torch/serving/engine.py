@@ -34,14 +34,31 @@ layer a hand-written paged-attention kernel on a card) and samples
 
 ``ServeConfig.attn_impl`` picks the attention kernel of every layer:
 ``"ragged"`` (the default) or ``"chunked"`` (tuned by ``q_chunk`` and
-``prefetch_depth``).  Greedy streams are identical under either kernel,
-with overlap on or off, and with or without a proposer or the host tier.
+``prefetch_depth``).  Greedy streams are identical under either kernel at
+an equal decode split, with overlap on or off, and with or without a
+proposer or the host tier.
+
+The kernels' tunables (``num_queries_per_block``,
+``num_kv_pages_per_block``, ``vmem_limit_bytes``) resolve as the
+reference's do: a value > 0 in the config wins; with ``attn_impl="ragged"``
+and any left at 0 the engine consults the measured table
+(:mod:`repro_torch.perf.autotune`) for (block size, head dim, kernel),
+counting ``tune.tuned_resolved`` on a hit and ``tune.tuned_fallback`` on a
+miss, and the port's defaults (``attention_api.TUNABLE_DEFAULTS``) fill
+the rest.  The chunked kernel takes the resolved split and cap too.
+
+``ServeConfig.sanitize`` runs the guards of
+:mod:`repro_torch.analysis.sanitize`: the retrace guard around each
+forward's dispatch, the host-sync guard around the build half, and the
+allocator's invariants after every commit; ``metrics()["sanitize"]`` and
+the ``sanitize.*`` counters report them.
 
 Not in the port yet, refused at construction with ``NotImplementedError``:
 a mesh or ``devices > 1``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional
 
@@ -49,10 +66,13 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.analysis import sanitize as sanitize_lib
 from repro_torch.config import ModelConfig, ServeConfig
+from repro_torch.core import attention_api
 from repro_torch.core.paged_kv import (
     BlockAllocator, HostPool, copy_pool_blocks, make_fused_pool,
     read_pool_block, write_pool_block)
+from repro_torch.perf import autotune as autotune_lib
 from repro_torch.serving import policy as policy_lib
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving import spec as spec_lib
@@ -162,6 +182,33 @@ class ServingEngine:
         # "cuda": the hand-written kernel; "plain": its PyTorch version
         kernel = "cuda" if self.device.type == "cuda" else "plain"
         self._metrics = EngineMetrics(backend=kernel)
+        # The kernels' tunables: an explicit value > 0 wins; with the
+        # ragged kernel and any left at 0, the measured table for this
+        # (block size, head dim, kernel) cell, counted tuned_resolved /
+        # tuned_fallback; the port's defaults fill the rest.
+        defaults = dict(attention_api.TUNABLE_DEFAULTS)
+        self._tune_counters = {"tuned_resolved": 0, "tuned_fallback": 0}
+        explicit = {k: int(getattr(serve, k))
+                    for k in autotune_lib.TUNABLE_KEYS}
+        if self.attn_impl == "ragged" and any(
+                v == 0 for v in explicit.values()):
+            tuned = autotune_lib.resolve_tunables(bs, a.head_dim, kernel)
+            if tuned is not None:
+                defaults.update(tuned)
+                self._tune_counters["tuned_resolved"] = 1
+            else:
+                self._tune_counters["tuned_fallback"] = 1
+        # (a negative value is refused here, not read as "unset")
+        self.attn_tunables = attention_api.check_tunables(
+            bs, a.num_heads // a.num_kv_heads,
+            **{k: explicit[k] if explicit[k] != 0 else int(defaults[k])
+               for k in autotune_lib.TUNABLE_KEYS})
+        # Runtime sanitizers: the retrace guard on each forward's dispatch,
+        # the host-sync guard around the build half, and the allocator's
+        # invariants after every commit.
+        self.sanitize = bool(serve.sanitize)
+        self.sanitizer = (sanitize_lib.Sanitizer() if self.sanitize
+                          else None)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # overlapped loop: the dispatched, unresolved step, and req_id ->
@@ -348,6 +395,26 @@ class ServingEngine:
     def _uploads(self, arrays):
         return type(arrays)(self._upload(a) for a in arrays)
 
+    # ------------------------------------------------------------- sanitizers
+    def _sanitize_scope(self, scope: str):
+        """The host-sync guard over the build half (none unless
+        sanitizing)."""
+        if self.sanitizer is None:
+            return contextlib.nullcontext()
+        return self.sanitizer.no_host_sync(scope)
+
+    def _expect_cached(self, tag: str, *trees):
+        """The retrace guard around one forward's dispatch (none unless
+        sanitizing)."""
+        if self.sanitizer is None:
+            return contextlib.nullcontext()
+        return self.sanitizer.expect_cached(
+            sanitize_lib.jit_signature(tag, *trees))
+
+    def _check_allocator(self) -> None:
+        if self.sanitizer is not None:
+            self.sanitizer.check_allocator(self.alloc)
+
     # -------------------------------------------------------------- main loop
     def _propose(self) -> Dict[int, np.ndarray]:
         """Drafts for every DECODING request, through ONE ``propose_batch``
@@ -453,13 +520,17 @@ class ServingEngine:
         self._drain_tier()
         self._drain_cow()
 
-    def _forward(self, plan: StepPlan, lists_np, tokens: torch.Tensor):
-        """Upload the rendered lists and run the fused forward."""
+    def _forward(self, plan: StepPlan, lists_np, tokens: torch.Tensor,
+                 tag: str = "step"):
+        """Upload the rendered lists and run the fused forward (``tag``
+        names the dispatch to the retrace guard)."""
         lists = {k: self._upload(v) for k, v in lists_np.items()}
-        logits, self.pools = self.model.decode_tokens_paged(
-            self.params, self.pools, lists, tokens,
-            num_lanes=plan.num_tokens, attn_impl=self.attn_impl,
-            q_chunk=self.q_chunk, prefetch_depth=self.prefetch_depth)
+        with self._expect_cached(tag, lists_np, tokens):
+            logits, self.pools = self.model.decode_tokens_paged(
+                self.params, self.pools, lists, tokens,
+                num_lanes=plan.num_tokens, attn_impl=self.attn_impl,
+                q_chunk=self.q_chunk, prefetch_depth=self.prefetch_depth,
+                attn_tunables=self.attn_tunables)
         return logits
 
     def _build(self, plan: StepPlan, t0: float, t1: float) -> _PendingStep:
@@ -467,21 +538,24 @@ class ServingEngine:
         KV slots are committed, decode-ish actions append a placeholder
         token (the sampled value is still on the device) recorded in
         ``_chain``, prefill chunks advance and publish their prefix blocks.
-        Nothing here waits for the device."""
-        lists_np, tokens_np, tok_src_np, sample_np, spec, committed = (
-            self._render(plan))
-        assert spec is None, "drafted plans go through _step_sync"
-        self.sync_pools()
-        t2 = time.perf_counter()
-        tokens = self._upload(tokens_np)
-        if (tok_src_np >= 0).any():     # chain from the step in flight
-            nxt_prev = self._pending.nxt_dev
-            tok_src = self._upload(tok_src_np)
-            live = tok_src.clamp(0, nxt_prev.shape[0] - 1).long()
-            tokens = torch.where(tok_src >= 0, nxt_prev[live], tokens)
-        logits = self._forward(plan, lists_np, tokens)
-        nxt_dev = sampling_lib.sample_batched(
-            self._gen, logits, *self._uploads(sample_np))
+        Nothing here waits for the device (the host-sync guard holds the
+        render, the pool traffic and the dispatch to that when
+        sanitizing)."""
+        with self._sanitize_scope("overlap-build"):
+            lists_np, tokens_np, tok_src_np, sample_np, spec, committed = (
+                self._render(plan))
+            assert spec is None, "drafted plans go through _step_sync"
+            self.sync_pools()
+            t2 = time.perf_counter()
+            tokens = self._upload(tokens_np)
+            if (tok_src_np >= 0).any():     # chain from the step in flight
+                nxt_prev = self._pending.nxt_dev
+                tok_src = self._upload(tok_src_np)
+                live = tok_src.clamp(0, nxt_prev.shape[0] - 1).long()
+                tokens = torch.where(tok_src >= 0, nxt_prev[live], tokens)
+            logits = self._forward(plan, lists_np, tokens)
+            nxt_dev = sampling_lib.sample_batched(
+                self._gen, logits, *self._uploads(sample_np))
         actions = []
         chain: Dict[int, int] = {}
         for req, n, pos0 in committed:
@@ -551,6 +625,9 @@ class ServingEngine:
             num_tokens=pend.num_tokens, emitted_tokens=emitted,
             phases={**pend.phases, "device": t_done - pend.t_dispatch,
                     "commit": time.perf_counter() - t_done})
+        # after the reconciliation: commits, finishes and preemption frees
+        # have all landed in the allocator
+        self._check_allocator()
 
     def _filter_finished(self, plan: StepPlan) -> None:
         """Drop plan entries whose request finished at a resolve that ran
@@ -571,7 +648,8 @@ class ServingEngine:
         assert spec is not None
         self.sync_pools()
         t2 = time.perf_counter()
-        logits = self._forward(plan, lists_np, self._upload(tokens_np))
+        logits = self._forward(plan, lists_np, self._upload(tokens_np),
+                               "spec")
         out, acc = spec_lib.verify_batched(
             self._gen, logits, *self._uploads(spec),
             *self._uploads(sample_np))
@@ -632,6 +710,7 @@ class ServingEngine:
             num_tokens=plan.num_tokens, emitted_tokens=emitted,
             phases={"propose": t1 - t0, "schedule_render": t2 - t1,
                     "device": t3 - t2, "commit": t4 - t3})
+        self._check_allocator()
         return plan.num_tokens
 
     def _register_generated(self, req: Request, pos0: int,
@@ -709,7 +788,10 @@ class ServingEngine:
             "overlap": self.overlap,
             "prefetch_depth": self.prefetch_depth,
             "q_chunk": self.q_chunk,
+            # the attention kernel and its resolved tunables (explicit,
+            # the table's, or the defaults: the tune.* counters say which)
             "attn_impl": self.attn_impl,
+            **self.attn_tunables,
             "blocks_free": self.alloc.num_free,
             "preemptions": self.scheduler.num_preemptions,
             "slot_compactions": self.scheduler.num_slot_compactions,
@@ -753,4 +835,15 @@ class ServingEngine:
         }
         m["policy_counters"].update(
             {f"tier.{k}": v for k, v in sorted(tier_counters.items())})
+        m["policy_counters"].update(
+            {f"tune.{k}": v for k, v in sorted(self._tune_counters.items())})
+        # the sanitizers: whether the run was guarded and their counters,
+        # also flattened beside the policy counters
+        san = (self.sanitizer.counters() if self.sanitizer is not None else
+               {"retraces": 0, "transfer_guard_trips": 0,
+                "invariant_checks": 0, "allowed_host_syncs": 0,
+                "compiles": 0})
+        m["sanitize"] = {"enabled": self.sanitize, **san}
+        m["policy_counters"].update(
+            {f"sanitize.{k}": v for k, v in sorted(san.items())})
         return m

@@ -1,6 +1,8 @@
-"""The port's dense decoder configs against the JAX package's: llama31-8b
+"""The port's decoder configs against the JAX package's: llama31-8b
 (the paper's LLM), llama31-70b, qwen2-1.5b (QKV bias), qwen3-32b
-(qk_norm), internlm2-20b and smollm-360m.
+(qk_norm), internlm2-20b and smollm-360m, and the MoE configs
+granite-moe-1b-a400m and qwen3-moe-235b-a22b (their fields; the MoE
+models are held to JAX in ``tests/test_torch_moe.py``).
 
 Fields equal the reference's, full and reduced; at reduced float32 widths
 with bridged parameters (biases and qk-norm scales perturbed away from
@@ -31,12 +33,12 @@ NEW = LMS[1:]
 
 def _fields(cfg_t, cfg_j):
     """(name, port value, reference value) for every field of the port's
-    ModelConfig, the attention sub-config field by field."""
+    ModelConfig, the attention and MoE sub-configs field by field."""
     for f in dataclasses.fields(ModelConfig):
         got, want = getattr(cfg_t, f.name), getattr(cfg_j, f.name)
-        if f.name == "attention":
+        if f.name in ("attention", "moe") and got is not None:
             for g in dataclasses.fields(got):
-                yield (f"attention.{g.name}", getattr(got, g.name),
+                yield (f"{f.name}.{g.name}", getattr(got, g.name),
                        getattr(want, g.name))
         else:
             yield f.name, got, want
@@ -54,6 +56,25 @@ def test_config_fields_equal_the_reference(arch, reduced):
     if arch == "llama31-8b" and reduced:
         a = cfg_t.attention
         assert (a.num_heads, a.num_kv_heads, a.head_dim) == (4, 1, 16)
+
+
+MOE = ["granite-moe-1b-a400m", "qwen3-moe-235b-a22b"]
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_config_fields_equal_the_reference(arch, reduced):
+    """The two MoE configs, full and reduced (the reference's MoE branch:
+    4 experts, top-2, d_expert 32), field by field."""
+    cfg_t, cfg_j = get_config(arch), jax_get_config(arch)
+    if reduced:
+        cfg_t, cfg_j = (c.reduced(dtype="float32") for c in (cfg_t, cfg_j))
+    diff = [(n, g, w) for n, g, w in _fields(cfg_t, cfg_j) if g != w]
+    assert diff == []
+    assert cfg_t.family == "moe" and cfg_t.moe is not None
+    if reduced:
+        m = cfg_t.moe
+        assert (m.num_experts, m.top_k, m.d_expert) == (4, 2, 32)
 
 
 _MODELS = {}

@@ -8,7 +8,7 @@ request's pages in BlockList order, cut into splits of ``split`` keys, each
 split an online softmax over stages of 64 keys (or of ``split`` when
 smaller), then the splits rescaled by exp(m_s - m) and summed in split
 order.  Also: the workspace sizing of ``attention_api`` agrees with the
-header's ``kSplitKeys``, and bounds the splits of every case; and the
+header's ``kMaxSplitKeys``, and bounds the splits of every case; and the
 decode cases as lanes of one lane (``cases.decode_lanes``, which the card
 tests use to hold decode == chunked == ragged) give the same result
 through the chunked and ragged plain versions."""
@@ -113,7 +113,8 @@ CASES = ([_sweep(*case) for case in SWEEP]
                         num_entries=220, shuffle=True)])
 
 
-@pytest.mark.parametrize("split", [16, 64, api.SPLIT_KEYS])
+@pytest.mark.parametrize("split", [16, 64, 128, api.SPLIT_KEYS,
+                                   api.MAX_SPLIT_KEYS])
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_split_and_combine_matches_opt_and_jax(case, split):
     c = CASES[case]
@@ -144,13 +145,16 @@ def test_decode_lanes_give_the_decode_result(case):
 
 
 def test_workspace_sizing_agrees_with_the_header():
-    """``SPLIT_KEYS`` is the header's ``kSplitKeys``, a multiple of the
-    64-key stage, and ``split_capacity`` bounds the splits of every case's
-    owners (one per :data:`SPLIT_KEYS` keys, at least one each)."""
+    """``MAX_SPLIT_KEYS`` is the header's ``kMaxSplitKeys`` (which sizes the
+    split's page list in shared memory), the default ``SPLIT_KEYS`` a
+    multiple of the 64-key stage within it, and ``split_capacity`` bounds
+    the splits of every case's owners (one per :data:`SPLIT_KEYS` keys, at
+    least one each)."""
     text = HEADER.read_text()
-    found = re.findall(r"constexpr int kSplitKeys = (\d+);", text)
-    assert found == [str(api.SPLIT_KEYS)]
-    assert api.SPLIT_KEYS % STAGE == 0
+    found = re.findall(r"constexpr int kMaxSplitKeys = (\d+);", text)
+    assert found == [str(api.MAX_SPLIT_KEYS)]
+    assert api.SPLIT_KEYS % STAGE == 0 and api.MAX_SPLIT_KEYS % STAGE == 0
+    assert api.SPLIT_KEYS <= api.MAX_SPLIT_KEYS
     c = decode_case(np.random.default_rng(0), **LONG_WIDTHS["smollm-360m"],
                     **LONG_DECODE)
     for case in CASES + [c]:

@@ -67,6 +67,9 @@ import repro_torch.bench.disagg, repro_torch.examples.serve_llm
 import repro_torch.configs.llama31_8b, repro_torch.configs.llama31_70b
 import repro_torch.configs.qwen2_1_5b, repro_torch.configs.qwen3_32b
 import repro_torch.configs.internlm2_20b
+import repro_torch.perf.autotune, repro_torch.analysis.sanitize
+import repro_torch.layers.moe, repro_torch.configs.granite_moe_1b_a400m
+import repro_torch.configs.qwen3_moe_235b_a22b
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """

@@ -1,7 +1,8 @@
 """The port's serving entry points on the CPU: ``bench.disagg`` at the
 reference's smoke sizes against ``benchmarks/disagg.py`` (the same
-deterministic counters), the launcher's ``--policy``, ``--roles`` and
-``--host-blocks``, and the ``serve_llm`` example with its asserts."""
+deterministic counters), the launcher's ``--policy``, ``--roles``,
+``--host-blocks``, ``--sanitize``, the kernel tunables' flags and the MoE
+configs, and the ``serve_llm`` example with its asserts."""
 import numpy as np
 import pytest
 
@@ -70,3 +71,48 @@ def test_serve_llm_example_runs_with_its_asserts(capsys):
     assert "pool leak check: 128 == 128" in out
     assert "policies priority/fewest-remaining-tokens/hit-rate" in out
     assert np.isfinite(float(out.split("(")[1].split(" tok/s")[0]))
+
+
+_BASE = ["--requests", "4", "--prompt-len", "12", "--max-new", "6",
+         "--block-size", "8", "--reduced", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("argv,expect", [
+    (["--sanitize", "on", "--overlap", "on", "--eviction", "tiered",
+      "--host-blocks", "4"],
+     ["sanitize on  retraces=0 transfer_guard_trips=0 invariant_checks=",
+      "compiles=0"]),
+    (["--num-queries-per-block", "10", "--num-kv-pages-per-block", "16",
+      "--vmem-limit-bytes", "65536"],
+     ["num_queries_per_block=10 num_kv_pages_per_block=16 "
+      "vmem_limit_bytes=65536", "'tune.tuned_fallback': 0, "
+      "'tune.tuned_resolved': 0"]),
+    ([], ["sanitize off", "num_queries_per_block=128 "
+          "num_kv_pages_per_block=0 vmem_limit_bytes=0",
+          "'tune.tuned_fallback': 1"]),
+])
+def test_launcher_sanitize_and_tunable_flags(capsys, argv, expect):
+    serve.main(["--arch", "smollm-360m"] + _BASE + argv)
+    out = capsys.readouterr().out
+    for e in expect:
+        assert e in out, (e, out)
+
+
+def test_launcher_refuses_a_split_the_kernels_cannot_take():
+    with pytest.raises(ValueError, match="num_kv_pages_per_block"):
+        serve.main(["--arch", "smollm-360m"] + _BASE
+                   + ["--num-kv-pages-per-block", "3"])
+
+
+@pytest.mark.parametrize("arch,impl", [
+    ("granite-moe-1b-a400m", "ragged"), ("granite-moe-1b-a400m", "chunked"),
+    ("qwen3-moe-235b-a22b", "ragged")])
+def test_launcher_serves_the_moe_configs(capsys, arch, impl):
+    serve.main(["--arch", arch, "--attn-impl", impl] + _BASE)
+    out = capsys.readouterr().out
+    assert "served 4 requests, 24 tokens" in out, out
+
+
+def test_serve_llm_example_serves_granite_moe(capsys):
+    serve_llm.main(["--device", "cpu", "--arch", "granite-moe-1b-a400m"])
+    assert "pool leak check: 128 == 128" in capsys.readouterr().out
