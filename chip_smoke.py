@@ -258,11 +258,43 @@ Phases, each of which raises on failure (the script catches none):
    drains) and B2 (streams equal B1's), the init peak, TTFT / TPOT, the
    profile of three decode-only steps, B1 / B2 on their layer-0 steps
    beside the plain version and the bounds, the MoE layer's device ms a
-   step; then the paper path through B3.
+   step; then the paper path through B3;
+35. the BatchedTable backward kernel (``batched_embedding_backward``)
+   against its plain version (``batched_table_backward``) on phase 8's ids
+   at RM1's and RM2's full widths (a wrapped id's row gets the gradient,
+   an id past the end adds nothing): float32 atol 1e-5 (float atomics add
+   in no fixed order, so never bitwise); then on the main path's B = 4096
+   inputs its time (CUDA events over back-to-back launches through the C
+   entry point) beside the plain version, ``F.embedding_bag(mode="sum")``'s
+   backward (a yardstick, never used by the port), the bound (grad_out,
+   the ids, a read and a write of each distinct row touched at 3.35 TB/s)
+   and, on a line of its own, the dense gradient's zeroing (R x D x 4
+   bytes); then every backward instance's registers and spills
+   (``-Xptxas -v``; a spill fails the phase);
+36. a small-input reference for training: reduced smollm-360m (f32, 2
+   layers) and rm2 at 4096 rows a table (f32), the same parameters on the
+   card and the CPU, 5 steps of ``make_train_step`` (AdamW,
+   ``cosine_warmup``, TF32 off): per step loss rtol 1e-4, grad_norm rtol
+   1e-3, lr rtol 1e-6; the parameters after the last step atol 2e-4;
+37. LM training at full width: smollm-360m in float32 (32 layers, d 960,
+   remat ``full``) through the launcher's pieces (``Trainer``,
+   ``DataPipeline``, ``CheckpointManager``), batch 8 x 256, 10 steps,
+   a checkpoint at step 5; a fresh ``Trainer`` (another seed) restores
+   step 5 and runs to step 10, its losses equal to the uninterrupted
+   run's (rtol 1e-5); no kernel of the port launches (the
+   LM's attention is the reference's plain chunked attention); the init
+   peak, step ms p50, tokens/s, and two steps under torch.profiler (busy
+   share, ``cudaLaunchKernel`` calls a step);
+38. DLRM training at full width: rm1 and rm2 at 1 M rows a table, f32,
+   B = 4096, ``adamw(weight_decay=0.0)`` at lr 1e-3, 10 steps of
+   ``make_train_step`` through the ``Trainer``: B4's forward and backward
+   launches each equal the steps, every loss is finite; step ms p50, two
+   profiled steps (busy share, launches, the backward kernel's device
+   ms), and the device ms of the forward and of the optimizer's update.
 
-Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29, 30
-and 34b-d) runs with every kernel's launch count set to 0 just before it
-and read just after.  The card's peaks come
+Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29, 30,
+34b-d, 37 and 38) runs with every kernel's launch count set to 0 just
+before it and read just after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
 
 The ragged and chunked kernels run bf16 prefill owners (two or more lanes)
@@ -270,8 +302,9 @@ on the tensor-core tile and everything else on the SIMT tile; their JSON
 records say so in ``tile`` and carry the mixed and decode steps' times,
 steps and launches (at llama31-8b's width too, under ``llama31_8b``).
 Phases 28-30's readings are one JSON line with the card's name and power
-limit, and phases 31-34's another.  The line before the last is the kernels' JSON record; the last
-line is
+limit, phases 31-34's another and phases 35-38's a third.  The line
+before the last is the kernels' JSON record (the seven kernels and B4's
+backward); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
 nonzero before printing either.
 """
@@ -290,6 +323,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.bench.common import device_ms, kernel_ms  # noqa: E402
 from repro_torch.bench.turns import card_line  # noqa: E402
 from repro_torch.roofline.analysis import H100  # noqa: E402
+from repro_torch.serving.metrics import percentile  # noqa: E402
 
 HBM_BYTES_PER_S = H100.hbm_bw
 PEAK_OPS = {"torch.bfloat16": H100.peak_bf16, "torch.float32": H100.peak_f32}
@@ -333,6 +367,8 @@ DECODE_TILE = ("the decode tile: one block per (split of "
                "num_kv_pages_per_block pages, 256 keys by default, kv head),"
                " the splits combined in the launch")
 EMB_BATCH = 4096
+TRAIN_STEPS = 10                   # phases 37-38
+LM_BATCH, LM_SEQ = 8, 256          # phase 37's batches
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 STREAM_N = (128 * 16384, 2 ** 28)    # the reference's full n; 1 GiB f32
 STREAM_BLOCK_ROWS = (8, 64, 256, 1024)
@@ -429,11 +465,13 @@ def compare_flash(torch, got, q, k, v, causal, what):
 
 
 def to_device(tree, dev):
+    """A copy of every leaf on ``dev`` (never the same storage: the
+    optimizer updates parameters in place)."""
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, dev) for v in tree]
-    return tree.to(dev)
+    return tree.to(dev, copy=True)
 
 
 def _clone(t):
@@ -1194,7 +1232,8 @@ def main() -> int:
     # the launch counts, held here: a Capture replaces a module attribute
     counted = (api.paged_attention_ragged_op, api.paged_attention_chunked_op,
                api.paged_attention_op, emb_api.embedding_bag,
-               *stream_ops.OPS, *gs_ops.OPS, flash_attention)
+               emb_api.embedding_bag_backward, *stream_ops.OPS,
+               *gs_ops.OPS, flash_attention)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1620,6 +1659,42 @@ def main() -> int:
                     "sanitize": sanitized, "granite_moe": granite,
                     "card": card}, default=str))
 
+    # 35-38. B4's backward, training card vs CPU, LM and DLRM training ------
+    log("== 35. the B4 backward kernel against its plain version, rm1/rm2 "
+        "full widths; times, bound, registers")
+    t35 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  device memory still held by earlier phases: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    bwd_errs = [backward_check(torch, cfg_mod.get_config(arch), emb_api, dev)
+                for arch in ("rm1", "rm2")]
+    bwd = {arch: backward_times(torch, cfg_mod.get_config(arch), build_model,
+                                emb_api, dev, card)
+           for arch in ("rm1", "rm2")}
+    bwd_inst = backward_ptxas(build, builds, card)
+    bwd_err = max([b["max_abs_err"] for b in bwd.values()] + bwd_errs)
+    log(f"  phase 35: {time.perf_counter() - t35:.1f} s")
+    log("== 36. training card vs CPU: reduced smollm-360m and rm2 (4096 "
+        "rows), 5 AdamW steps")
+    t36 = time.perf_counter()
+    train_ref = training_reference_check(torch, cfg_mod, build_model, dev)
+    log(f"  phase 36: {time.perf_counter() - t36:.1f} s")
+    log(f"== 37. smollm-360m training at full width, f32, {LM_BATCH} x "
+        f"{LM_SEQ}, {TRAIN_STEPS} steps, a checkpoint and a restore")
+    t37 = time.perf_counter()
+    lm_train = lm_training(torch, cfg_mod, build_model, counted, dev, card)
+    log(f"  phase 37: {time.perf_counter() - t37:.1f} s")
+    log(f"== 38. DLRM training, rm1/rm2 at 1 M rows a table, B={EMB_BATCH}, "
+        f"{TRAIN_STEPS} steps")
+    t38 = time.perf_counter()
+    dlrm_train, bwd_launches = dlrm_training(torch, cfg_mod, build_model,
+                                             emb_api, counted, dev, card)
+    log(f"  phase 38: {time.perf_counter() - t38:.1f} s")
+    log(json.dumps({"backward": bwd, "train_reference": train_ref,
+                    "lm_training": lm_train, "dlrm_training": dlrm_train,
+                    "card": card}, default=str))
+
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
     chunked_top = dict(chunked_steps["mixed"], max_abs_err=max(
@@ -1666,6 +1741,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
         "launches": emb_launches, **emb["rm2"], "max_abs_err": emb_err,
         "rm1": emb["rm1"], "rm2": emb["rm2"]}, {
+        "name": "batched_embedding_backward", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
+        "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
+        "gradient_of": "src/repro/core/embedding_api.py:45 (jax.grad; the "
+                       "TPU side has no backward kernel)",
+        "launches": bwd_launches,
+        **{k: bwd["rm2"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "max_abs_err": bwd_err, "rm1": bwd["rm1"], "rm2": bwd["rm2"],
+        "instances": bwd_inst}, {
         "name": STREAM_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{STREAM_KERNEL}.cu",
         "replaces": "src/repro/kernels/stream/kernel.py:34",
@@ -3763,6 +3848,389 @@ def moe_phase(torch, np, cfg_mod, engine_mod, api, counted, build_model,
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def backward_check(torch, cfg, emb_api, dev):
+    """Phase 35: the backward kernel against its plain version on phase 8's
+    ids over the config's whole table (T x 1 M rows): uniform ids, the
+    last table's top 1000 rows, global id -1 (its row is the last) and an
+    id past the end (it adds nothing).  float32 atol 1e-5: float atomics
+    add in no fixed order (never bitwise).  Returns the largest error."""
+    T, R, D, L = (cfg.num_tables, cfg.num_embeddings, cfg.embedding_dim,
+                  cfg.gathers_per_table)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    idx = torch.randint(0, R, (EMB_BATCH, T, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:64, T - 1] = torch.randint(R - 1000, R, (64, L), generator=gen,
+                                    device=dev, dtype=torch.int32)
+    idx[64, 0, 0] = -1                 # global -1: the table's last row
+    idx[65, T - 1, L - 1] = R          # global T*R: past the end
+    offs = torch.arange(T, dtype=torch.int32, device=dev) * R
+    gids = (idx + offs[None, :, None]).reshape(-1)
+    go = torch.randn((EMB_BATCH, T, D), generator=gen, device=dev)
+    got = emb_api.embedding_bag_backward(go, gids, T * R)
+    torch.cuda.synchronize()
+    want = emb_api.batched_table_backward(go, gids, T * R)
+    err = compare(torch, got, want, 1e-5,
+                  f"{cfg.name} backward, table {T * R}x{D} "
+                  f"({T * R * D * 4 / 2 ** 30:.2f} GiB) bags {EMB_BATCH}x{T} "
+                  f"L={L}, a wrapped id and one past the end")
+    if not torch.any(got[T * R - 1] != 0):
+        raise AssertionError(f"{cfg.name}: the wrapped id's row got nothing")
+    del got, want
+    return err
+
+
+def backward_times(torch, cfg, build_model, emb_api, dev, card):
+    """Phase 35, times on the main path's B = 4096 inputs (phase 38's
+    seeded weights and first batch): the kernel through its C entry point
+    (back-to-back launches into one gradient), the plain version (its own
+    zeroing included), ``F.embedding_bag``'s backward (the yardstick, its
+    own zeroing included; never used by the port), the dense gradient's
+    zeroing alone, and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.data.pipeline import SyntheticRecSysDataset
+
+    params = build_model(cfg, device=dev).init(0)
+    table, offs = params["embedding"], params["table_offsets"]
+    idx = torch.from_numpy(SyntheticRecSysDataset(cfg, EMB_BATCH).batch_at(
+        0)["indices"]).to(dev)
+    B, T, L = idx.shape
+    R, D = table.shape
+    gids = (idx + offs[None, :, None]).reshape(-1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    go = torch.randn((B, T, D), generator=gen, device=dev)
+    op = emb_api.embedding_bag_backward
+    ms = kernel_ms(op, go, gids, R, device=dev)
+    got = op(go, gids, R)
+    want = emb_api.batched_table_backward(go, gids, R)
+    err = compare(torch, got, want, 1e-5,
+                  f"{cfg.name} backward B={B} (main-path inputs)")
+    plain_ms = device_ms(lambda: emb_api.batched_table_backward(go, gids, R),
+                         device=dev, reps=5)
+    zero_ms = device_ms(got.zero_, device=dev)
+    del got
+    weight = table.detach().requires_grad_(True)
+    lib_out = F.embedding_bag(gids.view(-1, L), weight, mode="sum")
+    lib_grad = torch.autograd.grad(lib_out, [weight], go.view(-1, D),
+                                   retain_graph=True)[0]
+    compare(torch, lib_grad, want, 1e-5,
+            f"{cfg.name} F.embedding_bag backward (yardstick) vs plain")
+    del lib_grad, want
+    library_ms = device_ms(lambda: torch.autograd.grad(
+        lib_out, [weight], go.view(-1, D), retain_graph=True), device=dev,
+        reps=10)
+    rows = torch.unique(gids).numel()
+    nbytes = go.numel() * 4 + gids.numel() * 4 + 2 * rows * D * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = B * T * L * D / PEAK_OPS["torch.float32"]
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    zero_bound = 1e3 * R * D * 4 / HBM_BYTES_PER_S
+    log(f"  {cfg.name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"F.embedding_bag backward {library_ms:.4f} ms  bound "
+        f"{bound_ms:.4f} ms ({rows} distinct rows of {gids.numel()} ids, "
+        f"{nbytes / 1e6:.1f} MB) -> {bound_ms / ms:.1%} of bound  [{card}]")
+    log(f"  {cfg.name}: zeroing the dense gradient ({R}x{D} f32, "
+        f"{R * D * 4 / 1e9:.2f} GB) {zero_ms:.4f} ms, bound "
+        f"{zero_bound:.4f} ms; kernel + zeroing {ms + zero_ms:.4f} ms")
+    del params, table, weight, lib_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms, zero_ms=zero_ms,
+                zero_bound_ms=zero_bound, distinct_rows=rows)
+
+
+def backward_ptxas(build, builds, card):
+    """Phase 35: every ``embedding_bag_backward_kernel`` instance's
+    registers, shared memory and spills (``-Xptxas -v``); a spill fails."""
+    rows = [r for r in build.ptxas_report(builds[EMB_KERNEL]["log"])
+            if "embedding_bag_backward_kernel" in r["entry"]]
+    if not rows:
+        raise AssertionError("no embedding_bag_backward_kernel in the "
+                             "build's ptxas log")
+    out = []
+    for r in rows:
+        g = re.search(r"ILi(\d+)ELi(\d+)E", r["entry"])
+        name = f"G={g.group(1)} NV={g.group(2)}" if g else r["entry"]
+        log(f"  backward {name}: {r.get('registers')} registers, "
+            f"{r.get('smem')} B smem, stack {r.get('stack')}, spills "
+            f"{r.get('spill_stores')}/{r.get('spill_loads')}  [{card}]")
+        out.append(dict(instance=name, registers=r.get("registers"),
+                        spill_stores=r.get("spill_stores"),
+                        spill_loads=r.get("spill_loads")))
+        if r.get("spill_stores") or r.get("spill_loads"):
+            raise AssertionError(f"backward {name} spills")
+    return out
+
+
+def training_reference_check(torch, cfg_mod, build_model, dev):
+    """Phase 36: reduced smollm-360m (f32, 2 layers) and rm2 at 4096 rows a
+    table (f32), the same parameters on the card and the CPU, 5 steps of
+    ``make_train_step`` with AdamW and ``cosine_warmup`` (TF32 off): per
+    step loss rtol 1e-4, grad_norm rtol 1e-3, lr rtol 1e-6; the parameters
+    after the last step atol 2e-4 (a fifth of one lr-sized Adam step: Adam
+    normalises each element's step, so an element whose gradient is near 0
+    turns a rounding difference of the card's sums into a visible one)."""
+    import dataclasses
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import (SyntheticLMDataset,
+                                           SyntheticRecSysDataset)
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.training.train_step import TrainState, make_train_step
+
+    lm = cfg_mod.get_config("smollm-360m").reduced(dtype="float32")
+    rm = dataclasses.replace(cfg_mod.get_config("rm2"), num_embeddings=4096)
+    cases = ((lm, SyntheticLMDataset(lm.vocab_size, 64, 4), {}),
+             (rm, SyntheticRecSysDataset(rm, 256), {"weight_decay": 0.0}))
+    out = {}
+    for cfg, ds, opt_kw in cases:
+        params_cpu = build_model(cfg, device="cpu").init(0)
+        runs = {}
+        for d in ("cpu", dev):
+            model = build_model(cfg, device=d)
+            params = to_device(params_cpu, d)
+            opt = adamw(**opt_kw)
+            state = TrainState(params, opt.init(params), torch.zeros(
+                (), dtype=torch.int32, device=d))
+            step = make_train_step(model, opt, cosine_warmup(1e-3, 2, 5))
+            metrics = []
+            for i in range(5):
+                batch = {k: torch.from_numpy(v).to(d)
+                         for k, v in ds.batch_at(i).items()}
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs[str(d)] = (metrics, tree_lib.leaves(state.params))
+        (m_cpu, p_cpu), (m_dev, p_dev) = runs["cpu"], runs[str(dev)]
+        for i, (a, b) in enumerate(zip(m_dev, m_cpu)):
+            for key, rtol in (("loss", 1e-4), ("grad_norm", 1e-3),
+                              ("lr", 1e-6)):
+                if not abs(a[key] - b[key]) <= rtol * abs(b[key]):
+                    raise AssertionError(
+                        f"{cfg.name} step {i}: {key} card {a[key]!r} CPU "
+                        f"{b[key]!r} (rtol {rtol:g})")
+        err = max((x.cpu().float() - y.float()).abs().max().item()
+                  for x, y in zip(p_dev, p_cpu) if x.numel())
+        log(f"  {cfg.name}: 5 steps, loss card / CPU "
+            + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}"
+                        for a, b in zip(m_dev, m_cpu))
+            + f"; grad_norm step 5 {m_dev[-1]['grad_norm']:.6f}/"
+            f"{m_cpu[-1]['grad_norm']:.6f}; params max_abs_err {err:.3e} "
+            f"(atol 2e-4)")
+        if not err <= 2e-4:
+            raise AssertionError(f"{cfg.name}: params after 5 steps differ "
+                                 f"by {err}")
+        out[cfg.name] = dict(losses=[a["loss"] for a in m_dev],
+                             params_max_abs_err=err)
+    return out
+
+
+def lm_training(torch, cfg_mod, build_model, counted, dev, card):
+    """Phase 37: smollm-360m at full width in float32 (32 layers, d 960,
+    remat ``full``) through the launcher's pieces (``launch/train.py``):
+    AdamW, ``cosine_warmup(3e-4, 1, 10)``, ``SyntheticLMDataset`` batches
+    of 8 x 256 through ``DataPipeline``, ``Trainer`` and a
+    ``CheckpointManager`` that saves step 5.  A fresh trainer (other seed)
+    restores step 5 and runs to step 10: its losses equal the uninterrupted
+    run's (rtol 1e-5).  The LM path runs none of the port's kernels (its
+    attention is the reference's plain chunked attention): every launch
+    count stays 0."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataPipeline, SyntheticLMDataset
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.training.train_step import init_state, make_train_step
+    from repro_torch.training.trainer import Trainer
+
+    cfg = dataclasses.replace(cfg_mod.get_config("smollm-360m"),
+                              dtype="float32")
+    model = build_model(cfg, device=dev, remat="full")
+    opt = adamw()
+    step = make_train_step(model, opt, cosine_warmup(
+        3e-4, max(TRAIN_STEPS // 10, 1), TRAIN_STEPS))
+    ds = SyntheticLMDataset(cfg.vocab_size, LM_SEQ, LM_BATCH)
+    half = TRAIN_STEPS // 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(model, 0, opt)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  smollm-360m f32: {cfg.num_params() / 1e6:.1f} M params; init "
+        f"peak (params, m, v) {init_peak:.2f} GiB")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        cm = CheckpointManager(ckpt_dir, keep=1)
+        pipe = DataPipeline(ds)
+        whole = Trainer(step_fn=step, state=state, pipeline=pipe, ckpt=cm,
+                        checkpoint_every=half)
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        whole.run(half)                  # saves step 5 and waits for it
+        t_ckpt = time.perf_counter()
+        whole.checkpoint_every = 0
+        whole.run(TRAIN_STEPS - half)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pipe.close()
+        launched = sum(op.launches for op in counted)
+        if cm.all_steps() != [half]:
+            raise AssertionError(f"checkpoints {cm.all_steps()} != [{half}]")
+        t1 = time.perf_counter()
+        pipe2 = DataPipeline(ds, start_step=half)
+        again = Trainer(step_fn=step, state=init_state(model, 1, opt),
+                        pipeline=pipe2, ckpt=cm, checkpoint_every=0)
+        if again.maybe_restore() != half:
+            raise AssertionError("the restore did not find step 5")
+        restore_s = time.perf_counter() - t1
+        again.run(TRAIN_STEPS - half)
+        pipe2.close()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    hist = whole.history
+    for h in hist:
+        log(f"    step {h['step']:2d}  loss {h['loss']:.6f}  grad_norm "
+            f"{h['grad_norm']:.4f}  {h['dt'] * 1e3:.1f} ms")
+    resumed = [h["loss"] for h in again.history]
+    want = [h["loss"] for h in hist[half:]]
+    log(f"  restored at step {half} ({restore_s:.1f} s with a fresh init): "
+        f"losses {', '.join(f'{x:.6f}' for x in resumed)}")
+    if not all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(resumed, want)):
+        raise AssertionError(f"restored losses {resumed} != {want}")
+    if not all(map(lambda x: x == x and abs(x) < 1e9,
+                   [h["loss"] for h in hist + again.history])):
+        raise AssertionError("a loss is not finite")
+    if launched:
+        raise AssertionError(f"{launched} kernel launches on the LM path")
+    p50 = percentile([h["dt"] for h in hist[1:]], 50)
+    tokens = LM_BATCH * LM_SEQ
+    log(f"  {TRAIN_STEPS} steps + a checkpoint in {wall:.1f} s (first "
+        f"{half} steps and the save {t_ckpt - t0:.1f} s); step p50 "
+        f"{p50 * 1e3:.1f} ms, {tokens / p50:.0f} tokens/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"kernel launches {launched}  [{card}]")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             ds.batch_at(0).items()}
+    holder = [again.state]
+
+    def one():
+        holder[0], _ = step(holder[0], batch)
+
+    one()
+    prof = profile_calls(torch, one, 2, "train steps", "step")
+    del whole, again, holder, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(init_peak_gib=init_peak, step_ms_p50=p50 * 1e3,
+                tokens_per_s=tokens / p50, busy_share=prof["busy_share"],
+                busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+                launches_per_step=prof["launches"],
+                losses=[h["loss"] for h in hist], restored_losses=resumed)
+
+
+def dlrm_training(torch, cfg_mod, build_model, emb_api, counted, dev, card):
+    """Phase 38: rm1 and rm2 at 1 M rows a table, float32, B = 4096,
+    ``adamw(weight_decay=0.0)`` at lr 1e-3, 10 steps of
+    ``make_train_step`` through the ``Trainer`` over ``DataPipeline``
+    batches: B4's forward and backward launch once a step each, every
+    loss is finite.  Then a profiled step (busy share, launches, the
+    backward kernel's device ms) and the device ms of the forward (with
+    its graph) and of the optimizer's update, each under the profiler."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import DataPipeline, SyntheticRecSysDataset
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizer import apply_updates
+    from repro_torch.optim.schedules import constant
+    from repro_torch.training.train_step import (
+        init_state, loss_and_grads, make_train_step)
+    from repro_torch.training.trainer import Trainer
+
+    out, launches = {}, 0
+    for arch in ("rm1", "rm2"):
+        cfg = cfg_mod.get_config(arch)
+        model = build_model(cfg, device=dev)
+        opt = adamw(weight_decay=0.0)
+        lr_fn = constant(1e-3)
+        step = make_train_step(model, opt, lr_fn)
+        state = init_state(model, 0, opt)
+        pipe = DataPipeline(SyntheticRecSysDataset(cfg, EMB_BATCH))
+        trainer = Trainer(step_fn=step, state=state, pipeline=pipe)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counted)
+        trainer.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        fwd = emb_api.embedding_bag.launches
+        bwd = emb_api.embedding_bag_backward.launches
+        pipe.close()
+        launches += bwd
+        losses = [h["loss"] for h in trainer.history]
+        p50 = percentile([h["dt"] for h in trainer.history[1:]], 50)
+        log(f"  {arch}: {TRAIN_STEPS} steps, losses "
+            + ", ".join(f"{x:.5f}" for x in losses)
+            + f"; step p50 {p50 * 1e3:.2f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; B4 "
+            f"forward launches {fwd}, backward launches {bwd}  [{card}]")
+        if fwd != TRAIN_STEPS or bwd != TRAIN_STEPS:
+            raise AssertionError(f"{arch}: B4 launches forward {fwd} / "
+                                 f"backward {bwd} != steps {TRAIN_STEPS}")
+        if not all(x == x and abs(x) < 1e9 for x in losses):
+            raise AssertionError(f"{arch}: a loss is not finite: {losses}")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 SyntheticRecSysDataset(cfg, EMB_BATCH).batch_at(0).items()}
+        holder = [trainer.state]
+
+        def one():
+            holder[0], _ = step(holder[0], batch)
+
+        prof = profile_calls(torch, one, 2, f"{arch} train steps", "step")
+        by_kernel = prof["device_ms"]
+        bwd_ms = sum(v for k, v in by_kernel.items()
+                     if "embedding_bag_backward_kernel" in k)
+        fwd_kernel_ms = sum(v for k, v in by_kernel.items()
+                            if "embedding_bag_kernel" in k)
+        params = holder[0].params
+
+        def forward():
+            with torch.enable_grad():
+                xs = tree_lib.map(lambda p: p.detach().requires_grad_(True)
+                                  if p.is_floating_point() else p, params)
+                model.loss(xs, batch)
+
+        forward_ms = busy_ms(torch, forward, n=3)
+        _, grads = loss_and_grads(model.loss, params, batch)
+        opt_state = holder[0].opt
+        lr = lr_fn(holder[0].step)
+
+        def optimizer():
+            updates, _, _ = opt.update(grads, opt_state, params, lr)
+            apply_updates(params, updates)
+
+        optimizer_ms = busy_ms(torch, optimizer, n=2)
+        log(f"  {arch} one step's device ms: forward (with its graph) "
+            f"{forward_ms:.3f} (B4 forward {fwd_kernel_ms:.4f}), backward "
+            f"kernel {bwd_ms:.4f}, optimizer (AdamW + apply) "
+            f"{optimizer_ms:.3f}; the step busy {prof['busy_ms']:.3f} of "
+            f"{prof['wall_ms']:.3f} ms ({prof['busy_share']:.1%})  [{card}]")
+        out[arch] = dict(step_ms_p50=p50 * 1e3, losses=losses,
+                         busy_share=prof["busy_share"],
+                         busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+                         launches_per_step=prof["launches"],
+                         forward_ms=forward_ms, b4_forward_ms=fwd_kernel_ms,
+                         backward_kernel_ms=bwd_ms,
+                         optimizer_ms=optimizer_ms, b4_launches=fwd,
+                         b4_backward_launches=bwd)
+        del trainer, state, holder, params, grads, opt_state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
 
 
 def _leaves(tree):

@@ -56,6 +56,26 @@ class ModelConfig:
     dtype: str = "bfloat16"
     source: str = ""
 
+    def num_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), as
+        ``repro.config.ModelConfig.num_params`` counts a dense or MoE
+        decoder."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        a = self.attention
+        per_layer = (d * a.num_heads * a.head_dim          # q
+                     + 2 * d * a.num_kv_heads * a.head_dim  # k, v
+                     + a.num_heads * a.head_dim * d)        # o
+        if self.moe is not None:
+            m = self.moe
+            per_layer += d * m.num_experts + m.num_experts * 3 * d * m.d_expert
+            if m.d_shared_expert:
+                per_layer += 3 * d * m.d_shared_expert
+        else:
+            per_layer += 3 * d * self.d_ff                  # swiglu
+        per_layer += 2 * d                                  # norms
+        head = 0 if self.tie_embeddings else V * d
+        return V * d + head + L * per_layer
+
     def reduced(self, **overrides: Any) -> "ModelConfig":
         """The same tiny config ``repro.config.ModelConfig.reduced`` makes."""
         small: Dict[str, Any] = dict(num_layers=2, d_model=64, d_ff=128,
@@ -163,6 +183,11 @@ def get_config(name: str) -> Any:
     except KeyError:
         raise KeyError(
             f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
+
+
+def list_configs():
+    _load_all()
+    return sorted(_REGISTRY)
 
 
 def _load_all() -> None:

@@ -33,6 +33,28 @@
 //     20 M x 64 x 4 B = 5.1 GB, past 2^31.
 // Not done yet: cp.async/TMA staging, L2 persistence for hot rows, load
 // cache policies, fusing the table-offset add into the kernel.
+//
+// The backward, batched_embedding_backward (the gradient of that function;
+// the TPU side has no kernel for it: JAX differentiates the reference
+// function batched_table_lookup, src/repro/core/embedding_api.py:45, into
+// a scatter-add) computes, into a dense float32 (R, D) gradient that the
+// wrapper zeroes first,
+//
+//   grad_table[g] += grad_out[b]   for every id g of bag b,
+//
+// with the forward's id rule: an id in [-R, 0) adds into row id + R, an id
+// outside [-R, R) adds nothing (what jax.grad of the reference gives).
+// float32 only (DLRM's parameters are float32 in both packages).  Bound:
+// grad_out, the ids and a read and a write of each distinct row touched at
+// 3.35 TB/s; the adds run as red.global.add.f32 in the L2.  Design: one
+// group of G lanes per bag, as the forward, reads grad_out[b] once into
+// registers with 16-byte loads, loads G ids at once and broadcasts them,
+// and adds the row into each of the bag's L rows with atomicAdd (the
+// result is unused, so it compiles to a reduction); row offsets are 64-bit.
+// Float atomics land in no fixed order, so the last bits of a row that
+// several bags touch change from run to run: compare with a tolerance,
+// never bitwise.  Not done yet: a sorted, deterministic segment reduction,
+// red.global.add.v4.f32, staging.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,6 +208,96 @@ cudaError_t launch_width(const void* table, const void* ids, void* out,
   return launch<T, 32, 4>(table, ids, out, num_bags, L, V, R, st);
 }
 
+// The backward: one group of G lanes per bag, as the forward; lane j of a
+// group holds vectors j, j + G, ... of grad_out[b] and adds them into the
+// rows of the bag's ids.
+template <int G, int NV>
+__global__ void __launch_bounds__(kThreads)
+    embedding_bag_backward_kernel(const float4* __restrict__ grad_out,
+                                  const int* __restrict__ ids,
+                                  float* __restrict__ grad_table,
+                                  long long num_bags, int L, int V,
+                                  long long R) {
+  const int lane = threadIdx.x % G;
+  const long long bag =
+      static_cast<long long>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
+  const bool live = bag < num_bags;
+  const int* bag_ids = ids + (live ? bag * L : 0);
+
+  float4 g[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int v = lane + j * G;
+    g[j] = (live && v < V) ? __ldg(grad_out + bag * V + v)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // As in the forward, every lane of the warp runs the same iterations, so
+  // the full-mask shuffles are safe; lanes of a bag past num_bags add
+  // nothing.
+  for (int l0 = 0; l0 < L; l0 += G) {
+    const int n = min(G, L - l0);
+    const int mine = (live && lane < n) ? __ldg(bag_ids + l0 + lane) : 0;
+    for (int k = 0; k < n; ++k) {
+      const int id = __shfl_sync(0xffffffffu, mine, k, G);
+      const long long row = id < 0 ? static_cast<long long>(id) + R
+                                   : static_cast<long long>(id);
+      if (!live || row < 0 || row >= R) continue;
+      float* dst = grad_table + row * (4LL * V);        // 64-bit offset
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int v = lane + j * G;
+        if (v >= V) continue;
+        atomicAdd(dst + 4 * v, g[j].x);
+        atomicAdd(dst + 4 * v + 1, g[j].y);
+        atomicAdd(dst + 4 * v + 2, g[j].z);
+        atomicAdd(dst + 4 * v + 3, g[j].w);
+      }
+    }
+  }
+}
+
+template <int G, int NV>
+cudaError_t launch_backward(const void* grad_out, const void* ids,
+                            void* grad_table, long long num_bags, int L,
+                            int V, long long R, cudaStream_t st) {
+  constexpr int kBags = kThreads / G;
+  const long long blocks = (num_bags + kBags - 1) / kBags;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  embedding_bag_backward_kernel<G, NV>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+          static_cast<const float4*>(grad_out), static_cast<const int*>(ids),
+          static_cast<float*>(grad_table), num_bags, L, V, R);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_backward_width(const void* grad_out, const void* ids,
+                                  void* grad_table, long long num_bags, int L,
+                                  int V, long long R, cudaStream_t st) {
+  if (V <= 1)
+    return launch_backward<1, 1>(grad_out, ids, grad_table, num_bags, L, V,
+                                 R, st);
+  if (V <= 2)
+    return launch_backward<2, 1>(grad_out, ids, grad_table, num_bags, L, V,
+                                 R, st);
+  if (V <= 4)
+    return launch_backward<4, 1>(grad_out, ids, grad_table, num_bags, L, V,
+                                 R, st);
+  if (V <= 8)
+    return launch_backward<8, 1>(grad_out, ids, grad_table, num_bags, L, V,
+                                 R, st);
+  if (V <= 16)
+    return launch_backward<16, 1>(grad_out, ids, grad_table, num_bags, L, V,
+                                  R, st);
+  if (V <= 32)
+    return launch_backward<32, 1>(grad_out, ids, grad_table, num_bags, L, V,
+                                  R, st);
+  if (V <= 64)
+    return launch_backward<32, 2>(grad_out, ids, grad_table, num_bags, L, V,
+                                  R, st);
+  return launch_backward<32, 4>(grad_out, ids, grad_table, num_bags, L, V, R,
+                                st);
+}
+
 }  // namespace
 
 // table (R, D), ids (num_bags * L,) int32, out (num_bags, D); dtype 0 is
@@ -210,4 +322,25 @@ extern "C" int batched_embedding(const void* table, const void* ids,
           : launch_width<__nv_bfloat16>(table, ids, out, num_bags, L, V, R,
                                         st);
   return static_cast<int>(err);
+}
+
+// grad_out (num_bags, D) float32, ids (num_bags * L,) int32 (the forward's
+// global ids), grad_table (R, D) float32, zeroed by the caller; adds
+// grad_out[b] into the row of every id of bag b (see the header).  D * 4
+// must be a multiple of 16 and at most 2048 bytes, and grad_out and
+// grad_table 16-byte aligned (the wrapper checks).  Returns the
+// cudaError_t of the launch (0 on success); launches nothing for
+// num_bags == 0.
+extern "C" int batched_embedding_backward(const void* grad_out,
+                                          const void* ids, void* grad_table,
+                                          long long num_bags, int L, int D,
+                                          long long R, void* stream) {
+  const long long row_bytes = static_cast<long long>(D) * 4;
+  if (num_bags < 0 || L < 0 || D < 1 || R < 1 || row_bytes % 16 != 0 ||
+      row_bytes / 16 > kMaxVectors)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_bags == 0) return 0;
+  return static_cast<int>(launch_backward_width(
+      grad_out, ids, grad_table, num_bags, L, static_cast<int>(row_bytes / 16),
+      R, static_cast<cudaStream_t>(stream)));
 }

@@ -1,8 +1,11 @@
-"""DLRM-DCNv2 (paper Table 3, RM1/RM2) for inference on the card (port of
+"""DLRM-DCNv2 (paper Table 3, RM1/RM2) on the card (port of
 ``repro.models.dlrm``), with the paper's BatchedTable embedding technique
 as a switch: ``use_batched=True`` (the default) pools every table in one
 launch of the hand-written kernel, ``False`` is the SingleTable baseline
-with one gather per table.
+with one gather per table.  :meth:`DLRM.loss` is differentiable end to
+end: the BatchedTable pool through the hand-written backward kernel
+(``core.embedding_api.embedding_bag``), SingleTable through
+``index_select``'s own gradient, as the reference's ``jnp.take``.
 
 Parameters are a dict with the JAX pytree's names and layouts:
 ``embedding`` (T*R, D), ``table_offsets`` (T,) int32, and ``bottom``,

@@ -18,6 +18,15 @@ on a leading ``L`` axis as ``jax.vmap(_layer_init)`` stacks them),
 ``final_norm`` and, for untied models, ``head``.  A MoE layer routes with
 capacity dropping in :meth:`TransformerLM.forward` and at full capacity in
 the two decode paths, as the reference does.
+
+:meth:`TransformerLM.loss` is the reference's training loss (next-token
+CE plus 0.01 times the MoE aux loss), differentiable end to end; with
+grad enabled each layer of ``forward`` runs under the ``remat`` policy
+(``repro_torch.training.remat``: True or ``"full"``, ``"dots"``, False or
+``"none"``).  Left out: ``extra_embeds`` (the VLM stub, ROADMAP A12);
+``scan_layers`` and ``unroll_attn`` (JAX compile notions: the layers are
+a Python loop here); ``shard_moe`` and ``moe_groups`` (expert sharding,
+with multi-GPU, A10).
 """
 from __future__ import annotations
 
@@ -33,19 +42,22 @@ from repro_torch.layers.embedding import embed, embedding_init, unembed
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norm import rmsnorm, rmsnorm_init
+from repro_torch.training import remat as remat_lib
+from repro_torch.training.losses import next_token_loss
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 q_chunk: int = 512):
+                 q_chunk: int = 512, remat=True):
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port serves dense and MoE "
                 "decoders")
         self.cfg = cfg
         self.q_chunk = q_chunk          # forward's attention query chunk
+        self.remat = remat_lib.resolve(remat)
         self.device = device_lib.resolve(device)
         self.dtype = _DTYPES[cfg.dtype]
 
@@ -115,9 +127,10 @@ class TransformerLM:
         positions = torch.arange(S, device=x.device).expand(B, S)
         ks, vs = [], []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(cfg.num_layers):
-            x, layer_aux, (k, v) = self._block(_layer(params["layers"], i),
-                                               x, positions)
+        block = (remat_lib.wrap(self._block, self.remat)
+                 if torch.is_grad_enabled() else self._block)
+        for lp in _unstack(params["layers"], cfg.num_layers):
+            x, layer_aux, (k, v) = block(lp, x, positions)
             aux = aux + layer_aux
             if return_kv:
                 ks.append(k)
@@ -129,6 +142,14 @@ class TransformerLM:
         if return_kv:
             return logits, aux, (torch.stack(ks), torch.stack(vs))
         return logits, aux
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch):
+        """Next-token CE plus 0.01 times the MoE aux loss.  batch: tokens
+        (B, S) [+ loss_mask (B, S)], tensors on the model's device."""
+        logits, aux = self.forward(params, batch["tokens"])
+        return next_token_loss(logits, batch["tokens"],
+                               batch.get("loss_mask")) + 0.01 * aux
 
     # ---------------------------------------------------------------- decode
     def decode_step_paged(self, params, pools, lists, tokens, *,
@@ -256,6 +277,17 @@ def _stack(layers):
     if isinstance(first, dict):
         return {k: _stack([lay[k] for lay in layers]) for k in first}
     return torch.stack(layers)
+
+
+def _unstack(tree, n: int):
+    """An ``L``-stacked parameter dict -> ``n`` per-layer dicts, each leaf
+    split once with ``unbind``: its gradient is one stack of the layers'
+    gradients, where a view per layer would add each layer's gradient
+    into a zeroed copy of the whole stacked leaf (L times its bytes)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return tree.unbind(0)
 
 
 def _layer(tree, i: int):

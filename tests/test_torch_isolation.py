@@ -70,6 +70,15 @@ import repro_torch.configs.internlm2_20b
 import repro_torch.perf.autotune, repro_torch.analysis.sanitize
 import repro_torch.layers.moe, repro_torch.configs.granite_moe_1b_a400m
 import repro_torch.configs.qwen3_moe_235b_a22b
+import repro_torch.tree, repro_torch.optim, repro_torch.optim.optimizer
+import repro_torch.optim.schedules, repro_torch.optim.adafactor
+import repro_torch.training, repro_torch.training.losses
+import repro_torch.training.remat, repro_torch.training.train_step
+import repro_torch.training.trainer, repro_torch.checkpoint
+import repro_torch.checkpoint.manager, repro_torch.distributed
+import repro_torch.distributed.elastic, repro_torch.launch.train
+import repro_torch.examples.quickstart, repro_torch.examples.train_dlrm
+import repro_torch.examples.fault_tolerant_train, repro_torch.data.pipeline
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card: ragged, chunked and decode paged attention, the BatchedTable
-embedding bag, STREAM, row gather/scatter and dense flash attention.
+embedding bag and its backward, STREAM, row gather/scatter and dense flash attention.
 Marked ``cuda``: without a card with ``nvcc`` these skip.  No JAX here, so
 the file also runs on a machine that has none:
 
@@ -17,7 +17,8 @@ decode and chunked) share their per-row device code and choose the tile
 owner alone, so on the same lanes they must agree bitwise, whatever
 ``q_chunk`` is.  Embedding bag: float32 atol 1e-5 and bfloat16 atol 2e-2
 (both sum in float32 in the order of the bag; the bound is for the card's
-rounding of the last bf16 digit).  STREAM and gather/scatter: bitwise (the
+rounding of the last bf16 digit); its backward float32 atol 1e-5 / rtol
+1e-5 (float atomics add in no fixed order: never bitwise).  STREAM and gather/scatter: bitwise (the
 kernels round as the plain versions do, and move rows as raw bytes);
 STREAM also at the edges of its persistent grid (one row, fewer tiles than
 SMs, a tile count that is not a multiple of the grid, tiles larger than a
@@ -540,6 +541,62 @@ def test_embedding_kernel_refuses_bad_inputs(card):
     flat = torch.zeros(30 * 64 + 1, device=card)
     with pytest.raises(ValueError):                 # 4-byte aligned only
         emb_api.embedding_bag(flat[1:].view(30, 64), offs, idx)
+
+
+# the backward: RM1's and RM2's widths at small R, the narrowest and widest
+# float32 rows, heavy repeats (8 rows a table for 400 ids), one id a bag
+EMB_BWD_CASES = [(1000, 128, 64, 10, 10), (1000, 64, 64, 20, 20),
+                 (512, 4, 8, 4, 20), (64, 512, 4, 2, 3), (8, 64, 20, 2, 20),
+                 (100, 128, 3, 2, 1)]
+
+
+@pytest.mark.parametrize("case", EMB_BWD_CASES)
+def test_embedding_backward_kernel_matches_plain_version(card, case):
+    """The backward kernel through the autograd Function against the plain
+    backward on the same ids (a repeated id in each bag, a wrapped id and
+    ids outside [-R, R) in the first bags): float atomics add in no fixed
+    order, so atol 1e-5 / rtol 1e-5, never bitwise."""
+    tbl, offs, idx = _emb_inputs(card, *case, torch.float32, seed=4)
+    R, T = tbl.shape[0], idx.shape[1]
+    if idx.shape[2] > 2:
+        idx[:, :, 2] = idx[:, :, 0]
+    if idx.shape[0] > 2:
+        idx[0, 0, 0] = R                            # past the end
+        idx[1, T - 1, 0] = -(T - 1) * (R // T) - 1  # global -1: last row
+        idx[2, 0, 0] = -R - 1                       # below -R
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    ct = torch.randn((*idx.shape[:2], tbl.shape[1]), generator=gen,
+                     device=card)
+    t = tbl.clone().requires_grad_(True)
+    fwd = emb_api.embedding_bag.launches
+    bwd = emb_api.embedding_bag_backward.launches
+    out = emb_api.embedding_bag(t, offs, idx)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    assert emb_api.embedding_bag.launches == fwd + 1
+    assert emb_api.embedding_bag_backward.launches == bwd + 1
+    gids = (idx + offs[None, :, None]).reshape(-1)
+    want = emb_api.batched_table_backward(ct, gids, R)
+    torch.testing.assert_close(t.grad, want, atol=1e-5, rtol=1e-5)
+
+
+def test_embedding_backward_refuses_bad_inputs(card):
+    tbl, offs, idx = _emb_inputs(card, 10, 64, 2, 3, 4, torch.float32)
+    gids = (idx + offs[None, :, None]).reshape(-1)
+    g = torch.ones((2, 3, 64), device=card)
+    op = emb_api.embedding_bag_backward
+    with pytest.raises(TypeError):
+        op(g.to(torch.bfloat16), gids, 30)
+    with pytest.raises(TypeError):
+        op(g, gids.long(), 30)
+    with pytest.raises(ValueError):                 # 24-byte rows
+        op(torch.ones((2, 3, 6), device=card), gids, 30)
+    with pytest.raises(ValueError):                 # not contiguous
+        op(g.transpose(0, 1), gids, 30)
+    with pytest.raises(TypeError):
+        emb_api.embedding_bag(tbl.to(torch.bfloat16).requires_grad_(True),
+                              offs, idx)
 
 
 STREAM_ROWS = 2048                      # divisible by every block_rows
