@@ -290,10 +290,40 @@ Phases, each of which raises on failure (the script catches none):
    ``make_train_step`` through the ``Trainer``: B4's forward and backward
    launches each equal the steps, every loss is finite; step ms p50, two
    profiled steps (busy share, launches, the backward kernel's device
-   ms), and the device ms of the forward and of the optimizer's update.
+   ms), and the device ms of the forward and of the optimizer's update;
+39. the other families, card against CPU: reduced rwkv6-1.6b,
+   zamba2-2.7b (4 layers, two groups), whisper-tiny and internvl2-26b in
+   float32 (TF32 off), one seeded init on the CPU copied to the card:
+   forward logits atol 1e-4, 8 ``decode_step`` logits on the contiguous
+   cache (whisper after ``prefill_cross``) atol 1e-4, the loss rtol 1e-5
+   and every gradient leaf atol 1e-4 (+ rtol 1e-4);
+40. serving them at full width in bf16 with seeded weights
+   (``serving/steps.py``), one model on the card at a time, each freed
+   before the next (internvl2-26b's 19.9 B parameters alone): the init's
+   peak; ``make_prefill_step`` on 8 prompts of 512 tokens (internvl2's 256
+   vision-stub embeddings before them, whisper's 1500 stub frames beside
+   them), timed; the prompts' first 64 tokens teacher-forced through
+   ``decode_step`` beside a full-logits bf16 ``forward`` over the same
+   tokens, both held to a float32 forward on the same weights (the
+   decode's largest logit error at most twice the bf16 forward's; bf16
+   rounds the two forms more than phase 30's two ulps apart), the argmax
+   flips between them printed with the forward's top-2 gaps; 32 greedy
+   tokens through ``make_serve_step`` (decode ms p50, tokens/s); three
+   decode steps under torch.profiler (busy share, ``cudaLaunchKernel``
+   calls); the step's byte bound (the weights it reads once and its
+   cache at 3.35 TB/s);
+41. training them at full width in float32: rwkv6-1.6b and zamba2-2.7b
+   through ``repro_torch.launch.train.main`` (AdamW, remat ``full``, 8 x
+   256 tokens, 5 steps), whisper-tiny through ``make_train_step`` with
+   1500 stub frames a sample (the launcher's batches hold tokens only, as
+   the reference's); losses finite, step ms p50, tokens/s, peak memory,
+   one step under torch.profiler; internvl2-26b (about 318 GB of f32
+   state) trains reduced on the CPU only, through the launcher.  Phases
+   40-41 launch none of the seven kernels: the reference runs these
+   families outside every Pallas kernel, and every count must stay 0.
 
 Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29, 30,
-34b-d, 37 and 38) runs with every kernel's launch count set to 0 just
+34b-d, 37, 38, 40 and 41) runs with every kernel's launch count set to 0 just
 before it and read just after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
 
@@ -302,7 +332,8 @@ on the tensor-core tile and everything else on the SIMT tile; their JSON
 records say so in ``tile`` and carry the mixed and decode steps' times,
 steps and launches (at llama31-8b's width too, under ``llama31_8b``).
 Phases 28-30's readings are one JSON line with the card's name and power
-limit, phases 31-34's another and phases 35-38's a third.  The line
+limit, phases 31-34's another, phases 35-38's a third and phases
+39-41's a fourth.  The line
 before the last is the kernels' JSON record (the seven kernels and B4's
 backward); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
@@ -1694,6 +1725,39 @@ def main() -> int:
     log(json.dumps({"backward": bwd, "train_reference": train_ref,
                     "lm_training": lm_train, "dlrm_training": dlrm_train,
                     "card": card}, default=str))
+
+    # 39-41. the other model families: card vs CPU, serving, training ------
+    log("== 39. the other families card vs CPU: reduced rwkv6, zamba2, "
+        "whisper and internvl2 in f32 (forward, 8 decode steps, loss and "
+        "gradients)")
+    t39 = time.perf_counter()
+    fam_ref = families_reference_check(torch, np, cfg_mod, build_model, dev)
+    log(f"  phase 39: {time.perf_counter() - t39:.1f} s")
+    log(f"== 40. serving the families at full width, bf16: prefill "
+        f"{FAM_BATCH} x {FAM_PROMPT}, {FAM_TEACHER} teacher-forced decode "
+        f"steps against the forward, {FAM_GREEDY} greedy")
+    t40 = time.perf_counter()
+    fam_serve = {}
+    for arch in FAMILIES:
+        t = time.perf_counter()
+        fam_serve[arch] = family_serving(torch, np, cfg_mod, build_model,
+                                         counted, arch, dev, card)
+        log(f"  {arch}: {time.perf_counter() - t:.1f} s")
+    log(f"  phase 40: {time.perf_counter() - t40:.1f} s")
+    log(f"== 41. training the families at full width, f32, "
+        f"{FAM_TRAIN_STEPS} steps")
+    t41 = time.perf_counter()
+    fam_train = {arch: launcher_training(torch, counted, arch, FAM_BATCH,
+                                         card)
+                 for arch in ("rwkv6-1.6b", "zamba2-2.7b")}
+    fam_train["whisper-tiny"] = whisper_training(
+        torch, np, cfg_mod, build_model, counted, dev, card)
+    fam_train["internvl2-26b"] = internvl_training_cpu()
+    log(f"  phase 41: {time.perf_counter() - t41:.1f} s")
+    log(json.dumps({"families_reference": fam_ref,
+                    "families_serving": fam_serve,
+                    "families_training": fam_train, "card": card},
+                   default=str))
 
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
@@ -4231,6 +4295,438 @@ def dlrm_training(torch, cfg_mod, build_model, emb_api, counted, dev, card):
         gc.collect()
         torch.cuda.empty_cache()
     return out, launches
+
+
+FAMILIES = ["rwkv6-1.6b", "zamba2-2.7b", "whisper-tiny", "internvl2-26b"]
+FAM_BATCH, FAM_PROMPT, FAM_TEACHER, FAM_GREEDY = 8, 512, 64, 32
+FAM_MAX_SEQ = 128          # the contiguous caches: 64 + 32 + 4 steps fit
+FAM_TRAIN_STEPS, FAM_TRAIN_SEQ = 5, 256
+
+
+def family_inputs(np, cfg, batch, seq, seed):
+    """Seeded tokens (batch, seq) and the family's stub embeddings: the
+    VLM's vision tokens at the embedding table's scale, whisper's encoder
+    frames (unit normal), else None."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    extra = None
+    if cfg.family == "vlm":
+        extra = (rng.standard_normal((batch, cfg.vision_tokens, cfg.d_model))
+                 * cfg.d_model ** -0.5).astype(np.float32)
+    elif cfg.family == "audio":
+        extra = rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model)
+                                    ).astype(np.float32)
+    return tokens, extra
+
+
+def family_cache(model, cfg, params, batch, frames):
+    """A zeroed contiguous decode cache of ``batch`` requests; whisper's
+    cross-attention K/V filled from ``frames``."""
+    cache = model.init_decode_cache(batch, FAM_MAX_SEQ)
+    if cfg.family == "audio":
+        cache = model.prefill_cross(params, cache, frames)
+    return cache
+
+
+def families_reference_check(torch, np, cfg_mod, build_model, dev):
+    """Phase 39: each family reduced in float32 (zamba2 at 4 layers, two
+    groups), one seeded init on the CPU copied to the card (TF32 off):
+    forward logits atol 1e-4, 8 ``decode_step`` logits (whisper after
+    ``prefill_cross``) atol 1e-4, the loss rtol 1e-5 and every gradient
+    leaf atol 1e-4 (+ rtol 1e-4) between the card and the CPU."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.training.train_step import loss_and_grads
+
+    out = {}
+    for arch in FAMILIES:
+        over = {"num_layers": 4} if arch == "zamba2-2.7b" else {}
+        cfg = cfg_mod.get_config(arch).reduced(dtype="float32", **over)
+        tokens, extra = family_inputs(np, cfg, 2, 64, seed=39)
+        params_cpu = build_model(cfg, device="cpu").init(0)
+        runs = {}
+        for d in ("cpu", dev):
+            model = build_model(cfg, device=d, remat="none")
+            params = to_device(params_cpu, d)
+            batch = {"tokens": torch.from_numpy(tokens).to(d)}
+            if extra is not None:
+                batch["extra_embeds"] = torch.from_numpy(extra).to(d)
+            with torch.no_grad():
+                logits, _ = model.forward(params, batch["tokens"],
+                                          batch.get("extra_embeds"))
+                cache = family_cache(model, cfg, params, 2,
+                                     batch.get("extra_embeds"))
+                steps = []
+                for t in range(8):
+                    lg, cache = model.decode_step(params, cache,
+                                                  batch["tokens"][:, t])
+                    steps.append(lg)
+            loss, grads = loss_and_grads(model.loss, params, batch)
+            runs[str(d)] = (logits.cpu(), torch.stack(steps, 1).cpu(),
+                            float(loss),
+                            [g.cpu() for g in tree_lib.leaves(grads)])
+        (lc, dc, loss_c, gc_), (ld, dd, loss_d, gd) = (runs["cpu"],
+                                                        runs[str(dev)])
+        errs = dict(forward=(ld - lc).abs().max().item(),
+                    decode=(dd - dc).abs().max().item(),
+                    loss_rel=abs(loss_d - loss_c) / abs(loss_c),
+                    grads=max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                              for a, b in zip(gd, gc_)))
+        log(f"  {arch} reduced f32: forward {errs['forward']:.2e} (atol "
+            f"1e-4), decode x8 {errs['decode']:.2e} (atol 1e-4), loss "
+            f"{loss_d:.6f}/{loss_c:.6f} rel {errs['loss_rel']:.1e} (rtol "
+            f"1e-5), {len(gd)} gradient leaves: max(|diff| - 1e-4 |CPU|) "
+            f"{errs['grads']:.2e} (atol 1e-4)")
+        if not (errs["forward"] <= 1e-4 and errs["decode"] <= 1e-4
+                and errs["loss_rel"] <= 1e-5 and errs["grads"] <= 1e-4):
+            raise AssertionError(f"{arch}: card against CPU {errs}")
+        out[arch] = errs
+    return out
+
+
+def decode_step_bytes(cfg, params, cache, batch, pos):
+    """The bytes one decode step at position ``pos`` must move: every
+    weight it reads once (the embedding table only for its ``batch``
+    gathered rows; whisper's encoder not at all), the contiguous K/V up to
+    ``pos`` read and one position written, the recurrent states read and
+    written, whisper's cross K/V read.  Returns (weight bytes, cache
+    bytes)."""
+    from repro_torch import tree as tree_lib
+
+    skip = {"embed", "enc_layers", "enc_norm"}
+    weights = sum(x.numel() * x.element_size() for k, v in params.items()
+                  if k not in skip for x in tree_lib.leaves(v))
+    table = params["embed"]["table"]
+    weights += batch * table.shape[1] * table.element_size()
+    state = 0
+    for k, v in cache.items():
+        nbytes = v.numel() * v.element_size()
+        if k in ("k", "v"):
+            state += nbytes * (pos + 2) // FAM_MAX_SEQ
+        elif k in ("xk", "xv"):
+            state += nbytes
+        elif k != "seq_lens":
+            state += 2 * nbytes
+    return weights, state
+
+
+def forward_f32(torch, build_model, cfg, params, toks, frames, dev):
+    """The model's ``forward`` logits in float32 on the bf16 ``params``
+    widened.  internvl2-26b's float32 weights (80 GB) do not fit beside
+    its bf16 ones, so its layers are widened one at a time through the
+    float32 model's own block."""
+    import dataclasses
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.layers.embedding import embed, unembed
+    from repro_torch.layers.norm import rmsnorm
+    from repro_torch.models import stacking
+
+    def f32(tree):
+        return tree_lib.map(lambda t: t.float(), tree)
+
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    if cfg.family != "vlm":
+        return m32.forward(f32(params), toks, frames)[0]
+    x = embed(params["embed"], toks).float()
+    B, S = toks.shape
+    positions = torch.arange(S, device=dev).expand(B, S)
+    for i in range(cfg.num_layers):
+        x = m32._block(f32(stacking.layer(params["layers"], i)), x,
+                       positions)[0]
+    x = rmsnorm(f32(params["final_norm"]), x, cfg.norm_eps)
+    return unembed(f32(params.get("head", params["embed"])), x)
+
+
+def teacher_forced_check(torch, build_model, cfg, params, toks, frames, full,
+                         dec, dev):
+    """Phase 40's check of the bf16 decode (logits ``dec``, B x T x V, fed
+    the prompts' first T tokens) against the bf16 ``forward``'s logits
+    ``full`` over the same tokens.
+
+    The two round apart in bf16 by more than phase 30's two ulps of a
+    logit: rwkv6 and zamba2 decode through another algorithm (the
+    recurrence against the chunked scan), and a one-position decode runs
+    other GEMMs than a 64-position forward, whose roundings 48 layers of
+    internvl2 carry to a 3-ulp flip (first chip run of this phase).  So
+    both are held to a float32 forward on the same weights: the decode's
+    largest logit error must be at most twice the bf16 forward's.  Where
+    the decode's argmax leaves the bf16 forward's, the forward's top-2
+    gap is printed in bf16 ulps."""
+    top2 = full.topk(2, dim=-1).values
+    flips = (dec.argmax(-1) != full.argmax(-1)).nonzero().tolist()
+    gaps = [round((float(top2[b, t, 0]) - float(top2[b, t, 1]))
+                  / bf16_ulp(float(top2[b, t, 0])), 3) for b, t in flips]
+    oracle = forward_f32(torch, build_model, cfg, params, toks, frames, dev)
+    e_fwd = (full - oracle).abs().max().item()
+    e_dec = (dec - oracle).abs().max().item()
+    out = dict(positions=int(dec.shape[0] * dec.shape[1]),
+               max_abs_forward_vs_f32=e_fwd, max_abs_decode_vs_f32=e_dec,
+               forward_parted_from_f32=int(
+                   (full.argmax(-1) != oracle.argmax(-1)).sum()),
+               decode_parted_from_f32=int(
+                   (dec.argmax(-1) != oracle.argmax(-1)).sum()),
+               max_abs_decode_vs_forward=(dec - full).abs().max().item(),
+               decode_parted_from_forward=len(flips),
+               parted_gap_ulps=gaps)
+    log(f"  {cfg.name}: teacher-forced {out['positions']} positions; "
+        f"against a float32 forward on the same weights the bf16 forward "
+        f"is {e_fwd:.4f} off ({out['forward_parted_from_f32']} argmax "
+        f"parted), the bf16 decode {e_dec:.4f} "
+        f"({out['decode_parted_from_f32']} parted; at most twice the "
+        f"forward's); decode against the bf16 forward: max "
+        f"{out['max_abs_decode_vs_forward']:.4f}, {len(flips)} argmax "
+        f"parted at the forward's top-2 gaps {gaps} bf16 ulps")
+    if not e_dec <= 2 * e_fwd:
+        raise AssertionError(f"{cfg.name}: the bf16 decode is {e_dec} from "
+                             f"float32, the bf16 forward {e_fwd}")
+    return out
+
+
+def family_serving(torch, np, cfg_mod, build_model, counted, arch, dev,
+                   card):
+    """Phase 40, one config at full width in bf16 with seeded weights:
+    the init's peak; ``make_prefill_step`` on 8 prompts of 512 tokens (the
+    VLM's 256 vision-stub embeddings before them, whisper's 1500 frames
+    beside them), timed on its second call; the prompts' first 64 tokens
+    teacher-forced through ``decode_step`` (what ``make_serve_step``
+    takes its argmax of) against a full-logits ``forward`` over the same
+    64 tokens (:func:`teacher_forced_check`); 32 greedy tokens through
+    ``make_serve_step``, each step timed; three decode steps under
+    torch.profiler; the step's byte bound.  No kernel of the port may
+    launch."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.serving.steps import make_prefill_step, make_serve_step
+
+    cfg = cfg_mod.get_config(arch)
+    B, T, G = FAM_BATCH, FAM_TEACHER, FAM_GREEDY
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(x.numel() for x in tree_lib.leaves(params))
+    log(f"  {arch}: {n_params / 1e9:.3f} B parameters "
+        f"({cfg.num_params() / 1e9:.3f} B by num_params), init peak "
+        f"{init_peak:.2f} GiB (held before {held:.2f} GiB)")
+    tokens, extra = family_inputs(np, cfg, B, FAM_PROMPT, seed=40)
+    toks = torch.from_numpy(tokens).to(dev)
+    batch = {"tokens": toks}
+    if extra is not None:
+        batch["extra_embeds"] = torch.from_numpy(extra).to(dev)
+    frames = batch["extra_embeds"] if cfg.family == "audio" else None
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    reset_counts(counted)
+    with torch.no_grad():
+        prefill_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = prefill(params, batch)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        if last.shape != (B, cfg.vocab_size) or not torch.isfinite(
+                last).all():
+            raise AssertionError(f"{arch}: prefill logits {last.shape}")
+        full, _ = model.forward(params, toks[:, :T], frames)
+        cache = family_cache(model, cfg, params, B, frames)
+        dec = []
+        for t in range(T):
+            lg, cache = model.decode_step(params, cache, toks[:, t])
+            dec.append(lg)
+        dec = torch.stack(dec, 1)
+        teacher = teacher_forced_check(torch, build_model, cfg, params,
+                                       toks[:, :T], frames, full, dec, dev)
+        got = dec.argmax(-1).to(torch.int32)
+        del full, dec
+        tok, step_s, stream = got[:, -1], [], []
+        for _ in range(G):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache = serve(params, cache, tok)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            stream.append(tok)
+        stream = torch.stack(stream, 1)
+        if not bool(((stream >= 0) & (stream < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch}: a greedy token out of range")
+        pos = int(cache["seq_lens"][0])
+        w_bytes, s_bytes = decode_step_bytes(cfg, params, cache, B, pos)
+        holder = [tok]
+
+        def one():
+            holder[0], _ = serve(params, cache, holder[0])
+
+        prof = profile_calls(torch, one, 3, f"{arch} decode steps", "step")
+    launched = sum(op.launches for op in counted)
+    if launched:
+        raise AssertionError(f"{arch}: {launched} kernel launches")
+    p50 = percentile(step_s, 50)
+    weights_ms = w_bytes / HBM_BYTES_PER_S * 1e3
+    bound = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"  {arch}: prefill {B} x {FAM_PROMPT} "
+        f"{prefill_s[1] * 1e3:.2f} ms (first call {prefill_s[0] * 1e3:.2f}); "
+        f"decode p50 {p50 * 1e3:.3f} ms a step, {B / p50:.1f} tokens/s; "
+        f"byte bound {bound:.4f} ms (weights {w_bytes / 1e9:.3f} GB "
+        f"{weights_ms:.4f} ms + cache {s_bytes / 1e6:.2f} MB), "
+        f"{bound / (p50 * 1e3):.1%} of the step  [{card}]")
+    del model, params, cache, holder, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params_b=n_params / 1e9, init_peak_gib=init_peak,
+                prefill_ms=prefill_s[1] * 1e3,
+                prefill_first_ms=prefill_s[0] * 1e3,
+                teacher_forced=teacher, decode_ms_p50=p50 * 1e3,
+                tokens_per_s=B / p50, busy_share=prof["busy_share"],
+                busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+                launches_per_step=prof["launches"],
+                weights_bound_ms=weights_ms, bound_ms=bound,
+                bound_by="bytes", greedy_head=stream[0, :8].tolist())
+
+
+def launcher_training(torch, counted, arch, batch, card):
+    """Phase 41 through the launcher: ``repro_torch.launch.train.main``
+    with ``--arch arch --steps 5 --batch batch --seq 256`` (float32, remat
+    ``full``, AdamW) on the card.  The launcher's Trainer is recorded (a
+    subclass that calls the original) to read each step's time and to
+    profile one more step."""
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch import train as train_launch
+
+    trainers = []
+
+    class Recorded(train_launch.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            trainers.append(self)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counted)
+    train_launch.Trainer = Recorded
+    try:
+        summary = train_launch.main([
+            "--arch", arch, "--steps", str(FAM_TRAIN_STEPS), "--batch",
+            str(batch), "--seq", str(FAM_TRAIN_SEQ)])
+    finally:
+        train_launch.Trainer = Recorded.__bases__[0]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = sum(op.launches for op in counted)
+    trainer = trainers[0]
+    losses = [h["loss"] for h in trainer.history]
+    if len(losses) != FAM_TRAIN_STEPS or not all(
+            x == x and abs(x) < 1e9 for x in losses):
+        raise AssertionError(f"{arch}: losses {losses}")
+    if launched:
+        raise AssertionError(f"{arch}: {launched} kernel launches")
+    vocab = trainer.state.params["embed"]["table"].shape[0]
+    data = SyntheticLMDataset(vocab, FAM_TRAIN_SEQ, batch).batch_at(0)
+    data = {k: torch.from_numpy(v).to(trainer.device)
+            for k, v in data.items()}
+    holder = [trainer.state]
+
+    def one():
+        holder[0], _ = trainer.step_fn(holder[0], data)
+
+    prof = profile_calls(torch, one, 1, f"{arch} train step", "step")
+    p50 = percentile([h["dt"] for h in trainer.history[1:]], 50)
+    tokens = batch * FAM_TRAIN_SEQ
+    log(f"  {arch} f32 through the launcher, {batch} x {FAM_TRAIN_SEQ}: "
+        f"losses {', '.join(f'{x:.5f}' for x in losses)}; step p50 "
+        f"{p50 * 1e3:.1f} ms, {tokens / p50:.0f} tokens/s; peak "
+        f"{peak:.2f} GiB; summary {summary}  [{card}]")
+    del trainers, trainer, holder, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(batch=batch, losses=losses, step_ms_p50=p50 * 1e3,
+                tokens_per_s=tokens / p50, peak_gib=peak,
+                busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
+                wall_ms=prof["wall_ms"], launches_per_step=prof["launches"])
+
+
+def whisper_training(torch, np, cfg_mod, build_model, counted, dev, card):
+    """Phase 41, whisper-tiny at full width in float32: ``make_train_step``
+    (``loss_and_grads``, AdamW, ``cosine_warmup``) on 8 x 256 tokens and
+    1500 seeded stub frames a sample, as the quickstart trains it (the
+    launcher's batches hold tokens only, as the reference's)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.training.train_step import init_state, make_train_step
+
+    cfg = dataclasses.replace(cfg_mod.get_config("whisper-tiny"),
+                              dtype="float32")
+    B = FAM_BATCH
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    opt = adamw()
+    step = make_train_step(model, opt, cosine_warmup(
+        3e-4, 1, FAM_TRAIN_STEPS))
+    state = init_state(model, 0, opt)
+    _, frames = family_inputs(np, cfg, B, 1, seed=41)
+    frames = torch.from_numpy(frames).to(dev)
+    ds = SyntheticLMDataset(cfg.vocab_size, FAM_TRAIN_SEQ, B)
+    reset_counts(counted)
+    losses, dts = [], []
+    for i in range(FAM_TRAIN_STEPS):
+        batch = {"tokens": torch.from_numpy(ds.batch_at(i)["tokens"]).to(
+            dev), "extra_embeds": frames}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        dts.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = sum(op.launches for op in counted)
+    if launched or not all(x == x and abs(x) < 1e9 for x in losses):
+        raise AssertionError(f"whisper-tiny: losses {losses}, {launched} "
+                             "kernel launches")
+    holder = [state]
+
+    def one():
+        holder[0], _ = step(holder[0], batch)
+
+    prof = profile_calls(torch, one, 1, "whisper-tiny train step", "step")
+    p50 = percentile(dts[1:], 50)
+    tokens = B * FAM_TRAIN_SEQ
+    log(f"  whisper-tiny f32, {B} x {FAM_TRAIN_SEQ} tokens + {B} x "
+        f"{cfg.encoder_seq} frames: losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; step p50 "
+        f"{p50 * 1e3:.1f} ms, {tokens / p50:.0f} tokens/s; peak "
+        f"{peak:.2f} GiB  [{card}]")
+    del model, state, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(batch=B, losses=losses, step_ms_p50=p50 * 1e3,
+                tokens_per_s=tokens / p50, peak_gib=peak,
+                busy_share=prof["busy_share"], busy_ms=prof["busy_ms"],
+                wall_ms=prof["wall_ms"], launches_per_step=prof["launches"])
+
+
+def internvl_training_cpu():
+    """Phase 41: internvl2-26b's float32 state (about 318 GB with AdamW)
+    does not fit one 80 GB card, so it trains reduced on the CPU through
+    the launcher, as the CPU tests do."""
+    from repro_torch.launch import train as train_launch
+
+    summary = train_launch.main([
+        "--arch", "internvl2-26b", "--reduced", "--device", "cpu",
+        "--steps", str(FAM_TRAIN_STEPS), "--batch", "2", "--seq", "32"])
+    if not summary["final_loss"] == summary["final_loss"]:
+        raise AssertionError(f"internvl2-26b reduced: {summary}")
+    log("  internvl2-26b: trained reduced on the CPU only (its f32 weights "
+        "and AdamW state, about 318 GB, do not fit one 80 GB card): "
+        f"{summary}")
+    return dict(reduced_cpu=summary)
 
 
 def _leaves(tree):

@@ -10,6 +10,12 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+DENSE = "dense"
+MOE = "moe"
+SSM = "ssm"
+HYBRID = "hybrid"
+VLM = "vlm"
+AUDIO = "audio"
 RECSYS = "recsys"
 
 
@@ -27,6 +33,26 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2-style SSD sub-config (used by zamba2)."""
+
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 128
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV6 "Finch" sub-config: data-dependent decay time mix."""
+
+    head_size: int = 64
+    decay_lora: int = 64          # low-rank dim of the data-dependent decay
+    token_shift: bool = True
+
+
+@dataclass(frozen=True)
 class AttentionConfig:
     num_heads: int
     num_kv_heads: int
@@ -39,42 +65,96 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """A single architecture (the dense and MoE decoder fields of the
-    reference)."""
+    """A single architecture: the reference's fields for the dense, MoE,
+    SSM (rwkv6), hybrid (zamba2), audio (whisper) and VLM (internvl2)
+    families."""
 
     name: str
-    family: str
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    # hybrid (zamba2): one attention block, shared across the stack, runs
+    # before every group of ``hybrid_attn_every`` layers
+    hybrid_attn_every: int = 0
+    # encoder-decoder (whisper): encoder depth; num_layers is decoder depth
+    encoder_layers: int = 0
+    encoder_seq: int = 0           # fixed encoder sequence (audio frames)
+    # VLM: number of vision-stub embeddings prepended (internvl)
+    vision_tokens: int = 0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "silu"              # silu (swiglu) | gelu
     dtype: str = "bfloat16"
     source: str = ""
 
+    def _attn_params(self) -> int:
+        d, a = self.d_model, self.attention
+        return (d * a.num_heads * a.head_dim               # q
+                + 2 * d * a.num_kv_heads * a.head_dim      # k, v
+                + a.num_heads * a.head_dim * d)            # o
+
     def num_params(self) -> int:
         """Analytic parameter count (embedding + blocks + head), as
-        ``repro.config.ModelConfig.num_params`` counts a dense or MoE
-        decoder."""
+        ``repro.config.ModelConfig.num_params`` counts it for every
+        family."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
-        a = self.attention
-        per_layer = (d * a.num_heads * a.head_dim          # q
-                     + 2 * d * a.num_kv_heads * a.head_dim  # k, v
-                     + a.num_heads * a.head_dim * d)        # o
-        if self.moe is not None:
-            m = self.moe
-            per_layer += d * m.num_experts + m.num_experts * 3 * d * m.d_expert
-            if m.d_shared_expert:
-                per_layer += 3 * d * m.d_shared_expert
-        else:
-            per_layer += 3 * d * self.d_ff                  # swiglu
-        per_layer += 2 * d                                  # norms
+        emb = V * d
         head = 0 if self.tie_embeddings else V * d
-        return V * d + head + L * per_layer
+        per_layer = 0
+        if self.family in (DENSE, MOE, VLM, AUDIO):
+            per_layer += self._attn_params()
+            if self.moe is not None:
+                m = self.moe
+                per_layer += d * m.num_experts                  # router
+                per_layer += m.num_experts * 3 * d * m.d_expert
+                if m.d_shared_expert:
+                    per_layer += 3 * d * m.d_shared_expert
+            else:
+                per_layer += 3 * d * self.d_ff                  # swiglu
+            per_layer += 2 * d                                  # norms
+        elif self.family == SSM:                                # rwkv6
+            per_layer += 4 * d * d               # r, k, v, o (time mix)
+            per_layer += d * self.d_ff + self.d_ff * d + d * d  # channel mix
+            per_layer += 2 * d
+        elif self.family == HYBRID:       # zamba2: mamba2 + shared attention
+            s = self.ssm
+            d_inner = s.expand * d
+            per_layer += d * (2 * d_inner + 2 * s.d_state
+                              + d_inner // s.head_dim)
+            per_layer += d_inner * d
+            per_layer += 2 * d
+            shared_attn = self._attn_params() + 3 * d * self.d_ff
+            return emb + head + L * per_layer + shared_attn
+        total = emb + head + L * per_layer
+        if self.encoder_layers:   # whisper encoder (self-attn + gelu mlp)
+            enc_layer = self._attn_params() + 2 * d * self.d_ff + 2 * d
+            # the decoder's cross-attention: one more attention block a layer
+            total += self.encoder_layers * enc_layer
+            total += self.num_layers * self._attn_params()
+        return total
+
+    @property
+    def depth_units(self) -> int:
+        """Repeating-unit count (layers; groups for hybrid)."""
+        if self.family == HYBRID:
+            return self.num_layers // self.hybrid_attn_every
+        return self.num_layers
+
+    def with_depth(self, units: int) -> "ModelConfig":
+        """Same width, ``units`` repeating units deep."""
+        if self.family == HYBRID:
+            return dataclasses.replace(
+                self, num_layers=self.hybrid_attn_every * units)
+        if self.encoder_layers:
+            return dataclasses.replace(self, num_layers=units,
+                                       encoder_layers=units)
+        return dataclasses.replace(self, num_layers=units)
 
     def reduced(self, **overrides: Any) -> "ModelConfig":
         """The same tiny config ``repro.config.ModelConfig.reduced`` makes."""
@@ -90,6 +170,19 @@ class ModelConfig:
             small["moe"] = dataclasses.replace(
                 self.moe, num_experts=4, top_k=2, d_expert=32,
                 d_shared_expert=32 if self.moe.d_shared_expert else 0)
+        if self.ssm is not None:
+            small["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=16, chunk_size=16)
+        if self.rwkv is not None:
+            small["rwkv"] = dataclasses.replace(self.rwkv, head_size=16,
+                                                decay_lora=8)
+        if self.encoder_layers:
+            small["encoder_layers"] = 2
+            small["encoder_seq"] = 16
+        if self.vision_tokens:
+            small["vision_tokens"] = 8
+        if self.hybrid_attn_every:
+            small["hybrid_attn_every"] = 2
         small.update(overrides)
         return dataclasses.replace(self, **small)
 

@@ -1,14 +1,14 @@
-"""Quickstart (port of the reference's ``examples/quickstart.py``): build a
-decoder config the port serves, run a forward pass and one train step at
-its reduced float32 size.
+"""Quickstart (port of the reference's ``examples/quickstart.py``): build
+any LM config of the port (every family), run a forward pass and one
+train step at its reduced float32 size.  The VLM and the audio model get
+zero stub embeddings (``extra_embeds``), as in the reference.
 
     python -m repro_torch.examples.quickstart --arch qwen3-32b   # on the card
     PYTHONPATH=src python -m repro_torch.examples.quickstart --device cpu
 
 ``--arch`` takes the port's configs; the DLRM ones raise
 ``NotImplementedError`` (they have no reduced size: train them with
-``repro_torch.examples.train_dlrm``), as ``build_model`` raises for the
-families the port does not build.
+``repro_torch.examples.train_dlrm``).
 """
 from __future__ import annotations
 
@@ -47,13 +47,23 @@ def main(argv=None) -> None:
     gen.manual_seed(1)
     toks = torch.randint(0, reduced.vocab_size, (2, 32), generator=gen,
                          device=model.device, dtype=torch.int32)
+    extra = None
+    if reduced.family == "vlm":
+        extra = torch.zeros((2, reduced.vision_tokens, reduced.d_model),
+                            device=model.device)
+    if reduced.family == "audio":
+        extra = torch.zeros((2, reduced.encoder_seq, reduced.d_model),
+                            device=model.device)
     with torch.no_grad():
-        logits, _ = model.forward(params, toks)
+        logits, _ = model.forward(params, toks, extra)
     print("forward:", tuple(logits.shape))
 
+    batch = {"tokens": toks}
+    if extra is not None:
+        batch["extra_embeds"] = extra
     opt = adamw()
     state = opt.init(params)
-    loss, grads = loss_and_grads(model.loss, params, {"tokens": toks})
+    loss, grads = loss_and_grads(model.loss, params, batch)
     upd, state, gnorm = opt.update(grads, state, params, 1e-3)
     params = apply_updates(params, upd)
     print(f"train step: loss={float(loss):.4f} grad_norm={float(gnorm):.3f}")

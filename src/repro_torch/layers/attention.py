@@ -1,5 +1,6 @@
-"""GQA attention (port of ``repro.layers.attention``): projections, and
-two plain attention cores for ``TransformerLM.forward``.
+"""GQA attention (port of ``repro.layers.attention``): projections, two
+plain attention cores for the models' ``forward``, and the whisper
+decoder's cross-attention over encoder K/V computed once.
 
 * :func:`full_attention`: O(S^2) reference.
 * :func:`chunked_attention`: a loop over query chunks, full KV per chunk
@@ -135,3 +136,27 @@ def attention_block(params, x, positions, a: AttentionConfig, *,
     B, S = x.shape[:2]
     out = torch.matmul(ctx.reshape(B, S, -1), params["wo"])
     return out, (k, v)
+
+
+def cross_attention_block(params, x, kv_cache, a: AttentionConfig):
+    """Whisper decoder cross-attention: K/V precomputed from the encoder
+    (:func:`encode_kv`), no RoPE.  x (B,S,D) -> (B,S,D)."""
+    B, S, _ = x.shape
+    q = torch.matmul(x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    q = q.reshape(B, S, a.num_heads, a.head_dim)
+    k, v = kv_cache
+    ctx = full_attention(q, k, v, causal=False)
+    return torch.matmul(ctx.reshape(B, S, -1), params["wo"])
+
+
+def encode_kv(params, enc, a: AttentionConfig):
+    """Project the encoder output to cross-attention K/V once (cached)."""
+    B, S, _ = enc.shape
+    k = torch.matmul(enc, params["wk"])
+    v = torch.matmul(enc, params["wv"])
+    if "bk" in params:
+        k, v = k + params["bk"], v + params["bv"]
+    return (k.reshape(B, S, a.num_kv_heads, a.head_dim),
+            v.reshape(B, S, a.num_kv_heads, a.head_dim))

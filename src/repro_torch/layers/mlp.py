@@ -1,4 +1,5 @@
-"""SwiGLU feed-forward block (port of ``repro.layers.mlp``)."""
+"""Feed-forward blocks: SwiGLU (llama/qwen) and GELU (whisper) (port of
+``repro.layers.mlp``)."""
 from __future__ import annotations
 
 import torch
@@ -28,13 +29,32 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, params["w_down"])
 
 
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32, device="cpu"):
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, dtype, device),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_out": dense_init(gen, d_ff, d_model, dtype, device),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation; so is this."""
+    h = torch.matmul(x, params["w_in"]) + params["b_in"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return torch.matmul(h, params["w_out"]) + params["b_out"]
+
+
 def mlp_init(gen, d_model, d_ff, act: str, dtype=torch.float32, device="cpu"):
-    if act != "silu":
-        raise NotImplementedError(f"activation {act!r}: the port has SwiGLU")
+    """``"gelu"`` builds the GELU MLP, any other ``act`` the SwiGLU (the
+    reference's rule)."""
+    if act == "gelu":
+        return gelu_mlp_init(gen, d_model, d_ff, dtype, device)
     return swiglu_init(gen, d_model, d_ff, dtype, device)
 
 
 def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    if act != "silu":
-        raise NotImplementedError(f"activation {act!r}: the port has SwiGLU")
+    if act == "gelu":
+        return gelu_mlp(params, x)
     return swiglu(params, x)

@@ -1,8 +1,12 @@
-"""Decoder-only transformer LM (port of the dense and MoE single-device
-paths of ``repro.models.transformer``):
+"""Decoder-only transformer LM (port of the single-device paths of
+``repro.models.transformer``: the dense, MoE and VLM decoders):
 
 * :meth:`TransformerLM.forward`: prefill / loss logits over whole
-  sequences (plain chunked attention);
+  sequences (plain chunked attention), with the VLM's vision-stub
+  embeddings (``extra_embeds``) prepended;
+* :meth:`TransformerLM.decode_step`: one token per request over a
+  contiguous K/V cache (:meth:`TransformerLM.init_decode_cache`), plain
+  PyTorch, as the reference's pjit decode path;
 * :meth:`TransformerLM.decode_tokens_paged`: the serving engine's fused
   chunked-prefill + decode step over the fused KV pool, through the ragged
   or the chunked paged-attention kernel;
@@ -17,16 +21,16 @@ Parameters are a dict with the JAX pytree's names and layouts: ``embed``,
 on a leading ``L`` axis as ``jax.vmap(_layer_init)`` stacks them),
 ``final_norm`` and, for untied models, ``head``.  A MoE layer routes with
 capacity dropping in :meth:`TransformerLM.forward` and at full capacity in
-the two decode paths, as the reference does.
+the three decode paths, as the reference does.
 
 :meth:`TransformerLM.loss` is the reference's training loss (next-token
-CE plus 0.01 times the MoE aux loss), differentiable end to end; with
-grad enabled each layer of ``forward`` runs under the ``remat`` policy
-(``repro_torch.training.remat``: True or ``"full"``, ``"dots"``, False or
-``"none"``).  Left out: ``extra_embeds`` (the VLM stub, ROADMAP A12);
-``scan_layers`` and ``unroll_attn`` (JAX compile notions: the layers are
-a Python loop here); ``shard_moe`` and ``moe_groups`` (expert sharding,
-with multi-GPU, A10).
+CE over the text positions plus 0.01 times the MoE aux loss),
+differentiable end to end; with grad enabled each layer of ``forward``
+runs under the ``remat`` policy (``repro_torch.training.remat``: True or
+``"full"``, ``"dots"``, False or ``"none"``).  Left out: ``scan_layers``
+and ``unroll_attn`` (JAX compile notions: the layers are a Python loop
+here); ``shard_moe`` and ``moe_groups`` (expert sharding, with multi-GPU,
+A10).
 """
 from __future__ import annotations
 
@@ -42,34 +46,28 @@ from repro_torch.layers.embedding import embed, embedding_init, unembed
 from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norm import rmsnorm, rmsnorm_init
+from repro_torch.models import stacking
 from repro_torch.training import remat as remat_lib
 from repro_torch.training.losses import next_token_loss
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  q_chunk: int = 512, remat=True):
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port serves dense and MoE "
-                "decoders")
         self.cfg = cfg
         self.q_chunk = q_chunk          # forward's attention query chunk
         self.remat = remat_lib.resolve(remat)
         self.device = device_lib.resolve(device)
-        self.dtype = _DTYPES[cfg.dtype]
+        self.dtype = stacking.DTYPES[cfg.dtype]
 
     def init(self, seed: int = 0) -> Dict:
         """Random parameters from a seeded ``torch.Generator`` on the
         model's device (normal, scaled by fan-in^-0.5; norms at 1)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        layers = []
-        for _ in range(cfg.num_layers):
-            layers.append({
+        gen = stacking.generator(seed, dev)
+
+        def layer():
+            return {
                 "ln1": rmsnorm_init(cfg.d_model, dt, dev),
                 "ln2": rmsnorm_init(cfg.d_model, dt, dev),
                 "attn": attn_lib.attention_init(gen, cfg.d_model,
@@ -78,11 +76,13 @@ class TransformerLM:
                    if cfg.moe is not None else
                    {"mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt,
                                     dev)}),
-            })
+            }
+
+        layers = stacking.init_stacked(cfg.num_layers, layer)
         params = {
             "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt,
                                     dev),
-            "layers": _stack(layers),
+            "layers": layers,
             "final_norm": rmsnorm_init(cfg.d_model, dt, dev),
         }
         if not cfg.tie_embeddings:
@@ -112,24 +112,28 @@ class TransformerLM:
                            full_capacity=False)
         return x + h, aux, kv
 
-    def _embed_inputs(self, params, tokens):
-        return embed(params["embed"], tokens)
+    def _embed_inputs(self, params, tokens, extra_embeds):
+        x = embed(params["embed"], tokens)
+        if extra_embeds is not None:  # VLM: prepend vision-stub embeddings
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        return x
 
-    def forward(self, params, tokens, *, return_kv: bool = False,
-                last_only: bool = False):
-        """tokens (B, S) -> (logits (B, S, V) f32, aux) — and the layers'
-        (k, v), each stacked (L, B, S, KV, hd), with ``return_kv``.
-        ``last_only`` unembeds the last position only.  ``aux`` is the
-        reference's MoE loss summed over the layers, 0 for a dense model."""
+    def forward(self, params, tokens, extra_embeds=None, *,
+                return_kv: bool = False, last_only: bool = False):
+        """tokens (B, S) [+ extra_embeds (B, E, D), prepended] ->
+        (logits (B, E + S, V) f32, aux) — and the layers' (k, v), each
+        stacked (L, B, E + S, KV, hd), with ``return_kv``.  ``last_only``
+        unembeds the last position only.  ``aux`` is the reference's MoE
+        loss summed over the layers, 0 for a dense model."""
         cfg = self.cfg
-        x = self._embed_inputs(params, tokens)
+        x = self._embed_inputs(params, tokens, extra_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         ks, vs = [], []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         block = (remat_lib.wrap(self._block, self.remat)
                  if torch.is_grad_enabled() else self._block)
-        for lp in _unstack(params["layers"], cfg.num_layers):
+        for lp in stacking.unstack(params["layers"], cfg.num_layers):
             x, layer_aux, (k, v) = block(lp, x, positions)
             aux = aux + layer_aux
             if return_kv:
@@ -146,10 +150,50 @@ class TransformerLM:
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch):
         """Next-token CE plus 0.01 times the MoE aux loss.  batch: tokens
-        (B, S) [+ loss_mask (B, S)], tensors on the model's device."""
-        logits, aux = self.forward(params, batch["tokens"])
+        (B, S) [+ extra_embeds (B, E, D), loss_mask (B, S)], tensors on
+        the model's device.  The vision positions are not scored."""
+        extra = batch.get("extra_embeds")
+        logits, aux = self.forward(params, batch["tokens"], extra)
+        if extra is not None:
+            logits = logits[:, extra.shape[1]:]
         return next_token_loss(logits, batch["tokens"],
                                batch.get("loss_mask")) + 0.01 * aux
+
+    # ---------------------------------------------------- contiguous decode
+    def init_decode_cache(self, batch: int, max_seq: int):
+        """Zeroed K/V (L, batch, max_seq, KV, hd) and seq_lens (batch,)."""
+        cfg = self.cfg
+        a = cfg.attention
+        shape = (cfg.num_layers, batch, max_seq, a.num_kv_heads, a.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "seq_lens": torch.zeros((batch,), dtype=torch.int32,
+                                    device=self.device),
+        }
+
+    def decode_step(self, params, cache, tokens):
+        """tokens (B,) -> (logits (B, V) f32, cache): each layer writes the
+        token's K/V at position ``seq_lens`` of its cache layer and attends
+        over positions ``<= seq_lens`` (:func:`decode_attention`).  The
+        cache is updated IN PLACE (the reference returns a new one) and
+        returned; its ``seq_lens`` grow by one."""
+        cfg = self.cfg
+        seq_lens = cache["seq_lens"]
+        x = embed(params["embed"], tokens)                  # (B, D)
+        lp_all = params["layers"]
+        for i in range(cfg.num_layers):
+            lp = stacking.layer(lp_all, i)
+            h = rmsnorm(lp["ln1"], x[:, None], cfg.norm_eps)
+            ctx = decode_attention(lp["attn"], h, cache["k"][i],
+                                   cache["v"][i], seq_lens, cfg.attention)
+            x = x + torch.matmul(ctx, lp["attn"]["wo"])
+            h = rmsnorm(lp["ln2"], x[:, None], cfg.norm_eps)
+            x = x + self._ffn(lp, h, full_capacity=True)[0][:, 0]
+        x = rmsnorm(params["final_norm"], x[:, None], cfg.norm_eps)
+        logits = unembed(params.get("head", params["embed"]), x)[:, 0]
+        seq_lens.add_(1)
+        return logits, cache
 
     # ---------------------------------------------------------------- decode
     def decode_step_paged(self, params, pools, lists, tokens, *,
@@ -171,7 +215,7 @@ class TransformerLM:
         x = embed(params["embed"], tokens)                  # (B, D)
         lp_all = params["layers"]
         for i in range(cfg.num_layers):
-            lp = _layer(lp_all, i)
+            lp = stacking.layer(lp_all, i)
             h = rmsnorm(lp["ln1"], x[:, None], cfg.norm_eps)
             q, k_new, v_new = attn_lib.project_qkv(lp["attn"], h, a,
                                                    seq_lens[:, None])
@@ -236,7 +280,7 @@ class TransformerLM:
         x = embed(params["embed"], tokens)                  # (T, D)
         lp_all = params["layers"]
         for i in range(cfg.num_layers):
-            lp = _layer(lp_all, i)
+            lp = stacking.layer(lp_all, i)
             h = rmsnorm(lp["ln1"], x[:, None], cfg.norm_eps)
             q, k_new, v_new = attn_lib.project_qkv(lp["attn"], h, a,
                                                    token_pos[:, None])
@@ -271,27 +315,25 @@ class TransformerLM:
         return unembed(head, x_last)[:, 0], pools
 
 
-def _stack(layers):
-    """List of per-layer dicts -> one dict of ``L``-stacked tensors."""
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: _stack([lay[k] for lay in layers]) for k in first}
-    return torch.stack(layers)
 
-
-def _unstack(tree, n: int):
-    """An ``L``-stacked parameter dict -> ``n`` per-layer dicts, each leaf
-    split once with ``unbind``: its gradient is one stack of the layers'
-    gradients, where a view per layer would add each layer's gradient
-    into a zeroed copy of the whole stacked leaf (L times its bytes)."""
-    if isinstance(tree, dict):
-        parts = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: parts[k][i] for k in parts} for i in range(n)]
-    return tree.unbind(0)
-
-
-def _layer(tree, i: int):
-    """Layer ``i`` of an ``L``-stacked parameter dict (views, no copy)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+def decode_attention(params, h, k_cache, v_cache, seq_lens, a):
+    """One decode token against a contiguous cache layer: h (B, 1, D) the
+    normed input, k_cache / v_cache (B, S, KV, hd) written IN PLACE at
+    position ``seq_lens`` (B,), then attended over positions <= seq_lens
+    (the new token included; the rest masked with NEG_INF, -1e30, as the
+    reference).  Returns ctx (B, H * hd)."""
+    B = h.shape[0]
+    q, k_new, v_new = attn_lib.project_qkv(params, h, a, seq_lens[:, None])
+    rows = torch.arange(B, device=h.device)
+    pos = seq_lens.long()
+    k_cache[rows, pos] = k_new[:, 0]
+    v_cache[rows, pos] = v_new[:, 0]
+    KV = a.num_kv_heads
+    qg = q[:, 0].reshape(B, KV, a.num_heads // KV, a.head_dim)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float()
+    scores = scores * a.head_dim ** -0.5
+    mask = (torch.arange(k_cache.shape[1], device=h.device)[None]
+            <= seq_lens[:, None])
+    scores = torch.where(mask[:, None, None], scores, attn_lib.NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    return torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(B, -1)

@@ -6,8 +6,10 @@ decision layer against the JAX package's, on the CPU.
 * ``CheckpointManager``: the reference's tests of roundtrip, retention,
   async save with a placer and atomic publish, run on the port; an async
   write that fails raises at ``wait()``; a checkpoint that either package
-  writes restores in the other (a train state after one AdamW step, and a
-  bfloat16 leaf, which the port stores as float32): values exact.
+  writes restores in the other (a train state after one AdamW step, a
+  bfloat16 leaf, which the port stores as float32, and reduced zamba2's
+  bfloat16 parameters with their float32 SSM leaves, doubly stacked
+  mamba layers and the shared block): values exact.
 * A trainer that restores step 4 and runs on reproduces the
   uninterrupted run's losses and parameters (the CPU is deterministic:
   exact).
@@ -204,6 +206,41 @@ def test_bf16_leaves_cross_both_ways(tmp_path):
         1, {"w": jnp.zeros(4, jnp.bfloat16)})
     np.testing.assert_array_equal(np.asarray(back["w"], np.float32),
                                   want.float().numpy())
+
+
+def _zamba2(dtype="bfloat16"):
+    """Reduced zamba2 (two groups of two mamba layers): the JAX model's
+    init and the port's own (different values, the same tree)."""
+    jcfg = jax_get_config("zamba2-2.7b").reduced(dtype=dtype, num_layers=4)
+    cfg = get_config("zamba2-2.7b").reduced(dtype=dtype, num_layers=4)
+    return (jax_build_model(jcfg).init(jax.random.PRNGKey(0)),
+            build_model(cfg, device="cpu").init(1))
+
+
+def test_zamba2_checkpoint_of_the_port_restores_in_jax(tmp_path):
+    params_j, params_t = _zamba2()
+    CheckpointManager(str(tmp_path)).save(3, params_t, blocking=True)
+    got = JaxCheckpointManager(str(tmp_path)).restore(3, params_j)
+    assert jax.tree.structure(got) == jax.tree.structure(params_j)
+    # the reference restores each leaf as stored (bf16 ones as float32)
+    for a, b, like in zip(jax.tree.leaves(got), tree_lib.leaves(params_t),
+                          jax.tree.leaves(params_j)):
+        assert a.shape == like.shape
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      b.float().numpy())
+
+
+def test_zamba2_checkpoint_of_jax_restores_in_the_port(tmp_path):
+    params_j, params_t = _zamba2()
+    JaxCheckpointManager(str(tmp_path)).save(3, params_j, blocking=True)
+    got = CheckpointManager(str(tmp_path)).restore(
+        3, params_t, placer=lambda x, like: torch.from_numpy(
+            np.array(x)).to(like.dtype))
+    for a, b, like in zip(tree_lib.leaves(got), jax.tree.leaves(params_j),
+                          tree_lib.leaves(params_t)):
+        assert a.dtype == like.dtype
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(b, np.float32))
 
 
 def test_trainer_resume_equals_an_uninterrupted_run(tmp_path):

@@ -33,10 +33,11 @@ NEW = LMS[1:]
 
 def _fields(cfg_t, cfg_j):
     """(name, port value, reference value) for every field of the port's
-    ModelConfig, the attention and MoE sub-configs field by field."""
+    ModelConfig, the attention, MoE, SSM and RWKV sub-configs field by
+    field."""
     for f in dataclasses.fields(ModelConfig):
         got, want = getattr(cfg_t, f.name), getattr(cfg_j, f.name)
-        if f.name in ("attention", "moe") and got is not None:
+        if f.name in ("attention", "moe", "ssm", "rwkv") and got is not None:
             for g in dataclasses.fields(got):
                 yield (f"{f.name}.{g.name}", getattr(got, g.name),
                        getattr(want, g.name))
@@ -75,6 +76,40 @@ def test_moe_config_fields_equal_the_reference(arch, reduced):
     if reduced:
         m = cfg_t.moe
         assert (m.num_experts, m.top_k, m.d_expert) == (4, 2, 32)
+
+
+FAMILIES = ["rwkv6-1.6b", "zamba2-2.7b", "whisper-tiny", "internvl2-26b"]
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_config_fields_equal_the_reference(arch, reduced):
+    """The other families' configs, full and reduced (the reference's
+    ssm / rwkv / encoder / vision overrides), field by field."""
+    cfg_t, cfg_j = get_config(arch), jax_get_config(arch)
+    if reduced:
+        cfg_t, cfg_j = (c.reduced(dtype="float32") for c in (cfg_t, cfg_j))
+    diff = [(n, g, w) for n, g, w in _fields(cfg_t, cfg_j) if g != w]
+    assert diff == []
+    assert cfg_t.source == cfg_j.source and cfg_t.source
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", LMS + MOE + FAMILIES)
+def test_num_params_equal_the_reference(arch, reduced):
+    cfg_t, cfg_j = get_config(arch), jax_get_config(arch)
+    if reduced:
+        cfg_t, cfg_j = (c.reduced(dtype="float32") for c in (cfg_t, cfg_j))
+    assert cfg_t.num_params() == cfg_j.num_params()
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m"] + FAMILIES)
+def test_depth_units_and_with_depth_equal_the_reference(arch):
+    cfg_t, cfg_j = get_config(arch), jax_get_config(arch)
+    assert cfg_t.depth_units == cfg_j.depth_units
+    for units in (1, 3):
+        got, want = cfg_t.with_depth(units), cfg_j.with_depth(units)
+        assert [(n, g) for n, g, w in _fields(got, want) if g != w] == []
 
 
 _MODELS = {}

@@ -79,6 +79,12 @@ import repro_torch.checkpoint.manager, repro_torch.distributed
 import repro_torch.distributed.elastic, repro_torch.launch.train
 import repro_torch.examples.quickstart, repro_torch.examples.train_dlrm
 import repro_torch.examples.fault_tolerant_train, repro_torch.data.pipeline
+import repro_torch.models.api, repro_torch.models.stacking
+import repro_torch.models.rwkv6, repro_torch.models.zamba2
+import repro_torch.models.whisper, repro_torch.layers.rwkv
+import repro_torch.layers.ssm, repro_torch.serving.steps
+import repro_torch.configs.rwkv6_1_6b, repro_torch.configs.zamba2_2_7b
+import repro_torch.configs.whisper_tiny, repro_torch.configs.internvl2_26b
 assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
 print("ok")
 """
@@ -152,6 +158,26 @@ def test_paper_path_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "smollm-360m", "--reduced", "--attn-impl",
                     "chunked"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b",
+                                  "whisper-tiny", "internvl2-26b"])
+def test_family_entry_points_default_to_the_card(monkeypatch, arch):
+    from repro_torch.config import get_config
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config(arch).reduced(dtype="float32")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        quickstart.main(["--arch", arch])
+    if arch != "whisper-tiny":      # the launcher's batches are tokens only
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--arch", arch, "--reduced", "--steps", "1"])
+    assert build_model(cfg, device="cpu").device.type == "cpu"
 
 
 def _run_smoke(cwd):

@@ -1,12 +1,14 @@
 """The port's training launcher and examples, in-process on the CPU.
 
 ``python -m repro_torch.launch.train --device cpu --reduced`` trains
-reduced dense and MoE decoders and prints the reference's lines; with
+reduced dense and MoE decoders, rwkv6, zamba2 and the VLM (on tokens
+only, as the reference's launcher) and prints the reference's lines; with
 ``--ckpt-dir`` it writes the reference's checkpoint layout at the
 reference's cadence (every 200 steps) and ``--resume`` restores the
 latest.  The three examples (``quickstart``, ``fault_tolerant_train``,
-``train_dlrm``) run with ``--device cpu``; ``train_dlrm``'s loss falls
-over its 30 steps (its own assert).  Without a card, the default device
+``train_dlrm``) run with ``--device cpu``, the quickstart on every LM
+config (zero stub embeddings for the VLM and whisper); ``train_dlrm``'s
+loss falls over its 30 steps (its own assert).  Without a card, the default device
 raises.
 """
 import math
@@ -20,7 +22,9 @@ from repro_torch.launch import train
 SMALL = ["--device", "cpu", "--reduced", "--batch", "2", "--seq", "32"]
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m",
+                                  "rwkv6-1.6b", "zamba2-2.7b",
+                                  "internvl2-26b"])
 def test_launcher_trains_on_the_cpu(arch, capsys):
     summary = train.main(["--arch", arch, "--steps", "4", *SMALL])
     out = capsys.readouterr().out
@@ -62,6 +66,20 @@ def test_quickstart(arch, capsys):
     out = capsys.readouterr().out
     assert "forward: (2, 32, 256)" in out and "quickstart OK" in out
     assert "train step: loss=" in out
+
+
+@pytest.mark.parametrize("arch,positions", [
+    ("rwkv6-1.6b", 32), ("zamba2-2.7b", 32), ("whisper-tiny", 32),
+    ("internvl2-26b", 40), ("llama31-8b", 32), ("qwen3-32b", 32),
+    ("internlm2-20b", 32), ("llama31-70b", 32), ("qwen3-moe-235b-a22b", 32)])
+def test_quickstart_other_configs(arch, positions, capsys):
+    """Every LM config the first test leaves out; the VLM's 8 vision-stub
+    positions come first in its logits."""
+    quickstart.main(["--arch", arch, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"forward: (2, {positions}, 256)" in out
+    loss = float(out.split("train step: loss=")[1].split()[0])
+    assert math.isfinite(loss) and "quickstart OK" in out
 
 
 def test_quickstart_refuses_dlrm():
