@@ -320,11 +320,42 @@ Phases, each of which raises on failure (the script catches none):
    one step under torch.profiler; internvl2-26b (about 318 GB of f32
    state) trains reduced on the CPU only, through the launcher.  Phases
    40-41 launch none of the seven kernels: the reference runs these
-   families outside every Pallas kernel, and every count must stay 0.
+   families outside every Pallas kernel, and every count must stay 0;
+42. ``repro_torch.bench.llm_e2e`` (Fig 12, 17 d-e): (a) its smoke
+   scenarios on the reference's reduced f32 model and weights under the
+   proposer ``off`` and ``ngram``, on the card and on the CPU, every field
+   of every row that is not a time (nor ``backend``) equal; (b) llama31-8b
+   at full width (bf16, seeded weights) at the reference's full sizes: the
+   prefill / decode breakdown at B 16, in 100, out 25/100/400, and every
+   scenario through B1, once under ``off`` and once under ``ngram``; each
+   row's TTFT / TPOT p50 and p99 and tok/s printed;
+43. ``repro_torch.bench.saturation``: overlap off and on on the
+   reference's model (steps, idle steps, preemptions and finished equal to
+   the CPU run's) with B2's depth x page sweep at its quick sizes, then at
+   llama31-8b's full width with the sweep at its full sizes (B2 held to
+   its plain version at atol 2e-5 at every point and bit for bit across
+   depths, which it ignores), then a pass with ``REPRO_SANITIZE=1`` (zero
+   retraces and host-sync trips, allocator checks run);
+44. ``python -m repro_torch.bench.run --only llm_e2e,saturation --policy
+   fcfs/latest-arrival/lru,priority/most-blocks/hit-rate --spec off,ngram``
+   under ``REPRO_BENCH_SMOKE=1``, in its own process: exit 0, saturation
+   once a triple, llm_e2e once a (triple, proposer), every row stamped
+   with what was forced and its engines running it;
+45. ``python -m repro_torch.launch.dryrun --all --probes`` (a process a
+   core, up to 8): every cell ``ok`` or the reference's ``skipped``, the
+   depth probes equal to the full count (relative 1e-9), the dense
+   ``train_4k`` cells' useful-FLOPs ratio in (0.5, 1.2]; then one
+   llama31-8b prefill step at 8 x 512 in bf16 on the card, whose
+   ``step_costs`` FLOPs equal its meta count: its ms beside the
+   roofline's step time and the MFU;
+46. energy: rm1 and rm2 at 1 M rows a table, B 4096, SingleTable and
+   BatchedTable, NVML's energy counter over loops of at least 2 s
+   (``repro_torch.bench.energy``): microjoules an inference and the
+   loop's watts, with the idle watts read before the first loop.
 
 Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29, 30,
-34b-d, 37, 38, 40 and 41) runs with every kernel's launch count set to 0 just
-before it and read just after.  The card's peaks come
+34b-d, 37, 38, 40, 41, 42a-b, 43, 45 and 46) runs with every kernel's
+launch count set to 0 just before it and read just after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
 
 The ragged and chunked kernels run bf16 prefill owners (two or more lanes)
@@ -332,8 +363,8 @@ on the tensor-core tile and everything else on the SIMT tile; their JSON
 records say so in ``tile`` and carry the mixed and decode steps' times,
 steps and launches (at llama31-8b's width too, under ``llama31_8b``).
 Phases 28-30's readings are one JSON line with the card's name and power
-limit, phases 31-34's another, phases 35-38's a third and phases
-39-41's a fourth.  The line
+limit, phases 31-34's another, phases 35-38's a third, phases
+39-41's a fourth and phases 42-46's a fifth.  The line
 before the last is the kernels' JSON record (the seven kernels and B4's
 backward); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
@@ -341,8 +372,10 @@ nonzero before printing either.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import re
 import sys
 import time
@@ -1759,6 +1792,46 @@ def main() -> int:
                     "families_training": fam_train, "card": card},
                    default=str))
 
+    # 42-46. end-to-end serving figures, the sweeps, the roofline, energy --
+    log("== 42. llm_e2e: the smoke scenarios card against CPU (reference "
+        "model, off / ngram), then llama31-8b at full width, bf16, the "
+        "reference's full sizes (off / ngram)")
+    t42 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model8 = build_model(cfg_mod.get_config("llama31-8b"), device=dev)
+    params8 = model8.init(seed=0)
+    e2e = llm_e2e_phase(torch, cfg_mod, build_model, api, counted, model8,
+                        params8, dev, card)
+    log(f"  phase 42: {time.perf_counter() - t42:.1f} s")
+    log("== 43. saturation: overlap off / on (reference model, card against "
+        "CPU; llama31-8b full width), B2's depth x page sweep, sanitized")
+    t43 = time.perf_counter()
+    sat = saturation_phase(torch, build_model, api, counted, model8, params8,
+                           dev, card)
+    log(f"  phase 43: {time.perf_counter() - t43:.1f} s")
+    del model8, params8
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== 44. bench.run --only llm_e2e,saturation: two policy triples x "
+        "two proposers, REPRO_BENCH_SMOKE=1")
+    t44 = time.perf_counter()
+    sweeps = harness_phase(torch, card)
+    log(f"  phase 44: {time.perf_counter() - t44:.1f} s")
+    log("== 45. the roofline: launch.dryrun --all --probes; llama31-8b "
+        "prefill 8 x 512 on the card against its meta count")
+    t45 = time.perf_counter()
+    roof = roofline_phase(torch, cfg_mod, build_model, counted, dev, card)
+    log(f"  phase 45: {time.perf_counter() - t45:.1f} s")
+    log(f"== 46. energy: rm1 / rm2 at 1 M rows, B={EMB_BATCH}, BatchedTable "
+        "and SingleTable, NVML's energy counter")
+    t46 = time.perf_counter()
+    power = energy_phase(torch, emb_api, counted, dev, card)
+    log(f"  phase 46: {time.perf_counter() - t46:.1f} s")
+    log(json.dumps({"llm_e2e": e2e, "saturation": sat, "sweeps": sweeps,
+                    "roofline": roof, "energy": power, "card": card},
+                   default=str))
+
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
     chunked_top = dict(chunked_steps["mixed"], max_abs_err=max(
@@ -2705,7 +2778,7 @@ def dlrm_inference(torch, emb_api, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rows = recsys_e2e.run(dev)
+    rows = recsys_e2e.run(dev, energy=False)   # phase 46 reads energy
     torch.cuda.synchronize()
     launches = emb_api.embedding_bag.launches
     wall = time.perf_counter() - t0
@@ -4727,6 +4800,382 @@ def internvl_training_cpu():
         "and AdamW state, about 318 GB, do not fit one 80 GB card): "
         f"{summary}")
     return dict(reduced_cpu=summary)
+
+
+# -- phases 42-46: the end-to-end serving figures, the harness's sweeps,
+# the step roofline and energy ------------------------------------------------
+@contextlib.contextmanager
+def bench_env(**env):
+    """The benchmark modules' environment switches, set for the block and
+    restored after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: v for k, v in env.items() if v is not None})
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def card_vs_cpu_rows(what, card_rows, cpu_rows, fields):
+    """The rows of a card run and a CPU run of the same call: the same
+    names, and every field that is not a time equal."""
+    if [r["name"] for r in card_rows] != [r["name"] for r in cpu_rows]:
+        raise AssertionError(f"{what}: rows {[r['name'] for r in card_rows]}"
+                             f" != {[r['name'] for r in cpu_rows]}")
+    for c, p in zip(card_rows, cpu_rows):
+        if fields(c) != fields(p):
+            raise AssertionError(f"{what} {c['name']}: card {fields(c)} != "
+                                 f"CPU {fields(p)}")
+
+
+def engine_rows_summary(rows):
+    """TTFT / TPOT p50 and p99 and tok/s of the engine rows, by name."""
+    keys = ("ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "tpot_p99_ms",
+            "tok_s", "spec_accept", "tok_per_lane", "preempt", "finished",
+            "prefix_hit_rate", "prefill_frac", "decode_frac", "preemptions",
+            "blocks_allocated", "indep_blocks_allocated", "speedup_vs_indep")
+    out = {}
+    for r in rows:
+        kv = dict(f.split("=", 1) for f in r["derived"].split(";"))
+        out[r["name"]] = dict({k: kv[k] for k in keys if k in kv},
+                              ms=round(r["ms"], 3))
+    return out
+
+
+def llm_e2e_phase(torch, cfg_mod, build_model, api, counted, model8, params8,
+                  dev, card):
+    """Phase 42: (a) the smoke scenarios on the reference's model and
+    weights under ``off`` and ``ngram``, card against CPU, every field that
+    is not a time (nor ``backend``) equal; (b) llama31-8b at full width in
+    bf16 with seeded weights at the reference's full sizes, the breakdown
+    and every scenario under ``off`` and ``ngram``, through B1."""
+    from repro_torch.bench import llm_e2e
+    from repro_torch.serving import spec as spec_lib
+
+    out = {"reference": {}, "llama31_8b": {}}
+    with bench_env(REPRO_BENCH_SMOKE="1"):
+        for proposer in ("off", "ngram"):
+            with spec_lib.force_proposer(proposer):
+                reset_counts(counted)
+                card_rows = llm_e2e.run(dev)
+                torch.cuda.synchronize()
+                b1 = api.paged_attention_ragged_op.launches
+                cpu_rows = llm_e2e.run("cpu")
+            card_vs_cpu_rows(f"42a llm_e2e [{proposer}]", card_rows,
+                             cpu_rows, llm_e2e.counters)
+            if b1 == 0:
+                raise AssertionError("42a: B1 never launched")
+            out["reference"][proposer] = dict(
+                rows=len(card_rows), b1_launches=b1,
+                counters={r["name"]: llm_e2e.counters(r) for r in card_rows})
+            log(f"  42a [{proposer}]: {len(card_rows)} rows, every counter "
+                f"equal to the CPU run's; B1 launches {b1}")
+    cfg8 = model8.cfg
+    with bench_env(REPRO_BENCH_SMOKE=None):
+        for proposer in ("off", "ngram"):
+            with spec_lib.force_proposer(proposer):
+                reset_counts(counted)
+                t0 = time.perf_counter()
+                rows = llm_e2e.run(dev, quick=False, cfg=cfg8, params=params8)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = {op.name: op.launches for op in counted
+                        if op.launches}
+            if launches.get(api.paged_attention_ragged_op.name, 0) == 0:
+                raise AssertionError("42b: B1 never launched")
+            for r in rows:
+                c = llm_e2e.counters(r)
+                if "finished" in c and c["finished"] == "0":
+                    raise AssertionError(f"42b {r['name']}: none finished")
+            summary = engine_rows_summary(rows)
+            out["llama31_8b"][proposer] = dict(rows=summary,
+                                                launches=launches,
+                                                wall_s=round(wall, 1))
+            log(f"  42b llama31-8b [{proposer}] ({wall:.1f} s; launches "
+                f"{launches}; {card}):")
+            for name, s in summary.items():
+                log(f"    {name}: {s}")
+    return out
+
+
+def saturation_phase(torch, build_model, api, counted, model8, params8, dev,
+                     card):
+    """Phase 43: the saturation wave overlap off and on on the reference's
+    model (counters equal to the CPU run's) with the B2 sweep at its quick
+    sizes, then at llama31-8b's full width in bf16 with the B2 sweep at its
+    full sizes; a pass with ``REPRO_SANITIZE=1``."""
+    from repro_torch.bench import llm_e2e, saturation
+
+    def counters(r):
+        c = llm_e2e.counters(r)
+        if r["name"].startswith("llm_saturation"):
+            return {k: c[k] for k in saturation.COUNTERS}
+        return c
+
+    out = {}
+    reset_counts(counted)
+    card_rows = saturation.run(dev)
+    torch.cuda.synchronize()
+    b2 = api.paged_attention_chunked_op.launches
+    cpu_rows = saturation.run("cpu")
+    card_vs_cpu_rows("43 saturation (reference model)", card_rows, cpu_rows,
+                     counters)
+    out["reference"] = {r["name"]: dict(counters(r), ms=round(r["ms"], 4))
+                        for r in card_rows}
+    log(f"  43 reference model: counters equal to the CPU run's; B2 "
+        f"launches {b2}")
+    reset_counts(counted)
+    t0 = time.perf_counter()
+    rows = saturation.run(dev, quick=False, cfg=model8.cfg, params=params8)
+    torch.cuda.synchronize()
+    launches = {op.name: op.launches for op in counted if op.launches}
+    for name in (api.paged_attention_ragged_op.name,
+                 api.paged_attention_chunked_op.name):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"43 llama31-8b: {name} never launched")
+    full = {}
+    for r in rows:
+        kv = dict(f.split("=", 1) for f in r["derived"].split(";"))
+        if r["name"].startswith("llm_saturation"):
+            full[r["name"]] = {k: kv[k] for k in ("tok_s", "device_frac",
+                                                  "steps", "preempt",
+                                                  "finished")}
+            log(f"    {r['name']}: tok_s {kv['tok_s']} device_frac "
+                f"{kv['device_frac']} steps {kv['steps']} ({card})")
+        else:
+            full[r["name"]] = dict(ms=r["ms"], max_abs_err=r["max_abs_err"],
+                                   page=kv["page"], depth=kv["depth"])
+            log(f"    {r['name']}: B2 {r['ms']:.4f} ms, max |err| "
+                f"{r['max_abs_err']:.3g}, bits equal across depths "
+                f"({card})")
+    out["llama31_8b"] = dict(rows=full, launches=launches,
+                             wall_s=round(time.perf_counter() - t0, 1))
+    reset_counts(counted)
+    with bench_env(REPRO_SANITIZE="1"):
+        san_rows = saturation.run(dev)
+    out["sanitized"] = {r["name"]: counters(r) for r in san_rows
+                        if r["name"].startswith("llm_saturation")}
+    log(f"  43 sanitized (REPRO_SANITIZE=1): zero retraces and host-sync "
+        f"trips, allocator checks run: {out['sanitized']}")
+    return out
+
+
+def harness_phase(torch, card):
+    """Phase 44: ``bench.run --only llm_e2e,saturation`` over two policy
+    triples and two proposers under ``REPRO_BENCH_SMOKE=1``, in its own
+    process: it exits 0, saturation runs once a triple, llm_e2e once a
+    (triple, proposer), and every row names what was forced."""
+    import subprocess
+    import tempfile
+
+    triples = ["fcfs/latest-arrival/lru", "priority/most-blocks/hit-rate"]
+    specs = ["off", "ngram"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "sweep.json"
+        env = dict(os.environ, REPRO_BENCH_SMOKE="1",
+                   PYTHONPATH=str(ROOT / "src"))
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.bench.run", "--only",
+             "llm_e2e,saturation", "--policy", ",".join(triples), "--spec",
+             ",".join(specs), "--json", str(path)],
+            env=env, capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if r.returncode != 0:
+            raise AssertionError(f"44: bench.run exited {r.returncode}: "
+                                 f"{r.stderr[-3000:]}")
+        results = json.loads(path.read_text())
+    passes = [(x["module"], x["requested_policy"], x["requested_spec"])
+              for x in results]
+    want = [("llm_e2e", t, s) for t in triples for s in specs]
+    want += [("saturation", t, specs[0]) for t in triples]
+    if sorted(passes) != sorted(want):
+        raise AssertionError(f"44: passes {passes} != {want}")
+    # the commit as git gives it to this script: a checkout's HEAD, which
+    # the stamp must abbreviate, or none (a copy without .git), where the
+    # stamp must say "unknown"
+    try:
+        head = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                              capture_output=True, text=True, timeout=10)
+        head = head.stdout.strip() if head.returncode == 0 else ""
+    except (OSError, subprocess.SubprocessError):
+        head = ""
+    rows = 0
+    for x in results:
+        for row in x["rows"]:
+            rows += 1
+            if (row["policy"], row["spec"]) != (x["requested_policy"],
+                                                 x["requested_spec"]):
+                raise AssertionError(f"44 {x['module']} {row['name']}: "
+                                     f"stamped {row['policy']} / "
+                                     f"{row['spec']}, forced "
+                                     f"{x['requested_policy']} / "
+                                     f"{x['requested_spec']}")
+            pol = dict(f.split("=", 1) for f in row["derived"].split(";"))
+            if "policies" in pol and pol["policies"] != row["policy"]:
+                raise AssertionError(f"44 {row['name']}: engine ran "
+                                     f"{pol['policies']}")
+            if "spec" in pol and pol["spec"] != row["spec"]:
+                raise AssertionError(f"44 {row['name']}: engine ran "
+                                     f"{pol['spec']}")
+        stamped = x["git_commit"]
+        if (x["card"] != card or not x["schema_version"]
+                or not (head.startswith(stamped) if head
+                        else stamped == "unknown")
+                or len(stamped) < 7):
+            raise AssertionError(f"44: provenance {x['card']!r} "
+                                 f"{stamped!r}, git HEAD {head!r}")
+    log(f"  44: {len(results)} passes, {rows} rows, each stamped with the "
+        f"forced triple and proposer; schema {results[0]['schema_version']},"
+        f" commit {results[0]['git_commit']}")
+    return dict(passes=len(results), rows=rows)
+
+
+def roofline_phase(torch, cfg_mod, build_model, counted, dev, card):
+    """Phase 45: the dry run over every arch x shape with probes (in its own
+    process), then one llama31-8b prefill step at 8 x 512 in bf16 on the
+    card, whose counted FLOPs must equal its meta count."""
+    import subprocess
+    import tempfile
+
+    from repro_torch.bench.common import time_ms
+    from repro_torch.config import ShapeCell
+    from repro_torch.configs import ASSIGNED_LM_ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import input_specs
+    from repro_torch.roofline.analysis import RooflineReport, step_costs
+    from repro_torch.roofline.model_flops import model_flops
+
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--probes", "--out", tmp],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=900, cwd=ROOT)
+        if r.returncode != 0:
+            raise AssertionError(f"45: dryrun exited {r.returncode}: "
+                                 f"{r.stdout[-2000:]} {r.stderr[-3000:]}")
+        recs = {(a, s): json.loads((Path(tmp) / f"{a}__{s}__1.json")
+                                   .read_text())
+                for a in ASSIGNED_LM_ARCHS for s in cfg_mod.SHAPES}
+    out["dryrun_s"] = round(time.perf_counter() - t0, 1)
+    cells = {}
+    for (arch, shape), rec in recs.items():
+        if (arch, shape) in dryrun.SKIP:
+            if rec["status"] != "skipped" or \
+                    rec["reason"] != dryrun.SKIP[arch, shape]:
+                raise AssertionError(f"45 {arch} x {shape}: {rec}")
+            continue
+        if rec["status"] != "ok" or rec["probe_flops_rel_err"] > 1e-9:
+            raise AssertionError(f"45 {arch} x {shape}: {rec}")
+        rl = rec["roofline"]
+        cfg = cfg_mod.get_config(arch)
+        if (shape == "train_4k" and cfg.family == "dense"
+                and not 0.5 < rl["useful_flops_ratio"] <= 1.2):
+            raise AssertionError(f"45 {arch} train_4k: useful FLOPs ratio "
+                                 f"{rl['useful_flops_ratio']:.3f}")
+        cells[f"{arch} x {shape}"] = {
+            "flops": rl["hlo_flops"], "bytes": rl["hlo_bytes"],
+            "peak_gib": round(rl["memory_per_device"] / 2 ** 30, 2),
+            "bottleneck": rl["bottleneck"],
+            "step_ms": round(max(rl["t_compute"], rl["t_memory"]) * 1e3, 4),
+            "useful": round(rl["useful_flops_ratio"], 4),
+            "count_s": round(rec["count_s"], 2),
+            "probe_bytes_rel_err": rec["probe_bytes_rel_err"]}
+        log(f"    {arch} x {shape}: {cells[f'{arch} x {shape}']}")
+    out["cells"] = cells
+    log(f"  45 dry run: {len(cells)} cells ok, "
+        f"{len(recs) - len(cells)} skipped, probes exact, "
+        f"{out['dryrun_s']} s")
+
+    # one real step on the card against its meta count
+    cfg = cfg_mod.get_config("llama31-8b")
+    cell = ShapeCell("prefill_8x512", 512, 8, "prefill")
+    meta = dryrun.count_cell(cfg, cell)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = dryrun.cell_model(cfg, cell, device=dev)
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 512), dtype=torch.int32,
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(45))
+    inputs = dict(input_specs(cfg, cell), tokens=tokens)
+    fn, args = dryrun.cell_step(model, cell, params, inputs)
+    reset_counts(counted)
+    real = step_costs(fn, *args)
+    ms = time_ms(fn, *args, device=dev)
+    if any(op.launches for op in counted):
+        raise AssertionError("45: the prefill step launched a kernel of "
+                             "the port (the reference's is plain)")
+    if real["flops"] != meta["flops"]:
+        raise AssertionError(f"45: card FLOPs {real['flops']} != meta "
+                             f"{meta['flops']}")
+    rep = RooflineReport(arch="llama31-8b", shape=cell.name, mesh="1",
+                         chips=1, hlo_flops=real["flops"],
+                         hlo_bytes=real["bytes"], collective_bytes=0.0,
+                         model_flops=model_flops(cfg, cell),
+                         memory_per_device=real["peak_memory"],
+                         dtype=torch.bfloat16)
+    mfu = rep.model_flops / (rep.hw.peak_bf16 * ms * 1e-3)
+    out["llama31_8b_prefill_8x512"] = dict(
+        flops=real["flops"], meta_flops=meta["flops"], bytes=real["bytes"],
+        meta_bytes=meta["bytes"], peak_memory=real["peak_memory"],
+        meta_peak_memory=meta["peak_memory"],
+        max_memory_allocated=real["max_memory_allocated"], ms=ms,
+        roofline_step_ms=rep.step_time * 1e3, bottleneck=rep.bottleneck,
+        model_flops=rep.model_flops, mfu=mfu, roofline_mfu=rep.mfu,
+        useful_flops_ratio=rep.useful_flops_ratio)
+    log(f"  45 llama31-8b prefill 8 x 512 bf16 on the card: FLOPs "
+        f"{real['flops']:.6g} = meta {meta['flops']:.6g}; bytes "
+        f"{real['bytes']:.6g} (meta {meta['bytes']:.6g}); measured "
+        f"{ms:.3f} ms against the roofline's {rep.step_time * 1e3:.3f} ms "
+        f"({rep.bottleneck}); MFU {mfu:.4f} (roofline {rep.mfu:.4f}); "
+        f"counted peak {real['peak_memory'] / 2 ** 30:.2f} GiB, allocator "
+        f"peak {real['max_memory_allocated'] / 2 ** 30:.2f} GiB ({card})")
+    del model, params, fn, args
+    return out
+
+
+def energy_phase(torch, emb_api, counted, dev, card):
+    """Phase 46: energy per inference of rm1 and rm2 at 1 M rows a table
+    and B 4096, BatchedTable and SingleTable, from the card's energy
+    counter over loops of at least 2 s; the idle watts first."""
+    from repro_torch.bench import energy, recsys_e2e
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    time.sleep(1.0)
+    counter = energy.EnergyCounter(dev)
+    idle = counter.watts()
+    log(f"  idle before the first loop: {idle:.1f} W (NVML, bus "
+        f"{counter.bus_id}; {card})")
+    reset_counts(counted)
+    rows = recsys_e2e.run(dev, batches=(EMB_BATCH,))
+    torch.cuda.synchronize()
+    launches = emb_api.embedding_bag.launches
+    forwards = sum(r["calls"] for r in rows if r["use_batched"])
+    if launches != forwards or launches == 0:
+        raise AssertionError(f"46: B4 launches {launches} != BatchedTable "
+                             f"forwards {forwards}")
+    out = {"idle_watts": idle, "b4_launches": launches}
+    for r in rows:
+        if "energy_uJ_per_inf" not in r or not r["finite"]:
+            raise AssertionError(f"46 {r['name']}: no energy reading")
+        out[r["name"]] = dict(uJ_per_inf=r["energy_uJ_per_inf"],
+                              watts=r["watts"], ms=r["ms"],
+                              loop_s=r["energy_s"])
+        log(f"    {r['name']}: {r['energy_uJ_per_inf']:.3f} uJ per "
+            f"inference, {r['watts']:.1f} W over {r['energy_s']:.2f} s, "
+            f"{r['ms']:.4f} ms a forward ({card})")
+    return out
 
 
 def _leaves(tree):

@@ -4,9 +4,15 @@ batch sweep (port of ``benchmarks/recsys_e2e.py``).
 
 Each row is one forward at one batch: its median time (``bench.common.
 time_ms``), and the operations and bytes counted from the shapes
-(:func:`forward_cost`).  The reference's energy model is left out: its
-constants are for a TPU-class part.  Random weights come from a seeded
-generator on the device, batches from ``SyntheticRecSysDataset``.
+(:func:`forward_cost`).  Random weights come from a seeded generator on
+the device, batches from ``SyntheticRecSysDataset``.
+
+Energy is measured, not modelled: on a card the rows at the largest
+batch of the sweep carry ``energy_uJ_per_inf`` (microjoules a sample) and ``watts``, read from the
+card's energy counter (``bench.energy``) over a loop of forwards of at
+least 2 s.  The idle power is not taken off.  The reference's estimate,
+from constants for a TPU-class part, is not carried over; on the CPU the
+rows have no energy key.
 
     python -m repro_torch.bench.recsys_e2e [--device cpu] [--rows N]
 """
@@ -59,18 +65,27 @@ def forward_cost(cfg: DLRMConfig, batch: int) -> Tuple[float, float]:
 
 def run(device="cuda", quick: bool = False, rows: Optional[int] = None,
         archs: Sequence[str] = ARCHS,
-        batches: Optional[Sequence[int]] = None) -> List[Dict[str, object]]:
+        batches: Optional[Sequence[int]] = None,
+        energy: bool = True) -> List[Dict[str, object]]:
     """Time every (arch, batch) forward, SingleTable then BatchedTable, at
     the reference's ``quick`` or full sizes where ``rows`` or ``batches``
-    is not given.
+    is not given; on a card and with ``energy``, read the energy of the
+    largest batch over 2 s loops.
 
     Returns one dict per row: ``name``, ``ms``, ``derived``, and ``arch``,
     ``batch``, ``use_batched``, ``calls`` (forwards run, timed or not),
-    ``finite`` (the last forward's logits are finite) and ``shape``.
+    ``finite`` (the last forward's logits are finite) and ``shape``; a row
+    with an energy reading also ``energy_uJ_per_inf``, ``watts`` and
+    ``energy_s``.
     """
     dev = device_lib.resolve(device)
     rows = rows or SIZES[quick][0]
     batches = batches or SIZES[quick][1]
+    energy_at = max(batches) if energy and dev.type == "cuda" else None
+    counter = None
+    if energy_at is not None:
+        from repro_torch.bench import energy as energy_lib
+        counter = energy_lib.EnergyCounter(dev)
     where = f"device={device_name(dev)}"
     out: List[Dict[str, object]] = []
     for arch in archs:
@@ -91,9 +106,23 @@ def run(device="cuda", quick: bool = False, rows: Optional[int] = None,
                 if ub:
                     derived += (f";speedup_vs_single="
                                 f"{ms[False] / max(ms[True], 1e-9):.2f}")
+                calls = WARMUP + REPS + 1
+                joules = {}
+                if B == energy_at:
+                    reading = energy_lib.measure(
+                        lambda: model.forward(params, batch), counter, dev)
+                    calls += reading["calls"] + 1   # + its warm-up call
+                    joules = dict(energy_uJ_per_inf=reading["joules"]
+                                  / (reading["calls"] * B) * 1e6,
+                                  watts=reading["watts"],
+                                  energy_s=reading["seconds"])
+                    derived += (f";energy_uJ_per_inf="
+                                f"{joules['energy_uJ_per_inf']:.3f}"
+                                f";watts={joules['watts']:.1f}")
                 row = emit(f"recsys_{arch}_{tag}_B{B}", ms[ub], derived)
+                row.update(joules)
                 row.update(arch=arch, batch=B, use_batched=ub,
-                           calls=WARMUP + REPS + 1,
+                           calls=calls,
                            finite=bool(torch.isfinite(logits).all()),
                            shape=tuple(logits.shape))
                 out.append(row)

@@ -139,6 +139,17 @@ class ModelConfig:
             total += self.num_layers * self._attn_params()
         return total
 
+    def num_active_params(self) -> int:
+        """Active (per-token) parameters: differs from :meth:`num_params`
+        for MoE, where a token runs ``top_k`` of the experts."""
+        if self.moe is None:
+            return self.num_params()
+        m = self.moe
+        d, L = self.d_model, self.num_layers
+        all_experts = L * m.num_experts * 3 * d * m.d_expert
+        active_experts = L * m.top_k * 3 * d * m.d_expert
+        return self.num_params() - all_experts + active_experts
+
     @property
     def depth_units(self) -> int:
         """Repeating-unit count (layers; groups for hybrid)."""
@@ -259,6 +270,26 @@ class DLRMConfig:
             mlp += a * b + b
         cross = self.cross_layers * 2 * inter_in * self.cross_rank
         return emb + mlp + cross
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One input shape of the dry run: ``global_batch`` sequences of
+    ``seq_len`` tokens, a ``train``, ``prefill`` or ``decode`` step."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+# the reference's four cells per LM arch
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
 
 
 _REGISTRY: Dict[str, Any] = {}

@@ -15,3 +15,17 @@ from repro_torch.configs import (  # noqa: F401
     whisper_tiny,
     zamba2_2_7b,
 )
+
+# the LM archs of the dry run's cells, in the reference's order
+ASSIGNED_LM_ARCHS = [
+    "qwen3-moe-235b-a22b",
+    "granite-moe-1b-a400m",
+    "qwen2-1.5b",
+    "qwen3-32b",
+    "internlm2-20b",
+    "smollm-360m",
+    "internvl2-26b",
+    "rwkv6-1.6b",
+    "zamba2-2.7b",
+    "whisper-tiny",
+]

@@ -20,8 +20,10 @@ from typing import Dict, List, Sequence
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import tree as tree_lib
 from repro_torch.config import DLRMConfig
 from repro_torch.core import embedding_api
+from repro_torch.models import stacking
 
 
 def _normal(gen, shape, scale, device):
@@ -55,8 +57,7 @@ class DLRM:
         model's device, at the reference's scales (normal times fan-in^-0.5;
         embedding rows times D^-0.5; biases 0)."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = stacking.generator(seed, dev)
         emb = _normal(gen, (cfg.num_tables * cfg.num_embeddings,
                             cfg.embedding_dim), cfg.embedding_dim ** -0.5,
                       dev)
@@ -75,6 +76,14 @@ class DLRM:
             "cross": cross,
             "top": _mlp_init(gen, (d,) + cfg.top_mlp, dev),
         }
+
+    def init_abstract(self, dtype=torch.float32) -> Dict:
+        """:meth:`init`'s tree as meta tensors, its float leaves in
+        ``dtype`` (the reference's argument; ``table_offsets`` stays
+        int32), drawn from nothing and allocated nowhere."""
+        return tree_lib.map(
+            lambda t: t.to(dtype) if t.is_floating_point() else t,
+            stacking.init_abstract(self))
 
     def embedding_lookup(self, params, indices):
         """indices (B, T, L) -> pooled (B, T, D)."""

@@ -50,6 +50,11 @@ class RWKV6LM:
             "head": embedding_init(gen, cfg.vocab_size, d, dt, dev),
         }
 
+    def init_abstract(self) -> Dict:
+        """:meth:`init`'s tree (keys, shapes, dtypes) as meta tensors,
+        drawn from nothing and allocated nowhere."""
+        return stacking.init_abstract(self)
+
     def _block(self, lp, x):
         cfg = self.cfg
         x = x + rwkv_lib.time_mix_chunked(

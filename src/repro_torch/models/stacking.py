@@ -8,6 +8,9 @@ layers in a Python loop.
 """
 from __future__ import annotations
 
+import copy
+from typing import Optional
+
 import torch
 
 from repro_torch import tree as tree_lib
@@ -15,11 +18,23 @@ from repro_torch import tree as tree_lib
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def generator(seed: int, device: torch.device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+def generator(seed: int, device: torch.device) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on the
+    meta device, which has no generator and draws nothing."""
+    if device.type == "meta":
+        return None
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
+
+
+def init_abstract(model):
+    """The tree ``model.init()`` returns, with the same keys, shapes and
+    dtypes, as meta tensors: ``init`` run on a copy of the model whose
+    device is ``meta``, so nothing is drawn and nothing is allocated."""
+    meta = copy.copy(model)
+    meta.device = torch.device("meta")
+    return meta.init()
 
 
 def init_stacked(n: int, make):

@@ -90,6 +90,11 @@ class TransformerLM:
                                             dt, dev)
         return params
 
+    def init_abstract(self) -> Dict:
+        """:meth:`init`'s tree (keys, shapes, dtypes) as meta tensors,
+        drawn from nothing and allocated nowhere."""
+        return stacking.init_abstract(self)
+
     # --------------------------------------------------------------- forward
     def _ffn(self, lp, h, *, full_capacity: bool):
         """The layer's feed-forward on h (B, S, D): the SwiGLU, or the MoE

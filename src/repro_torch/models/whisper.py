@@ -70,6 +70,11 @@ class WhisperEncDec:
             "head": embedding_init(gen, cfg.vocab_size, d, dt, dev),
         }
 
+    def init_abstract(self) -> Dict:
+        """:meth:`init`'s tree (keys, shapes, dtypes) as meta tensors,
+        drawn from nothing and allocated nowhere."""
+        return stacking.init_abstract(self)
+
     def _run_layers(self, body, x, layers, n: int, *args):
         """``body(lp, x, *args)`` over the ``n`` stacked layers, each under
         ``remat`` when grad is enabled."""

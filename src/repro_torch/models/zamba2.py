@@ -65,6 +65,11 @@ class Zamba2LM:
             "head": embedding_init(gen, cfg.vocab_size, d, dt, dev),
         }
 
+    def init_abstract(self) -> Dict:
+        """:meth:`init`'s tree (keys, shapes, dtypes) as meta tensors,
+        drawn from nothing and allocated nowhere."""
+        return stacking.init_abstract(self)
+
     def _group(self, shared, gp, x, positions):
         """The shared attention + MLP block, then the group's mamba
         layers (``gp``: ``per_group``-stacked)."""

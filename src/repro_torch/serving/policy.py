@@ -5,8 +5,13 @@
 ``preemption`` ranks running requests most-preemptable-first;
 ``eviction``   picks the cached-free block whose prefix content is dropped.
 
-Resolution: an explicit name or instance, else the config hint, else the
-axis default (``fcfs`` / ``latest-arrival`` / ``lru``); unknown names raise.
+Resolution: an explicit name or instance, else the innermost
+:func:`force_policies` scope's name for the axis (how ``bench.run
+--policy`` sweeps triples), else the config hint, else the axis default
+(``fcfs`` / ``latest-arrival`` / ``lru``); unknown names raise, and a
+scope's names are checked when it is entered.  Every resolution is
+appended to each open :func:`record_resolutions` log, so a benchmark row
+names the triple that ran.  Scopes and logs are thread-local.
 
 ``auto`` and ``predicted-length`` read the replay context of
 :mod:`repro_torch.perf.table` when they are built (which is when the engine
@@ -18,8 +23,10 @@ trace-learned decode-length model (else ``max_new_tokens``, counted
 """
 from __future__ import annotations
 
-from typing import (Callable, Dict, List, Mapping, Optional, Sequence, Tuple,
-                    Type, Union)
+import contextlib
+import threading
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple, Type, Union)
 
 from repro_torch.core.paged_kv import BlockAllocator, BlockStats
 from repro_torch.serving.request import Request, RequestState
@@ -105,6 +112,8 @@ _BASES = {ADMISSION: AdmissionPolicy, PREEMPTION: PreemptionPolicy,
           EVICTION: EvictionPolicy}
 _REGISTRY: Dict[str, Dict[str, Type[Policy]]] = {a: {} for a in AXES}
 
+_STATE = threading.local()
+
 
 def register(axis: str, name: str) -> Callable[[Type[Policy]], Type[Policy]]:
     """Class decorator: register a policy class under ``name`` on ``axis``."""
@@ -141,19 +150,84 @@ def get(axis: str, name: str) -> Type[Policy]:
             f"{names(axis)}") from None
 
 
+# -- scoped override + resolution log ---------------------------------------
+def _scope_stack() -> List[Dict[str, str]]:
+    if not hasattr(_STATE, "forced"):
+        _STATE.forced = []
+    return _STATE.forced
+
+
+def _log_stack() -> List[List[Tuple[str, str]]]:
+    if not hasattr(_STATE, "logs"):
+        _STATE.logs = []
+    return _STATE.logs
+
+
+@contextlib.contextmanager
+def force_policies(*, admission: Optional[str] = None,
+                   preemption: Optional[str] = None,
+                   eviction: Optional[str] = None) -> Iterator[None]:
+    """Scoped policy preference per axis (``None`` axes are untouched);
+    names are checked on entry, before any engine is built."""
+    scope: Dict[str, str] = {}
+    for axis, name in ((ADMISSION, admission), (PREEMPTION, preemption),
+                       (EVICTION, eviction)):
+        if name not in _AUTO_NAMES:
+            get(axis, name)
+            scope[axis] = name
+    stack = _scope_stack()
+    stack.append(scope)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def forced_policy(axis: str) -> Optional[str]:
+    """The innermost ``force_policies`` preference for ``axis``, if any."""
+    for scope in reversed(_scope_stack()):
+        if axis in scope:
+            return scope[axis]
+    return None
+
+
+@contextlib.contextmanager
+def record_resolutions() -> Iterator[List[Tuple[str, str]]]:
+    """Collect the ``(axis, name)`` pairs resolved inside the scope."""
+    log: List[Tuple[str, str]] = []
+    _log_stack().append(log)
+    try:
+        yield log
+    finally:
+        stack = _log_stack()
+        for i in range(len(stack) - 1, -1, -1):   # remove by identity
+            if stack[i] is log:
+                del stack[i]
+                break
+
+
+def _note(axis: str, name: str) -> None:
+    for log in _log_stack():
+        log.append((axis, name))
+
+
 def resolve(axis: str, explicit: Union[None, str, Policy] = None, *,
             config: Optional[str] = None) -> Policy:
-    """A fresh policy for ``axis``: explicit > config > default."""
+    """A fresh policy for ``axis``: explicit > scope > config > default.
+    An instance passes through, logged under its registered name."""
     if axis not in AXES:
         raise ValueError(f"unknown policy axis {axis!r}; one of {AXES}")
     if isinstance(explicit, Policy):
         if explicit.axis != axis:
             raise ValueError(f"policy instance {explicit.name!r} is an "
                              f"{explicit.axis} policy, not {axis}")
+        _note(axis, explicit.name)
         return explicit
-    for level in (explicit, config, DEFAULTS[axis]):
+    for level in (explicit, forced_policy(axis), config, DEFAULTS[axis]):
         if level not in _AUTO_NAMES:
-            return get(axis, level)()
+            cls = get(axis, level)
+            _note(axis, level)
+            return cls()
     raise UnknownPolicyError(f"{axis}: no default policy registered")
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package; the serving modules
+``chip_smoke.py`` imports JAX, the JAX package or the reference's
+``benchmarks``; the serving modules
 import where ``jax`` cannot be imported; entry points default to the card
 and raise without one; ``chip_smoke.py`` fails without a card and alone."""
 import ast
@@ -30,7 +31,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f)
-           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert bad == []
 
 
@@ -38,7 +39,7 @@ _BLOCKER = """
 import importlib.abc, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import repro_torch.serving.engine, repro_torch.launch.serve
@@ -85,7 +86,11 @@ import repro_torch.models.whisper, repro_torch.layers.rwkv
 import repro_torch.layers.ssm, repro_torch.serving.steps
 import repro_torch.configs.rwkv6_1_6b, repro_torch.configs.zamba2_2_7b
 import repro_torch.configs.whisper_tiny, repro_torch.configs.internvl2_26b
-assert not any(m.split(".")[0] in ("jax", "repro") for m in sys.modules)
+import repro_torch.bench.llm_e2e, repro_torch.bench.saturation
+import repro_torch.bench.energy, repro_torch.launch.dryrun
+import repro_torch.roofline.model_flops, repro_torch.configs
+assert not any(m.split(".")[0] in ("jax", "repro", "benchmarks")
+               for m in sys.modules)
 print("ok")
 """
 
