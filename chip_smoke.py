@@ -351,11 +351,42 @@ Phases, each of which raises on failure (the script catches none):
 46. energy: rm1 and rm2 at 1 M rows a table, B 4096, SingleTable and
    BatchedTable, NVML's energy counter over loops of at least 2 s
    (``repro_torch.bench.energy``): microjoules an inference and the
-   loop's watts, with the idle watts read before the first loop.
+   loop's watts, with the idle watts read before the first loop;
+47. mesh-native serving over gloo ranks that share the one card
+   (``repro_torch.launch.mesh.run_ranks``, rank r on ``cuda:(r %
+   device_count)``): (a) the reference's sharded-engine sweep
+   (``repro_torch.bench.sharded``: two triples x proposers off / ngram x a
+   roomy and a tight pool, reduced smollm-360m in float32 with the
+   reference's weights) through B1 on 2 and 4 ranks, every rank's greedy
+   streams equal to the single-rank engine's in this
+   call, ``backend == "sharded"``, ``devices`` and ``mesh_shape`` checked,
+   and the copy-on-write case, also with the copy across ranks; (b)
+   llama31-8b at full width in bf16 on 2 ranks, each drawing phase 28a's
+   seeded weights layer by layer and keeping only its shard
+   (``init(shard=...)``), phase 5's requests through B1 and, on a second
+   2-rank mesh at the same time, through B2, and a sharded paper path
+   (B3, 16 requests, 16 prompt tokens, 16 greedy) after B1:
+   the streams held to a single-device engine (and paper path) on the same
+   weights in this call by phase 30's rule (identical, or a first
+   divergence where the single device's top two logits lie within two
+   bf16 ulps), each rank's B1 / B2 / B3 launches (steps x layers), and on
+   one captured layer-0 call of each kernel its ``(m, l)`` statistics
+   against the plain partials (within 2e-5 of max(1, |value|)), its
+   output against the plain version (phase 3's bf16 limit) and its output
+   without the statistics bit for bit; (c) rm2 at phase 10's size (20 x 1
+   M rows, f32) row-sharded over 2 ranks: B4's row-window launch against
+   its plain version and ``F.embedding_bag`` on the same window, its time
+   (one rank at a time on the card) beside its bound, and the
+   SUM-combined bags against the single-rank lookup (atol 1e-5); (d) every
+   primitive exact on CUDA tensors in f32 and bf16, then Fig 10
+   (``repro_torch.bench.collectives``) on 2 ranks: every primitive's time
+   labelled "gloo, 2 ranks on one card" (host-staged: no NVLink number),
+   none refused.
 
 Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29, 30,
-34b-d, 37, 38, 40, 41, 42a-b, 43, 45 and 46) runs with every kernel's
-launch count set to 0 just before it and read just after.  The card's peaks come
+34b-d, 37, 38, 40, 41, 42a-b, 43, 45, 46 and, on every rank, 47a-c) runs
+with every kernel's launch count set to 0 just before it and read just
+after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
 
 The ragged and chunked kernels run bf16 prefill owners (two or more lanes)
@@ -364,7 +395,7 @@ records say so in ``tile`` and carry the mixed and decode steps' times,
 steps and launches (at llama31-8b's width too, under ``llama31_8b``).
 Phases 28-30's readings are one JSON line with the card's name and power
 limit, phases 31-34's another, phases 35-38's a third, phases
-39-41's a fourth and phases 42-46's a fifth.  The line
+39-41's a fourth, phases 42-46's a fifth and phase 47's a sixth.  The line
 before the last is the kernels' JSON record (the seven kernels and B4's
 backward); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
@@ -1832,6 +1863,43 @@ def main() -> int:
                     "roofline": roof, "energy": power, "card": card},
                    default=str))
 
+    # 47. mesh-native serving over gloo ranks on the one card ---------------
+    log("== 47a. the reference's sharded-engine sweep, reduced smollm-360m "
+        "f32, through B1 on 2 and 4 ranks on the one card, against one "
+        "rank")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t47 = time.perf_counter()
+    mesh47 = {"sweep": sharded_sweep_phase(torch, card)}
+    log(f"  phase 47a: {time.perf_counter() - t47:.1f} s")
+    log("== 47b. llama31-8b at full width, bf16, on 2 ranks: phase 5's "
+        "requests through B1 and B2, the paper path through B3, against "
+        "one device on the same weights")
+    t47b = time.perf_counter()
+    mesh47["llama31_8b"] = llama_sharded_phase(
+        torch, np, cfg_mod, engine_mod, build_model, api, prompts, dev, card)
+    log(f"  phase 47b: {time.perf_counter() - t47b:.1f} s")
+    log("== 47c. rm2 at 20 x 1 M rows, f32, row-sharded over 2 ranks: B4's "
+        "row window")
+    t47c = time.perf_counter()
+    mesh47["rm2"] = rm2_sharded_phase(card)
+    log(f"  phase 47c: {time.perf_counter() - t47c:.1f} s")
+    log("== 47d. Fig 10 on 2 gloo ranks on the one card")
+    t47d = time.perf_counter()
+    mesh47["collectives"] = collectives_phase(card)
+    log(f"  phase 47d: {time.perf_counter() - t47d:.1f} s; phase 47: "
+        f"{time.perf_counter() - t47:.1f} s")
+    log(json.dumps({"mesh": mesh47, "card": card}, default=str))
+    llama_ranks = mesh47["llama31_8b"]["ranks"]
+
+    def sharded_of(key):
+        """A paged kernel's phase-47b record: each rank's launches and its
+        captured call's statistics check."""
+        return {"launches_by_rank": [rk[key]["launches"]
+                                     for rk in llama_ranks],
+                "stats_check": llama_ranks[0][key]["stats"],
+                "ranks": SHARDED_RANKS}
+
     ragged_top = dict(steps["mixed"], max_abs_err=max(
         s["max_abs_err"] for s in steps.values()))
     chunked_top = dict(chunked_steps["mixed"], max_abs_err=max(
@@ -1851,7 +1919,7 @@ def main() -> int:
         "granite_moe": dict(granite["ragged"]["kernel"],
                             launches=granite["ragged"]["launches"]),
         "tunables": {k: tunables[k] for k in ("max_abs_err", "bf16_share")},
-        "tune_table": tune["table"],
+        "tune_table": tune["table"], "sharded": sharded_of("ragged"),
         "instances": ragged_inst}, {
         "name": CHUNKED_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{CHUNKED_KERNEL}.cu",
@@ -1864,7 +1932,7 @@ def main() -> int:
                            launches=llama["chunked"]["launches"]),
         "granite_moe": dict(granite["chunked"]["kernel"],
                             launches=granite["chunked"]["launches"]),
-        "instances": chunked_inst}, {
+        "sharded": sharded_of("chunked"), "instances": chunked_inst}, {
         "name": DECODE_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{DECODE_KERNEL}.cu",
         "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
@@ -1872,12 +1940,16 @@ def main() -> int:
             decode_top["max_abs_err"], decode_err)),
         "library_ms": None, "tile": DECODE_TILE,
         "llama31_8b": llama["decode"], "granite_moe": granite["decode"],
-        "instances": decode_inst}, {
+        "sharded": sharded_of("paper"), "instances": decode_inst}, {
         "name": EMB_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
         "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
         "launches": emb_launches, **emb["rm2"], "max_abs_err": emb_err,
-        "rm1": emb["rm1"], "rm2": emb["rm2"]}, {
+        "rm1": emb["rm1"], "rm2": emb["rm2"],
+        "window": {k: v for k, v in mesh47["rm2"][0].items()
+                   if k not in ("rank", "rows")},
+        "window_launches_by_rank": [rk["launches"]
+                                    for rk in mesh47["rm2"]]}, {
         "name": "batched_embedding_backward", "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
         "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
@@ -2194,6 +2266,32 @@ def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 2.0 ** -133
 
 
+def bf16_parity(got_streams, want_streams, gaps, what, ref):
+    """Phase 30's rule: each of ``got_streams`` equals ``ref``'s stream in
+    ``want_streams``, or first parts from it at a token where ``ref``'s top
+    two logits (``gaps[(req_id, token)]``) lie within two bf16 ulps.
+    Returns {req_id: "identical" or the gap}; raises otherwise."""
+    parity = {}
+    for rid, want in sorted(want_streams.items()):
+        got = got_streams[rid]
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if j is None:
+            if len(got) != len(want):
+                raise AssertionError(f"request {rid}: {len(got)} tokens "
+                                     f"{what}, {len(want)} {ref}")
+            parity[rid] = "identical"
+            continue
+        top1, top2 = (float(v) for v in gaps[(rid, j)].cpu())
+        ulps = (top1 - top2) / bf16_ulp(top1)
+        parity[rid] = f"token {j}: {ref}'s top-2 gap {ulps:.2f} bf16 ulps"
+        if not ulps <= 2:
+            raise AssertionError(f"request {rid}: {what} leaves {ref}'s "
+                                 f"stream at token {j} where {ref}'s top two "
+                                 f"logits are {ulps:.2f} bf16 ulps apart")
+    return parity
+
+
 def llama_phase30(torch, np, cfg_mod, engine_mod, counted, build_model,
                   model, params, cfg, dev, card):
     """Phase 30: the reference's burst at llama31-8b's width, mono against
@@ -2284,24 +2382,7 @@ def llama_phase30(torch, np, cfg_mod, engine_mod, counted, build_model,
         log(line + f"  [{card}]")
         if m["finished"] != sizes["n_req"]:
             raise AssertionError(f"{tag}: finished {m['finished']}")
-    parity = {}
-    for rid, want in sorted(mono_streams.items()):
-        got = split_streams[rid]
-        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
-                 None)
-        if j is None:
-            if len(got) != len(want):
-                raise AssertionError(f"request {rid}: {len(got)} tokens "
-                                     f"split, {len(want)} mono")
-            parity[rid] = "identical"
-            continue
-        top1, top2 = (float(v) for v in gaps[(rid, j)].cpu())
-        ulps = (top1 - top2) / bf16_ulp(top1)
-        parity[rid] = f"token {j}: mono's top-2 gap {ulps:.2f} bf16 ulps"
-        if not ulps <= 2:
-            raise AssertionError(f"request {rid}: split leaves mono's stream "
-                                 f"at token {j} where mono's top two logits "
-                                 f"are {ulps:.2f} bf16 ulps apart")
+    parity = bf16_parity(split_streams, mono_streams, gaps, "split", "mono")
     log("  split against mono, bf16: " + "; ".join(
         f"{rid} {v}" for rid, v in parity.items()))
     out["parity_bf16"] = parity
@@ -5176,6 +5257,547 @@ def energy_phase(torch, emb_api, counted, dev, card):
             f"inference, {r['watts']:.1f} W over {r['energy_s']:.2f} s, "
             f"{r['ms']:.4f} ms a forward ({card})")
     return out
+
+
+# 47. mesh-native serving over gloo ranks on the one card ------------------
+SHARDED_RANKS = 2
+SHARDED_PAPER = (16, 16, 16)       # 47b's paper path: B, prompt, new tokens
+STATS_TOL = 2e-5                   # (m, l) against plain, of max(1, |value|)
+# 47b's pool, one device's and the meshes' alike: phase 5's requests hold
+# about 1100 blocks, so neither preempts; two 2-rank meshes at once keep
+# 2 GiB of it a rank
+SHARDED_BLOCKS = 2048
+
+
+def sharded_sweep_phase(torch, card):
+    """Phase 47a: the reference's sharded-engine sweep (and copy-on-write
+    case) on 2 and 4 ranks through B1, the two meshes at once (their six
+    processes share the card), every rank's streams against the
+    single-rank engine's in this call (47b runs B2 at full width)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.bench import sharded
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    single = sharded.sweep_job(False, "cuda")
+    log(f"  single rank: {len(single['runs'])} runs "
+        f"({time.perf_counter() - t0:.1f}s)")
+    t = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futures = {S: pool.submit(run_ranks, sharded.sweep_job, S,
+                                  (True, "cuda"), device="cuda",
+                                  timeout=600.0) for S in (2, 4)}
+        by_size = {S: f.result() for S, f in futures.items()}
+    seconds = time.perf_counter() - t
+    out = {}
+    for S, ranks in by_size.items():
+        for r, rank in enumerate(ranks):
+            for i, run in enumerate(rank["runs"]):
+                want = single["runs"][i]
+                m = run["metrics"]
+                if run["outputs"] != want["outputs"]:
+                    raise AssertionError(f"S={S} rank {r} {run['case']}: "
+                                         "streams differ from one rank's")
+                if (m["backend"], m["devices"], m["mesh_shape"],
+                        m["finished"]) != ("sharded", S,
+                                           {"data": 1, "model": S}, 4):
+                    raise AssertionError(f"S={S} {run['case']}: metrics "
+                                         f"{m['backend']} {m['devices']} "
+                                         f"{m['mesh_shape']} "
+                                         f"{m['finished']}")
+            for key in ("cow", "cow_cross"):
+                got, want = rank[key], single[key]
+                pair = (got["metrics"]["cow_copies"],
+                        got["metrics"]["prefix_hits"])
+                if got["outputs"] != want["outputs"] or pair != (
+                        want["metrics"]["cow_copies"],
+                        want["metrics"]["prefix_hits"]) or not all(pair):
+                    raise AssertionError(f"S={S} rank {r} {key}: streams or "
+                                         f"copies {pair}")
+            if rank["cow_cross"]["cow_moves"] < 1:
+                raise AssertionError(f"S={S}: no copy across ranks")
+        out[S] = dict(runs=len(ranks[0]["runs"]),
+                      cow_moves=ranks[0]["cow_cross"]["cow_moves"])
+        log(f"  {S} ranks: {out[S]['runs']} runs a "
+            f"rank, every rank's streams = one rank's; backend sharded, "
+            f"devices {S}, mesh {{'data': 1, 'model': {S}}}; copy-on-write "
+            f"streams and counters = one rank's, "
+            f"{out[S]['cow_moves']} copy across ranks  [{card}]")
+    log(f"  2 and 4 ranks at once: {seconds:.1f}s")
+    out["seconds"] = seconds
+    return out
+
+
+class StatsCapture:
+    """Clone layer 0's inputs and outputs of the first call of ``api.<attr>``
+    with ``with_stats`` in the first step of kind ``kind`` the engine runs
+    (an engine given), or in the call after :meth:`arm`."""
+
+    def __init__(self, api, attr, engine=None, kind="mixed"):
+        self.api, self.attr, self.engine, self.kind = api, attr, engine, kind
+        self.armed, self.got = False, None
+        self._op = getattr(api, attr)
+        setattr(api, attr, self.op)
+        if engine is not None:
+            self._render = engine._render
+            engine._render = self.render
+
+    def render(self, plan):
+        self.armed = self.got is None and plan_kind(plan) == self.kind
+        return self._render(plan)
+
+    def arm(self):
+        self.armed = True
+
+    def op(self, *args, **kw):
+        out = self._op(*args, **kw)
+        if self.armed and kw.get("with_stats"):
+            self.got = ([_clone(a) for a in args], dict(kw),
+                        tuple(t.clone() for t in out))
+            self.armed = False
+        return out
+
+    def close(self):
+        if self.engine is not None:
+            self.engine._render = self._render
+        setattr(self.api, self.attr, self._op)
+
+
+def stats_check(torch, api, attr, got, what):
+    """A captured call's output and ``(m, l)`` against the plain version on
+    float32 q and K (phase 3's bf16 limit / atol 2e-5; the statistics
+    within STATS_TOL of max(1, |value|)), and its output again without the
+    statistics, bit for bit."""
+    args, kw, (out, m, l) = got
+    op = getattr(api, attr)
+    plain_kw = {"sm_scale": kw["sm_scale"]} if "sm_scale" in kw else {}
+    again = op(*args, **{k: v for k, v in kw.items() if k != "with_stats"})
+    same = bool(torch.equal(again, out))
+    fargs = [a.float() if a.is_floating_point() else a for a in args]
+    stats_fn = {"paged_attention_ragged_op": api.paged_attention_ragged_stats,
+                "paged_attention_chunked_op":
+                    api.paged_attention_chunked_stats,
+                "paged_attention_op": api.paged_attention_opt_stats}[attr]
+    po, pm, pl = stats_fn(*fargs, **plain_kw)
+    m_err = ((m - pm).abs() / pm.abs().clamp_min(1)).max().item()
+    l_err = ((l - pl).abs() / pl.abs().clamp_min(1)).max().item()
+    rec = dict(rows=int(m.numel()), m_err=m_err, l_err=l_err,
+               out_bits_without_stats=same,
+               no_key_rows=int((m == -1e30).sum().item()))
+    if out.dtype == torch.bfloat16:
+        share = {"paged_attention_ragged_op": api.ragged_bf16_share,
+                 "paged_attention_chunked_op": api.chunked_bf16_share}.get(
+                     attr)
+        if share is not None:
+            rec["bf16_share"] = share(out, *args)
+        else:
+            rec["max_abs_err"] = (out.float() - po).abs().max().item()
+        ok = rec.get("bf16_share", 0.0) <= 1 and rec.get(
+            "max_abs_err", 0.0) <= 2e-2
+    else:
+        rec["max_abs_err"] = (out - po).abs().max().item()
+        ok = rec["max_abs_err"] <= 2e-5
+    log(f"    {what}: (m, l) against plain over {rec['rows']} rows "
+        f"({rec['no_key_rows']} with no key on this rank): m {m_err:.2e}, "
+        f"l {l_err:.2e} of max(1, |value|); output "
+        + (f"bf16 share {rec['bf16_share']:.3f}" if "bf16_share" in rec
+           else f"max |err| {rec['max_abs_err']:.2e}")
+        + f"; bit for bit without the statistics: {same}")
+    if not (ok and same and m_err <= STATS_TOL and l_err <= STATS_TOL):
+        raise AssertionError(f"{what}: statistics check failed {rec}")
+    return rec
+
+
+def paper_steps(torch, np, op, model, params, cfg, dev, mesh=None,
+                capture=None):
+    """47b's paper path: SHARDED_PAPER's requests through
+    ``decode_step_paged`` over split pools (on ``mesh``: this rank's pool
+    block, its LOCAL BlockList and its lanes).  Returns the greedy tokens
+    {req: [...]}, each generated token's top-2 logits, the decode kernel's
+    launches (``op``: the decode wrapper, which counts them) and the ms a
+    step."""
+    from repro_torch.core.paged_kv import (BlockAllocator, local_slots,
+                                           make_pool)
+
+    B, P, N = SHARDED_PAPER
+    BS, a = SERVE_BS, cfg.attention
+    S = mesh.size("model") if mesh is not None else 1
+    r = mesh.axis_index("model") if mesh is not None else 0
+    steps = P + N - 1
+    nb = -(-B * -(-steps // BS) // S) * S
+    pk, pv = make_pool(cfg.num_layers, nb // S, BS, a.num_kv_heads,
+                       a.head_dim, model.dtype, dev)
+    pools = {"k": pk, "v": pv}
+    alloc = BlockAllocator(num_blocks=nb, block_size=BS, num_shards=S)
+    ids = list(range(B))
+    for i in ids:
+        alloc.allocate(i, 0)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, P), dtype=np.int32)).to(dev)
+    tok, gen, top2 = prompt[:, 0], [], []
+    op.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        slots = alloc.write_slots(ids)
+        bl, br, bp, lens = alloc.build_block_list(ids, nb)
+        if mesh is not None:
+            bl, br, bp = (x[r] for x in alloc.build_sharded_block_lists(
+                [(i, i) for i in ids], pad_req=B))
+            own = np.nonzero(slots[:, 0] // alloc.blocks_per_shard == r)[0]
+            arrs = dict(own_lanes=own.astype(np.int32),
+                        own_slots=local_slots(slots[own], r,
+                                              alloc.blocks_per_shard))
+        else:
+            arrs = dict(slots=slots)
+        lists = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in dict(arrs, block_list=bl, block_req=br,
+                                  block_pos=bp, seq_lens=lens).items()}
+        if capture is not None and t == steps - 1:
+            capture.arm()
+        kw = dict(mesh=mesh) if mesh is not None else dict(num_lanes=B)
+        logits, pools = model.decode_step_paged(params, pools, lists, tok,
+                                                **kw)
+        for i in ids:
+            alloc.commit_token(i)
+        if t + 1 < P:
+            tok = prompt[:, t + 1]
+        else:
+            top2.append(logits.float().topk(2, dim=-1).values)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            gen.append(tok)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    toks = torch.stack(gen, 1).cpu().tolist()
+    gaps = {(i, j): top2[j][i] for i in ids for j in range(N)}
+    return {i: toks[i] for i in ids}, gaps, op.launches, ms
+
+
+def llama_rank_job(prompts, impls, paper):
+    """Phase 47b on one rank: llama31-8b's shard drawn layer by layer from
+    phase 28a's seed, phase 5's requests through each attention kernel of
+    ``impls`` on the serving mesh, then (``paper``) the sharded paper path
+    (B3), each kernel's statistics checked on a captured call."""
+    import numpy as np
+    import torch
+
+    from repro_torch import config as cfg_mod
+    from repro_torch.core import attention_api as api
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import engine as engine_mod
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serving_mesh()
+    rank = mesh.axis_index("model")
+    cfg = cfg_mod.get_config("llama31-8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0, shard=model.shard_fn(mesh))
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out = dict(rank=rank, shard_gib=nbytes / 2**30,
+               init_s=time.perf_counter() - t0,
+               init_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    ops = (api.paged_attention_ragged_op, api.paged_attention_chunked_op,
+           api.paged_attention_op)
+    for impl in impls:
+        attr = f"paged_attention_{impl}_op"
+        serve = serve_config(cfg_mod, cfg, impl, kv_block_size=SERVE_BS,
+                             max_batch=SERVE_BATCH)
+        eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                       num_blocks=SHARDED_BLOCKS, device=dev,
+                                       mesh=mesh)
+        cap = StatsCapture(api, attr, eng)
+        for op in ops:
+            op.launches = 0
+        wall = serve_phase5(engine_mod, eng, prompts, torch)
+        launches = [op.launches for op in ops]
+        cap.close()
+        m = eng.metrics()
+        eng.alloc.check_invariants(drained=True)
+        want = [m["steps"] * cfg.num_layers if o is getattr(api, attr)
+                else 0 for o in ops]
+        if launches != want:
+            raise AssertionError(f"rank {rank} {impl}: launches {launches} "
+                                 f"!= {want}")
+        if cap.got is None:
+            raise AssertionError(f"rank {rank} {impl}: no mixed step")
+        stats = stats_check(torch, api, attr, cap.got,
+                            f"rank {rank} {impl} mixed step layer 0 "
+                            f"T={cap.got[0][0].shape[0]}")
+        if m["preemptions"]:
+            raise AssertionError(f"rank {rank} {impl}: preempted")
+        out[impl] = dict(
+            streams={r.req_id: list(r.output) for r in eng.finished},
+            launches=launches[ops.index(getattr(api, attr))],
+            steps=m["steps"], wall=wall,
+            tok_s=m["output_tokens"] / wall, backend=m["backend"],
+            devices=m["devices"], mesh_shape=m["mesh_shape"],
+            p50_tpot_s=m["p50_tpot_s"], p50_ttft_s=m["p50_ttft_s"],
+            stats=stats)
+        del eng, cap
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    if not paper:
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return out
+    decode_op = api.paged_attention_op
+    cap = StatsCapture(api, "paged_attention_op")
+    toks, _, launches, ms = paper_steps(torch, np, decode_op, model, params,
+                                        cfg, dev, mesh=mesh, capture=cap)
+    cap.close()
+    B, P, N = SHARDED_PAPER
+    if launches != (P + N - 1) * cfg.num_layers:
+        raise AssertionError(f"rank {rank} paper path: B3 launches "
+                             f"{launches}")
+    out["paper"] = dict(tokens=toks, launches=launches, ms_per_step=ms,
+                        stats=stats_check(
+                            torch, api, "paged_attention_op", cap.got,
+                            f"rank {rank} paper path last step layer 0 "
+                            f"B={B}"))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def llama_sharded_phase(torch, np, cfg_mod, engine_mod, build_model, api,
+                        prompts, dev, card):
+    """Phase 47b: the single-device runs on phase 28a's weights (streams
+    and every sampled token's top-2 logits), then two meshes of 2 ranks at
+    once (:func:`llama_rank_job`: B1 and the paper path on one, B2 on the
+    other; four processes share the card), held to them by phase 30's
+    rule."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = cfg_mod.get_config("llama31-8b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    sampling = engine_mod.sampling_lib
+    sample = sampling.sample_batched
+    last, gaps = {}, {}
+
+    def hooked(gen, logits, *args):
+        tok = sample(gen, logits, *args)
+        last["top2"] = logits.float().topk(2, dim=-1).values
+        return tok
+
+    serve = serve_config(cfg_mod, cfg, "ragged", kv_block_size=SERVE_BS,
+                         max_batch=SERVE_BATCH)
+    eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                   num_blocks=SHARDED_BLOCKS, device=dev)
+    build = eng._build
+
+    def build_and_record(*args):
+        pend = build(*args)
+        for _, req, _, _, out_idx in pend.actions:
+            if out_idx is not None:
+                gaps[(req.req_id, out_idx)] = last["top2"][
+                    pend.slots[req.req_id]]
+        return pend
+
+    eng._build = build_and_record
+    sampling.sample_batched = hooked
+    try:
+        wall = serve_phase5(engine_mod, eng, prompts, torch)
+    finally:
+        sampling.sample_batched = sample
+    streams = {r.req_id: list(r.output) for r in eng.finished}
+    m1 = eng.metrics()
+    del eng, build, build_and_record        # the bound method holds eng
+    p_toks, p_gaps, _, p_ms = paper_steps(torch, np, api.paged_attention_op,
+                                          model, params, cfg, dev)
+    log(f"  one device: {m1['steps']} steps, wall {wall:.2f}s, "
+        f"{m1['output_tokens'] / wall:.1f} tok/s; paper path {p_ms:.2f} "
+        f"ms/step ({time.perf_counter() - t0:.1f}s)  [{card}]")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  before the meshes: {free / 2**30:.1f} of {total / 2**30:.1f} GiB "
+        "free on the card")
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(run_ranks, llama_rank_job, SHARDED_RANKS,
+                            (prompts, impls, paper), device="cuda",
+                            timeout=900.0)
+                for impls, paper in ((("ragged",), True),
+                                     (("chunked",), False))]
+        meshes = [j.result() for j in jobs]
+    ranks = [dict(b, **a) for a, b in zip(*meshes)]   # by rank
+    out = dict(one_device=dict(steps=m1["steps"], wall=wall,
+                               tok_s=m1["output_tokens"] / wall,
+                               paper_ms_per_step=p_ms),
+               seconds=time.perf_counter() - t1, ranks=[])
+    for rk in ranks:
+        r = rk["rank"]
+        for impl in ("ragged", "chunked"):
+            got = rk[impl]
+            parity = bf16_parity(got["streams"], streams, gaps,
+                                 f"rank {r} {impl}", "one device")
+            got["parity"] = parity
+            log(f"  rank {r} {impl}: {got['steps']} steps, {got['launches']} "
+                f"launches = steps x 32, wall {got['wall']:.2f}s, "
+                f"{got['tok_s']:.1f} tok/s, TPOT p50 "
+                f"{got['p50_tpot_s'] * 1e3:.1f} ms (gloo collectives "
+                f"through host memory); against one device: "
+                + "; ".join(f"{k} {v}" for k, v in parity.items()
+                            if v != "identical")
+                + f" ({sum(v == 'identical' for v in parity.values())} of "
+                  f"{len(parity)} identical)  [{card}]")
+            if (got["backend"], got["devices"]) != ("sharded", SHARDED_RANKS):
+                raise AssertionError(f"rank {r} {impl}: {got['backend']} "
+                                     f"{got['devices']}")
+            del got["streams"]
+        paper = rk["paper"]
+        paper["parity"] = bf16_parity(paper.pop("tokens"), p_toks, p_gaps,
+                                      f"rank {r} paper path", "one device")
+        log(f"  rank {r} paper path: B3 launches {paper['launches']}, "
+            f"{paper['ms_per_step']:.2f} ms/step (one device "
+            f"{p_ms:.2f}); "
+            f"{sum(v == 'identical' for v in paper['parity'].values())} of "
+            f"{len(paper['parity'])} requests identical; shard "
+            f"{rk['shard_gib']:.2f} GiB drawn in {rk['init_s']:.1f}s, init "
+            f"peak {rk['init_peak_gib']:.2f} GiB, run peak "
+            f"{rk['peak_gib']:.2f} GiB (reserved {rk['reserved_gib']:.2f})  "
+            f"[{card}]")
+        out["ranks"].append(rk)
+    for impl in ("ragged", "chunked"):
+        if ranks[0][impl]["parity"] != ranks[1][impl]["parity"]:
+            raise AssertionError(f"{impl}: the ranks' streams differ")
+    return out
+
+
+def rm2_rank_job():
+    """Phase 47c on one rank: rm2 at phase 10's size, this rank's rows of
+    the concatenated table (the rest freed), B4's row window against its
+    plain version, its times and bound, and the SUM-combined bags against
+    the single-rank lookup."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import config as cfg_mod
+    from repro_torch.core import embedding_api as emb_api
+    from repro_torch.data.pipeline import SyntheticRecSysDataset
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+
+    dev = torch.device("cuda")
+    mesh = make_serving_mesh()
+    S, r = mesh.size("model"), mesh.axis_index("model")
+    cfg = cfg_mod.get_config("rm2")
+    params = build_model(cfg, device=dev).init(0)
+    table, offs = params["embedding"], params["table_offsets"]
+    idx = torch.from_numpy(SyntheticRecSysDataset(cfg, EMB_BATCH).batch_at(
+        0)["indices"]).to(dev)
+    whole = emb_api.embedding_bag(table, offs, idx)
+    R, D = table.shape
+    rows = R // S
+    lo, hi = r * rows, (r + 1) * rows
+    local = table[lo:hi].clone()
+    del params, table
+    torch.cuda.empty_cache()
+    op = emb_api.embedding_bag_window
+    op.launches = 0
+    pooled = emb_api.batched_table_lookup_sharded(local, offs, idx,
+                                                  mesh=mesh)
+    torch.cuda.synchronize()
+    launches = op.launches
+    err_whole = (pooled - whole).abs().max().item()
+    launch = op.prepare(local, offs, idx, lo, hi)
+    got = launch.out
+    if launch.fn(*launch.argv) != 0:
+        raise RuntimeError("window kernel launch failed")
+    want = emb_api.batched_table_window_lookup(local, offs, idx, lo, hi)
+    err = (got - want).abs().max().item()
+    gids = (idx + offs[None, :, None]).reshape(-1).long()
+    inside = (gids >= lo) & (gids < hi)
+    L = idx.shape[2]
+    bags = (gids - lo).clamp(0, rows - 1).view(-1, L)
+    weights = inside.float().view(-1, L)
+    lib = F.embedding_bag(bags, local, mode="sum", per_sample_weights=weights)
+    lib_err = (lib.view_as(want) - want).abs().max().item()
+    for turn in range(S):       # one rank at a time has the card to time
+        if turn == r:
+            ms = device_ms(lambda: launch.fn(*launch.argv), device="cuda",
+                           reps=100)
+            plain_ms = device_ms(lambda: emb_api.batched_table_window_lookup(
+                local, offs, idx, lo, hi), device="cuda", reps=5)
+            library_ms = device_ms(lambda: F.embedding_bag(
+                bags, local, mode="sum", per_sample_weights=weights),
+                device="cuda")
+        collectives.barrier(mesh)
+    distinct = torch.unique(gids[inside]).numel()
+    nbytes = distinct * D * 4 + 4 * gids.numel() + want.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = int(inside.sum()) * D / PEAK_OPS["torch.float32"]
+    sum_ms = device_ms(lambda: collectives.all_reduce(want.clone(), mesh),
+                       device="cuda", reps=5)
+    return dict(rank=r, rows=[lo, hi], launches=launches,
+                max_abs_err=err, err_vs_single=err_whole, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_err=lib_err, bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                ids_inside=int(inside.sum()), distinct_rows=distinct,
+                gloo_sum_ms=sum_ms)
+
+
+def rm2_sharded_phase(card):
+    """Phase 47c: :func:`rm2_rank_job` on 2 ranks, held to its limits."""
+    from repro_torch.launch.mesh import run_ranks
+
+    ranks = run_ranks(rm2_rank_job, SHARDED_RANKS, (), device="cuda",
+                      timeout=600.0)
+    for rk in ranks:
+        log(f"  rank {rk['rank']} rows [{rk['rows'][0]}, {rk['rows'][1]}): "
+            f"window launches {rk['launches']}, against plain max |err| "
+            f"{rk['max_abs_err']:.2e} (F.embedding_bag {rk['library_err']:.2e}"
+            f"), SUM-combined bags against one rank's lookup "
+            f"{rk['err_vs_single']:.2e}; kernel {rk['ms']:.4f} ms  plain "
+            f"{rk['plain_ms']:.4f} ms  F.embedding_bag {rk['library_ms']:.4f}"
+            f" ms  bound {rk['bound_ms']:.4f} ms ({rk['distinct_rows']} "
+            f"distinct rows of {rk['ids_inside']} ids in the window) -> "
+            f"{rk['bound_ms'] / rk['ms']:.1%} of bound; gloo SUM of the "
+            f"bags {rk['gloo_sum_ms']:.3f} ms (host-staged)  [{card}]")
+        if (rk["launches"] != 1 or rk["max_abs_err"] > 1e-5
+                or rk["err_vs_single"] > 1e-5 or rk["library_err"] > 1e-4):
+            raise AssertionError(f"47c rank {rk['rank']}: {rk}")
+    return ranks
+
+
+def collectives_phase(card):
+    """Phase 47d: each primitive exact on CUDA tensors in f32 and bf16,
+    then Fig 10 on 2 gloo ranks on the one card; a refused primitive
+    fails the phase."""
+    from repro_torch.bench import collectives
+    from repro_torch.launch.mesh import run_ranks
+
+    checks = run_ranks(collectives.check_job, SHARDED_RANKS,
+                       ("cuda", 64, ("float32", "bfloat16")), device="cuda")
+    if not all(all(r.values()) for r in checks):
+        raise AssertionError(f"47d: primitives {checks}")
+    log(f"  gloo on CUDA tensors, f32 and bf16: {', '.join(collectives.PRIMS)}"
+        " exact on 2 ranks")
+    rows = collectives.run("cuda", quick=True, ranks=SHARDED_RANKS,
+                           iters=3)
+    timed = [r for r in rows if r["us"] > 0 or r["refused"]]
+    for r in timed:
+        log(f"  {r['name']}: {r['us']:.1f} us  {r['derived']}  "
+            f"[{r['backend']}, {r['ranks']} ranks, {r['ranks_per_card']} on "
+            f"one card; host-staged, no NVLink number]  [{card}]")
+    refused = [r["name"] for r in rows if r["refused"]]
+    if refused or len(timed) != len(collectives.PRIMS) * len(
+            collectives.QUICK_SIZES):
+        raise AssertionError(f"47d: refused {refused}, timed {len(timed)}")
+    return [{k: r[k] for k in ("name", "us", "derived", "backend", "ranks",
+                               "ranks_per_card")} for r in timed]
 
 
 def _leaves(tree):

@@ -27,8 +27,11 @@ is the port's (``cuda`` or ``plain``).
 By default the reference's model: reduced float32 smollm-360m with the
 reference's weights (``bench.trace_replay.REFERENCE_WEIGHTS``); a caller
 may pass any config and parameters (``chip_smoke.py`` serves llama31-8b at
-full width with seeded weights).  Multi-card serving
-(``REPRO_BENCH_DEVICES`` > 1) waits for the port's mesh and is refused.
+full width with seeded weights).  ``REPRO_BENCH_DEVICES`` > 1 (set by
+``bench.run --devices``, which starts that many ranks) serves every
+scenario on a serving mesh of that many ranks (``launch.mesh``), as the
+reference's does; one process without a process group of that size
+raises.
 
     PYTHONPATH=src REPRO_BENCH_SMOKE=1 python -m repro_torch.bench.run \\
         --device cpu --only llm_e2e
@@ -53,19 +56,34 @@ from repro_torch.serving.engine import Request, ServingEngine
 # in a row, but ``backend``, is a counter that equals across devices
 TIMED = ("ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "tpot_p99_ms",
          "tok_s", "speedup_vs_indep", "prefill_frac", "decode_frac")
-MULTI_CARD = ("multi-card serving (the reference's serving mesh) waits "
-              "for the port's multi-card support")
+ONE_DEVICE = ("runs one device, as the reference's does; the serving "
+              "mesh is llm_e2e's")
 
 
 def smoke() -> bool:
     return bool(os.environ.get("REPRO_BENCH_SMOKE"))
 
 
+def bench_devices() -> int:
+    return int(os.environ.get("REPRO_BENCH_DEVICES", "0") or 0)
+
+
 def refuse_mesh() -> None:
-    """Raise where ``REPRO_BENCH_DEVICES`` asks for more than one card."""
-    want = int(os.environ.get("REPRO_BENCH_DEVICES", "0") or 0)
+    """Raise where ``REPRO_BENCH_DEVICES`` asks for more than one rank in
+    a module that serves one device."""
+    want = bench_devices()
     if want > 1:
-        raise ValueError(f"REPRO_BENCH_DEVICES={want}: {MULTI_CARD}")
+        raise ValueError(f"REPRO_BENCH_DEVICES={want}: {ONE_DEVICE}")
+
+
+def serving_mesh():
+    """The scenario engines' mesh: ``REPRO_BENCH_DEVICES`` > 1 ranks (the
+    process group's), else None (one device)."""
+    want = bench_devices()
+    if want <= 1:
+        return None
+    from repro_torch.launch.mesh import make_serving_mesh
+    return make_serving_mesh(model=want)
 
 
 def counters(row: Dict[str, object]) -> Dict[str, str]:
@@ -144,7 +162,7 @@ def run(device="cuda", quick: bool = True, cfg=None,
         params=None) -> List[Dict[str, object]]:
     """The module's rows (``name``, ``ms``, ``derived``).  ``cfg`` and
     ``params`` default to the reference's model and weights."""
-    refuse_mesh()
+    mesh = serving_mesh()
     dev = device_lib.resolve(device)
     is_smoke = smoke()
     if is_smoke and spec_lib.forced_proposer() == "draft-model":
@@ -157,7 +175,7 @@ def run(device="cuda", quick: bool = True, cfg=None,
 
     def engine(serve, num_blocks):
         return ServingEngine(model, params, cfg, serve,
-                             num_blocks=num_blocks, device=dev)
+                             num_blocks=num_blocks, device=dev, mesh=mesh)
 
     if not is_smoke:
         rows += breakdown(model, params, cfg, dev, quick)

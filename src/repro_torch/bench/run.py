@@ -20,6 +20,7 @@ the harness then exits 1.
 | saturation             | S4.2 pipeline      |
 | disagg                 | S4.2 disaggregation|
 | trace_replay           | S5 trace replay / SLO sweep |
+| collectives            | Fig 10             |
 
 ``--policy adm/pre/evi,...`` repeats the run once per serving-policy
 triple, each pass under ``serving.policy.force_policies``, so every engine
@@ -34,14 +35,20 @@ that the pass's engines resolved (``policy``, ``spec``) and with
 triples with explicit arguments, which outrank a scope, so it is not
 policy-sensitive.
 
+``--devices 1,2,4`` sweeps rank counts, as the reference's sweeps host
+device counts: each count n runs the selected modules (with the other
+flags) on n gloo ranks started for it (``launch.mesh.run_ranks``; on a
+card rank r takes ``cuda:(r % device_count)``) under
+``REPRO_BENCH_DEVICES=n``, so ``llm_e2e`` serves on a mesh of n ranks;
+rank 0's records are kept and every record and row is stamped
+``devices=n``.  ``collectives`` (Fig 10) starts its own two ranks.
+
 Not ported: ``--backend`` (the port has no op registry: each kernel
-follows the device of its tensors, ``--device``) and ``--devices`` and the
-``collectives`` module, which wait for multi-card support; both flags are
-refused.
+follows the device of its tensors, ``--device``); it is refused.
 
     python -m repro_torch.bench.run [--only llm_e2e,saturation] [--full]
         [--policy fcfs/latest-arrival/lru,...] [--spec off,ngram]
-        [--device cpu] [--json out.json]
+        [--devices 1,2] [--device cpu] [--json out.json]
 """
 from __future__ import annotations
 
@@ -66,16 +73,14 @@ from repro_torch.serving import spec as spec_lib
 
 MODULES = ("gemm_roofline", "stream", "gather_scatter", "embedding_tables",
            "paged_attention_bench", "recsys_e2e", "llm_e2e", "saturation",
-           "disagg", "trace_replay")
+           "disagg", "trace_replay", "collectives")
 # modules that build serving engines: the only ones whose numbers can
 # depend on the policy triple or the proposer
 POLICY_SENSITIVE = {"llm_e2e", "saturation", "disagg"}
 SPEC_SENSITIVE = {"llm_e2e"}
-MULTI_CARD = "waits for the port's multi-card support"
 REFUSED = {
     "--backend": "the port has no backend registry: each kernel follows "
                  "the device of its tensors (--device)",
-    "--devices": f"the device-count sweep {MULTI_CARD}",
 }
 
 
@@ -98,20 +103,29 @@ def _disagg(dev, full):
 
 def _trace_replay(dev, full):
     """``bench.trace_replay`` on the reference's model and weights (its
-    ``--reduced``), every scenario, or ``mixed`` alone under smoke."""
+    ``--reduced``), every scenario, or ``mixed`` alone under smoke, with
+    the dev2 rows."""
     from repro_torch.bench import trace_replay
 
     cfg, model, params = trace_replay.build("smollm-360m", True, dev)
     scenarios = (("mixed",) if os.environ.get("REPRO_BENCH_SMOKE")
                  else tuple(trace_replay.SCENARIOS))
     records = trace_replay.sweep(model, params, cfg, scenarios=scenarios,
-                                 device=dev)
+                                 device=dev, dev2=("smollm-360m", True))
     return [{"name": r["name"], "ms": r["us_per_call"] / 1e3,
              "derived": r["derived"], "seed": r["seed"],
              "policy": r["policy"]} for r in records]
 
 
-_ADAPTERS = {"disagg": _disagg, "trace_replay": _trace_replay}
+def _collectives(dev, full):
+    """Fig 10 on two ranks of its own, ``ms`` beside the reference's
+    ``us``."""
+    from repro_torch.bench import collectives
+    return collectives.run(dev, quick=not full, ranks=2)
+
+
+_ADAPTERS = {"disagg": _disagg, "trace_replay": _trace_replay,
+             "collectives": _collectives}
 
 
 def runner(name: str) -> Callable[..., List[Dict[str, object]]]:
@@ -181,6 +195,59 @@ def resolved_triple(plog) -> str:
         else policy_lib.DEFAULTS[a] for a in policy_lib.AXES)
 
 
+def parse_devices(arg: str) -> List[int]:
+    """``1,2,4`` -> rank counts (each >= 1)."""
+    counts = []
+    for c in arg.split(","):
+        try:
+            counts.append(int(c))
+        except ValueError:
+            raise SystemExit(f"--devices: not a device count: {c!r}")
+        if counts[-1] < 1:
+            raise SystemExit(f"--devices: device counts are >= 1: {c!r}")
+    return counts
+
+
+def _rank_pass(argv: List[str], n: int) -> List[Dict[str, object]]:
+    """One rank of a ``--devices`` pass: the harness under
+    ``REPRO_BENCH_DEVICES=n``, its rows kept, no file written; only rank 0
+    prints them."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    os.environ["REPRO_BENCH_DEVICES"] = str(n)
+    quiet = dist.is_initialized() and dist.get_rank() > 0
+    with open(os.devnull, "w") as null, (contextlib.redirect_stdout(null)
+                                         if quiet else
+                                         contextlib.nullcontext()):
+        return main(argv)
+
+
+def sweep_devices(argv: List[str], counts: List[int], device: str,
+                  json_path=None) -> List[Dict[str, object]]:
+    """The harness once per rank count (module docstring); returns the
+    merged records, each record and row stamped ``devices``."""
+    from repro_torch.launch.mesh import run_ranks
+
+    merged = []
+    for n in counts:
+        print(f"# devices sweep: {n}", file=sys.stderr, flush=True)
+        results = run_ranks(_rank_pass, n, (argv, n), device=device,
+                            timeout=3600.0)[0]
+        for res in results:
+            res["devices"] = n
+            for row in res["rows"]:
+                row["devices"] = n
+        merged.extend(results)
+        print(f"# devices={n} done", file=sys.stderr, flush=True)
+    if json_path:
+        with open(json_path, "w") as f:
+            json.dump(merged, f, indent=2, default=str)
+        print(f"# wrote {json_path}", file=sys.stderr)
+    return merged
+
+
 def main(argv=None) -> List[Dict[str, object]]:
     """Run the modules; returns one record a (module, pass), as ``--json``
     writes them."""
@@ -203,7 +270,24 @@ def main(argv=None) -> List[Dict[str, object]]:
                          "draft-model), one pass each")
     ap.add_argument("--json", default=None,
                     help="write each pass's rows to this path")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated rank counts, one pass each on "
+                         "that many ranks; rows stamped devices=<n>")
     args = ap.parse_args(argv)
+    if args.devices is not None:
+        counts = parse_devices(args.devices)
+        child, skip = [], False
+        for a in argv:
+            if skip:
+                skip = False
+                continue
+            if a in ("--devices", "--json"):
+                skip = True
+                continue
+            if not a.startswith(("--devices=", "--json=")):
+                child.append(a)
+        device_lib.resolve(args.device)
+        return sweep_devices(child, counts, args.device, args.json)
     mods = args.only.split(",") if args.only else list(MODULES)
     unknown = sorted(set(mods) - set(MODULES))
     if unknown:

@@ -6,12 +6,16 @@ bursty / shared-prefix / long-tail / mixed, fixed seeds and sizes) through
 the port's serving engine under seven configurations: three fixed policy
 triples, ``predicted-length`` admission, the ``ngram`` proposer, the
 overlapped loop, and last ``auto``, resolved from the table built in this
-run from the fixed rows.  Each row's ``derived`` string carries the
-(scenario, config) attribution, the SLO verdict and the deterministic
-replay counters that :mod:`repro_torch.perf.gate` diffs; the reference's
-``dev2`` row (two devices) is not run.  The module asserts, as the
-reference does, that ``auto`` resolved on every axis and that its
-objective is no worse than the best fixed triple's.
+run from the fixed rows; and, where asked (``sweep(dev2=...)``, the
+module's ``main`` and ``bench.run``), the reference's ``dev2`` row: the
+fcfs configuration on a serving mesh of two ranks
+(:data:`DEV2_CONFIG`, started with ``launch.mesh.run_ranks``), whose
+:data:`PARITY_KEYS` must equal the fcfs row's.  Each row's ``derived``
+string carries the (scenario, config) attribution, the SLO verdict and
+the deterministic replay counters that :mod:`repro_torch.perf.gate`
+diffs.  The module asserts, as the reference does, that ``auto`` resolved
+on every axis and that its objective is no worse than the best fixed
+triple's, and the dev2 parity.
 
     python -m repro_torch.bench.trace_replay --device cpu --reduced \\
         --json pt.json
@@ -78,6 +82,13 @@ CONFIGS = [
     ("auto", ("auto", "auto", "auto"), "off", False),
 ]
 DRAFT_CONFIG = ("draft", FCFS, "draft-model", False)
+# the reference's two-device row: fcfs on a serving mesh of two ranks
+DEV2_CONFIG = ("dev2", FCFS, "off", False)
+DEV2_RANKS = 2
+# Replay counters that must be identical between the dev2 row and its
+# single-device fcfs twin (greedy streams are the same, so these are).
+PARITY_KEYS = ("steps", "finished", "out_tokens", "tok_per_step",
+               "prefix_hits", "preempt", "p99_ttft_steps", "p99_tpot_steps")
 BENCH_009 = Path(__file__).resolve().parents[3] / "BENCH_009.json"
 REFERENCE_CAVEATS = ("trace_bursty_ngram", "trace_shared-prefix_ngram",
                      "trace_long-tail_ngram", "trace_mixed_ngram")
@@ -108,9 +119,10 @@ def trace_of(scenario: str, vocab_size: int):
 
 
 def run_one(model, params, cfg, scenario, trace, config, *, table,
-            length_model, device, attn_impl="ragged"):
-    """Replay ``trace`` through a fresh engine under ``config``; returns
-    (engine, ReplayResult, SloReport, wall seconds)."""
+            length_model, device, attn_impl="ragged", mesh=None):
+    """Replay ``trace`` through a fresh engine under ``config`` (on
+    ``mesh`` when given); returns (engine, ReplayResult, SloReport, wall
+    seconds)."""
     _, (adm, pre, evi), spec_name, overlap = config
     serve = ServeConfig(model=cfg.name, kv_block_size=KV_BLOCK_SIZE,
                         max_batch=MAX_BATCH, spec=spec_name, spec_k=SPEC_K,
@@ -119,22 +131,23 @@ def run_one(model, params, cfg, scenario, trace, config, *, table,
                       length_model=length_model):
         eng = ServingEngine(model, params, cfg, serve, num_blocks=NUM_BLOCKS,
                             admission=adm, preemption=pre, eviction=evi,
-                            device=device)
+                            device=device, mesh=mesh)
     t0 = time.time()
     result = replay(eng, trace)
     dt = time.time() - t0
     return eng, result, score(result, SCENARIOS[scenario]["slo"]), dt
 
 
-def derived_of(scenario, config, trace, result, report) -> str:
-    """The reference's ``derived`` string of one row (devices=1)."""
+def derived_of(scenario, config, trace, result, report,
+               devices: int = 1) -> str:
+    """The reference's ``derived`` string of one row."""
     _, (adm, pre, evi), spec_name, overlap = config
     c = result.counters()
     period = trace.step_period
     return (
         f"scenario={scenario};admission={adm};preemption={pre};"
         f"eviction={evi};spec={spec_name};"
-        f"overlap={'on' if overlap else 'off'};devices=1;"
+        f"overlap={'on' if overlap else 'off'};devices={devices};"
         f"slo_ok={1 if report.ok else 0};"
         f"p99_ttft_steps={c['p99_ttft_steps']};"
         f"p99_tpot_steps={c['p99_tpot_steps']};"
@@ -148,10 +161,61 @@ def derived_of(scenario, config, trace, result, report) -> str:
         f"idle_ff={c['idle_ff']}")
 
 
+def dev2_job(model_name: str, reduced: bool, scenario: str,
+             device: str = "cpu") -> Dict:
+    """Rank job of the dev2 row: the model :func:`build` makes, the
+    scenario's trace replayed under :data:`DEV2_CONFIG` on a serving mesh
+    of the process group's ranks; returns the row's derived string, the
+    streams, the engine's metrics and the wall seconds."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    cfg, model, params = build(model_name, reduced, device)
+    trace = trace_of(scenario, cfg.vocab_size)
+    mesh = make_serving_mesh()
+    eng, result, report, dt = run_one(
+        model, params, cfg, scenario, trace, DEV2_CONFIG, table=None,
+        length_model=LengthModel.fit(trace), device=device, mesh=mesh)
+    eng.alloc.check_invariants(drained=True)
+    return dict(derived=derived_of(scenario, DEV2_CONFIG, trace, result,
+                                   report, devices=mesh.devices),
+                outputs=result.outputs, metrics=eng.metrics(),
+                slo=report.as_dict(), seconds=dt, seed=trace.seed)
+
+
+def dev2_record(model_name: str, reduced: bool, scenario: str, device,
+                fcfs_derived: str) -> Dict:
+    """The dev2 row of ``scenario`` on :data:`DEV2_RANKS` ranks started
+    here, its :data:`PARITY_KEYS` held to the fcfs row's (AssertionError
+    otherwise) and every rank's streams to rank 0's."""
+    from repro_torch.launch.mesh import run_ranks
+
+    ranks = run_ranks(dev2_job, DEV2_RANKS,
+                      (model_name, reduced, scenario, str(device)),
+                      device=str(device), timeout=900.0)
+    got = ranks[0]
+    for other in ranks[1:]:
+        if other["outputs"] != got["outputs"]:
+            raise AssertionError(f"{scenario}/dev2: the ranks' streams "
+                                 "differ")
+    row, twin = parse_derived(got["derived"]), parse_derived(fcfs_derived)
+    for k in PARITY_KEYS:
+        if row[k] != twin[k]:
+            raise AssertionError(f"{scenario}/dev2: {k} {row[k]} != fcfs "
+                                 f"{twin[k]}")
+    return dict(name=f"trace_{scenario}_dev2",
+                us_per_call=got["seconds"] * 1e6, derived=got["derived"],
+                seed=got["seed"], policy="/".join(DEV2_CONFIG[1]),
+                outputs=got["outputs"], metrics=got["metrics"],
+                slo=got["slo"])
+
+
 def sweep(model, params, cfg, *, scenarios=tuple(SCENARIOS), device="cuda",
-          draft=(), log=print) -> List[Dict]:
+          draft=(), log=print, dev2=None) -> List[Dict]:
     """Every configuration on every scenario (and ``draft-model`` on the
-    scenarios in ``draft``).  Returns one record per row:
+    scenarios in ``draft``); with ``dev2`` = ``(model_name, reduced)``
+    (what :func:`build` took to make ``model``) also the dev2 row, before
+    ``auto``, its ranks building the model again.  Returns one record per
+    row:
     the reference's ``name`` / ``us_per_call`` / ``derived`` / ``seed`` /
     ``policy``, plus ``outputs`` (req_id -> greedy stream), ``metrics``
     (the engine's) and ``slo`` (the SLO report, virtual seconds), which
@@ -184,6 +248,12 @@ def sweep(model, params, cfg, *, scenarios=tuple(SCENARIOS), device="cuda",
                        metrics=m, slo=report.as_dict())
             if label not in ("auto", "draft"):
                 fixed.append(rec)
+            if label == "auto" and dev2 is not None:
+                fcfs = next(r for r in fixed
+                            if r["name"] == f"trace_{scenario}_fcfs")
+                d2 = dev2_record(*dev2, scenario, device, fcfs["derived"])
+                records.append(d2)
+                log(f"{d2['name']},{d2['us_per_call']:.1f},{d2['derived']}")
             records.append(rec)
             log(f"{rec['name']},{rec['us_per_call']:.1f},{derived}")
             del eng
@@ -250,7 +320,8 @@ def main(argv=None) -> int:
     p.add_argument("--json", default=None, help="write the rows here")
     args = p.parse_args(argv)
     cfg, model, params = build(args.model, args.reduced, args.device)
-    records = sweep(model, params, cfg, device=args.device)
+    records = sweep(model, params, cfg, device=args.device,
+                    dev2=(args.model, args.reduced))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(to_json(records, device=str(args.device),

@@ -199,6 +199,23 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """How a step is laid out on the mesh (``repro.config.ParallelConfig``:
+    the same names and defaults).  The serving engine reads
+    ``model_axis``, the mesh axis it shards params and the KV pool over;
+    the other fields are the training half's (ROADMAP A10)."""
+
+    data_axis: Tuple[str, ...] = ("pod", "data")
+    model_axis: str = "model"
+    fsdp_axis: Optional[str] = "data"       # param sharding over data (FSDP)
+    expert_axis: Optional[str] = "model"    # expert-parallel axis
+    remat: str = "full"                     # none | full | dots
+    scan_layers: bool = True
+    seq_shard_long: bool = True             # SP for long-context SSM scan
+    compress_grads: bool = False            # int8 all-reduce w/ error feedback
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """Serving knobs; names and defaults as in ``repro.config.ServeConfig``.
 
@@ -207,8 +224,10 @@ class ServeConfig:
     kernel), the overlapped loop (``overlap``), speculative decoding
     (``spec``, up to ``spec_k`` drafts a request a step), the host KV tier
     (``host_blocks``) and, through ``repro_torch.serving.disagg``, split
-    prefill / decode roles (``roles``); the engine refuses
-    ``devices > 1``.  ``trace`` is the launcher's replay trace path.
+    prefill / decode roles (``roles``).  ``devices > 1`` (or a mesh given
+    to the engine) serves on a mesh of ranks over ``torch.distributed``
+    (``repro_torch.launch.mesh``), sharded over ``parallel.model_axis``.
+    ``trace`` is the launcher's replay trace path.
 
     The ragged kernel's tunables keep the reference's names (what each
     means on the card: ``core.attention_api``); 0 consults the measured
@@ -239,6 +258,8 @@ class ServeConfig:
     host_blocks: int = 0
     sanitize: bool = False
     trace: str = ""
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
 
 
 @dataclass(frozen=True)

@@ -26,6 +26,18 @@ plain version.  Nothing falls back.  Each counts its launches in
 * :data:`paged_attention_chunked_op`: ``kernels/csrc/paged_attention_chunked.cu``.
 * :data:`paged_attention_op`: ``kernels/csrc/paged_attention_decode.cu``.
 
+``with_stats=True`` makes a wrapper return ``(out, m, l)``: the output as
+before and each row's softmax max and sum, float32 (T, KV, G), which the
+kernels write beside the output (``paged::RowStats``) and the plain
+versions take from the partials (``*_stats``).  The output stays the
+normalised one, in q's dtype, and its bits do not change when the
+statistics are asked for: the kernels' epilogues stay as they were and a
+row costs two more floats, where the unnormalised float32 accumulator
+would be a second output twice the bf16 one's bytes.  The sharded ops of a
+sequence-sharded pool (:func:`paged_attention_ragged_sharded`,
+:func:`paged_attention_chunked_sharded`, :func:`paged_attention_sharded`)
+take each rank's triple and combine them (:func:`combine_partials`).
+
 Shapes: q (T, H, HD) (decode: (B, H, HD)); kv_pool (NB, BS, 2*KV, HD)
 with ``[K0,V0,K1,V1,...]`` on the head axis; split pools (NB, BS, KV, HD);
 BlockList arrays (Tb,); cu_q_lens/cu_kv_lens (S+1,); seq_slot (S,).  GQA
@@ -242,12 +254,92 @@ def paged_attention_opt(q, pool_k, pool_v, block_list, block_req, block_pos,
     arrays (Tb,) keyed by request; seq_lens (B,).  A request with no entry
     reads 0.
     """
+    return paged_attention_opt_stats(q, pool_k, pool_v, block_list,
+                                     block_req, block_pos, seq_lens,
+                                     sm_scale=sm_scale)[0]
+
+
+def paged_attention_opt_stats(q, pool_k, pool_v, block_list, block_req,
+                              block_pos, seq_lens,
+                              *, sm_scale: Optional[float] = None):
+    """:func:`paged_attention_opt` with each row's ``(m, l)`` (B, KV, G)
+    from :func:`_opt_partials`, as :func:`paged_attention_chunked_stats`
+    returns them."""
     B, H, HD = q.shape
     scale = sm_scale if sm_scale is not None else HD ** -0.5
     m, l, o = _opt_partials(q, pool_k, pool_v, block_list, block_req,
                             block_pos, seq_lens, B, scale)
     out = o / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(B, H, HD).to(q.dtype)
+    return out.reshape(B, H, HD).to(q.dtype), m, l
+
+
+def combine_partials(out, m, l, mesh, axis: str = "model"):
+    """The log-sum-exp combine of per-rank attention over disjoint keys
+    (the reference's ``paged_attention_*_sharded`` combine, inside which
+    its ``o_r`` is ``out * l`` here): out (T, H, HD) each rank's normalised
+    output, m / l (T, KV, G) float32 its rows' statistics.  With
+    ``M = max_r m_r`` (one MAX) and ``w_r = l_r exp(m_r - M)``, the result
+    is ``sum_r w_r out_r / max(sum_r w_r, 1e-30)``: the numerators and the
+    denominators travel in ONE float32 buffer, ``(T, KV, G, HD + 1)``, so a
+    layer takes one MAX and one SUM.  A row with no key on a rank has
+    ``l_r == 0`` there and weighs nothing; a row with no key anywhere gives
+    0, as on one device.  Returned in ``out``'s dtype, the same bits on
+    every rank."""
+    from repro_torch.distributed import collectives
+
+    T, H, HD = out.shape
+    KV, G = m.shape[1], m.shape[2]
+    m_all = collectives.all_reduce(m.clone(), mesh, axis, collectives.MAX)
+    w = l * torch.exp(m - m_all)                          # (T, KV, G)
+    buf = torch.empty((T, KV, G, HD + 1), dtype=torch.float32,
+                      device=out.device)
+    buf[..., :HD] = out.reshape(T, KV, G, HD).float() * w[..., None]
+    buf[..., HD] = w
+    collectives.all_reduce(buf, mesh, axis, collectives.SUM)
+    res = buf[..., :HD] / torch.clamp_min(buf[..., HD], 1e-30)[..., None]
+    return res.reshape(T, H, HD).to(out.dtype)
+
+
+def paged_attention_chunked_sharded(q, pool_k, pool_v, block_list,
+                                    block_req, block_pos, kv_lens, token_req,
+                                    token_pos, *, mesh, axis: str = "model",
+                                    sm_scale: Optional[float] = None, **kw):
+    """Chunked paged attention over a sequence-sharded pool: each rank's
+    lanes against its pool shard and LOCAL BlockList (rows of
+    :meth:`BlockAllocator.build_sharded_block_lists`) through
+    :data:`paged_attention_chunked_op` with its statistics (the kernel on a
+    card, :func:`paged_attention_chunked_stats` on the CPU), then
+    :func:`combine_partials` over ``axis``.  ``kw``: the op's tunables."""
+    out, m, l = paged_attention_chunked_op(
+        q, pool_k, pool_v, block_list, block_req, block_pos, kv_lens,
+        token_req, token_pos, sm_scale=sm_scale, with_stats=True, **kw)
+    return combine_partials(out, m, l, mesh, axis)
+
+
+def paged_attention_ragged_sharded(q, kv_pool, block_list, block_req,
+                                   block_pos, cu_q_lens, cu_kv_lens, seq_slot,
+                                   *, mesh, axis: str = "model",
+                                   sm_scale: Optional[float] = None, **kw):
+    """Ragged attention over a sequence-sharded FUSED pool: the replicated
+    cu prefix sums, each rank's pool shard and LOCAL BlockList through
+    :data:`paged_attention_ragged_op` with its statistics, then
+    :func:`combine_partials`."""
+    out, m, l = paged_attention_ragged_op(
+        q, kv_pool, block_list, block_req, block_pos, cu_q_lens, cu_kv_lens,
+        seq_slot, sm_scale=sm_scale, with_stats=True, **kw)
+    return combine_partials(out, m, l, mesh, axis)
+
+
+def paged_attention_sharded(q, pool_k, pool_v, block_list, block_req,
+                            block_pos, seq_lens, *, mesh, axis: str = "model",
+                            sm_scale: Optional[float] = None, **kw):
+    """Decode-shape (the paper path's) attention over a sequence-sharded
+    pool: :data:`paged_attention_op` with its statistics on each rank's
+    shard and LOCAL BlockList, then :func:`combine_partials`."""
+    out, m, l = paged_attention_op(
+        q, pool_k, pool_v, block_list, block_req, block_pos, seq_lens,
+        sm_scale=sm_scale, with_stats=True, **kw)
+    return combine_partials(out, m, l, mesh, axis)
 
 
 def _chunked_partials(q, pool_k, pool_v, block_list, block_req, block_pos,
@@ -297,10 +389,27 @@ def paged_attention_chunked(q, pool_k, pool_v, block_list, block_req,
     (:data:`_PLAIN_SCORE_ELEMS`), which leaves each lane's arithmetic as
     it is.
     """
+    return paged_attention_chunked_stats(
+        q, pool_k, pool_v, block_list, block_req, block_pos, kv_lens,
+        token_req, token_pos, sm_scale=sm_scale)[0]
+
+
+def paged_attention_chunked_stats(q, pool_k, pool_v, block_list, block_req,
+                                  block_pos, kv_lens, token_req, token_pos,
+                                  *, sm_scale: Optional[float] = None):
+    """:func:`paged_attention_chunked` with each row's softmax statistics:
+    ``(out (T, H, HD), m (T, KV, G), l (T, KV, G))``, m and l float32 from
+    :func:`_chunked_partials` (``m == -1e30``, ``l == 0`` for a lane with no
+    valid key), ``out = o / max(l, 1e-30)`` in q's dtype.  What the
+    kernels write when asked for their statistics, and what the sharded
+    combine (:func:`combine_partials`) reads."""
     T, H, HD = q.shape
-    Tb, BS = block_list.shape[0], pool_k.shape[1]
+    Tb, BS, KV = block_list.shape[0], pool_k.shape[1], pool_k.shape[2]
     scale = sm_scale if sm_scale is not None else HD ** -0.5
     out = torch.empty_like(q)
+    m_all = torch.empty((T, KV, H // KV), dtype=torch.float32,
+                        device=q.device)
+    l_all = torch.empty_like(m_all)
     step = max(1, _PLAIN_SCORE_ELEMS // max(1, H * Tb * BS))
     for s in range(0, T, step):
         e = min(s + step, T)
@@ -309,7 +418,8 @@ def paged_attention_chunked(q, pool_k, pool_v, block_list, block_req,
                                     token_req[s:e], token_pos[s:e], scale)
         res = o / torch.clamp_min(l, 1e-30)[..., None]
         out[s:e] = res.reshape(e - s, H, HD).to(q.dtype)
-    return out
+        m_all[s:e], l_all[s:e] = m, l
+    return out, m_all, l_all
 
 
 def paged_attention_ragged(q, kv_pool, block_list, block_req, block_pos,
@@ -318,14 +428,24 @@ def paged_attention_ragged(q, kv_pool, block_list, block_req, block_pos,
     """The plain version of ragged prefill+decode attention: lane metadata
     from :func:`ragged_lane_metadata`, then :func:`paged_attention_chunked`
     on split views of the fused pool (lanes with no valid key give 0)."""
+    return paged_attention_ragged_stats(
+        q, kv_pool, block_list, block_req, block_pos, cu_q_lens, cu_kv_lens,
+        seq_slot, sm_scale=sm_scale)[0]
+
+
+def paged_attention_ragged_stats(q, kv_pool, block_list, block_req,
+                                 block_pos, cu_q_lens, cu_kv_lens, seq_slot,
+                                 *, sm_scale: Optional[float] = None):
+    """:func:`paged_attention_ragged` with each row's ``(m, l)``, as
+    :func:`paged_attention_chunked_stats` returns them."""
     T = q.shape[0]
     S = seq_slot.shape[0]
     pool_k, pool_v = paged_kv.fused_kv_views(kv_pool)
     token_req, token_pos, kv_lens = ragged_lane_metadata(
         cu_q_lens, cu_kv_lens, seq_slot, T, S)
-    return paged_attention_chunked(q, pool_k, pool_v, block_list, block_req,
-                                   block_pos, kv_lens, token_req, token_pos,
-                                   sm_scale=sm_scale)
+    return paged_attention_chunked_stats(
+        q, pool_k, pool_v, block_list, block_req, block_pos, kv_lens,
+        token_req, token_pos, sm_scale=sm_scale)
 
 
 def chunked_bf16_share(got, q, pool_k, pool_v, block_list, block_req,
@@ -415,6 +535,20 @@ def _check_split_pools(q, pool_k, pool_v):
                        pool_k.shape[2] if pool_k.dim() == 4 else 1)
 
 
+def _outputs(q, num_kv: int, with_stats: bool):
+    """A launch's output, ``torch.empty_like(q)``, and with ``with_stats``
+    the float32 (2, T, H) buffer the kernel writes each row's ``(m, l)``
+    into: returns ``(out, (out, m, l) or None, stats pointer or None)``,
+    m and l (T, KV, G) views of the buffer."""
+    out = torch.empty_like(q)
+    if not with_stats:
+        return out, None, None
+    T, H, _ = q.shape
+    buf = torch.empty((2, T, num_kv, H // num_kv), dtype=torch.float32,
+                      device=q.device)
+    return out, (out, buf[0], buf[1]), buf.data_ptr()
+
+
 def _scale(sm_scale, HD) -> float:
     return float(sm_scale if sm_scale is not None else HD ** -0.5)
 
@@ -486,11 +620,14 @@ class _RaggedAttentionOp(KernelOp):
     name = "paged_attention_ragged"
 
     def plain(self, q, kv_pool, *args, num_queries_per_block=None,
-              num_kv_pages_per_block=None, vmem_limit_bytes: int = 0, **kw):
+              num_kv_pages_per_block=None, vmem_limit_bytes: int = 0,
+              with_stats: bool = False, **kw):
         check_tunables(kv_pool.shape[1], q.shape[1] * 2 // kv_pool.shape[2],
                        num_queries_per_block=num_queries_per_block,
                        num_kv_pages_per_block=num_kv_pages_per_block,
                        vmem_limit_bytes=vmem_limit_bytes)
+        if with_stats:
+            return paged_attention_ragged_stats(q, kv_pool, *args, **kw)
         return paged_attention_ragged(q, kv_pool, *args, **kw)
 
     def prepare(self, q, kv_pool, block_list, block_req, block_pos,
@@ -498,7 +635,8 @@ class _RaggedAttentionOp(KernelOp):
                 sm_scale: Optional[float] = None,
                 num_queries_per_block: Optional[int] = None,
                 num_kv_pages_per_block: Optional[int] = None,
-                vmem_limit_bytes: int = 0) -> Launch:
+                vmem_limit_bytes: int = 0,
+                with_stats: bool = False) -> Launch:
         from repro_torch.kernels import paged_attention as kernel
 
         if kv_pool.dim() != 4 or kv_pool.shape[2] % 2:
@@ -525,11 +663,11 @@ class _RaggedAttentionOp(KernelOp):
             dict(num_queries_per_block=num_queries_per_block,
                  num_kv_pages_per_block=num_kv_pages_per_block,
                  vmem_limit_bytes=vmem_limit_bytes))
-        out = torch.empty_like(q)
+        out, stats, ptr = _outputs(q, KV2 // 2, with_stats)
         splits = split_capacity(S, Tb, BS, split_keys)
         scratch, partials = _scratch(
             q, ragged_scratch_ints(S, Tb, KV2 // 2), splits)
-        argv = (q.data_ptr(), kv_pool.data_ptr(), out.data_ptr(),
+        argv = (q.data_ptr(), kv_pool.data_ptr(), out.data_ptr(), ptr,
                 block_list.data_ptr(), block_req.data_ptr(),
                 block_pos.data_ptr(), cu_q_lens.data_ptr(),
                 cu_kv_lens.data_ptr(), seq_slot.data_ptr(),
@@ -540,7 +678,7 @@ class _RaggedAttentionOp(KernelOp):
                 _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.SOURCE).paged_attention_ragged
-        return Launch(fn, argv, out, scratch)
+        return Launch(fn, argv, stats or out, scratch)
 
 
 class _ChunkedAttentionOp(KernelOp):
@@ -564,11 +702,13 @@ class _ChunkedAttentionOp(KernelOp):
 
     def plain(self, q, pool_k, *args, q_chunk: int = 16,
               prefetch_depth: int = 0, num_kv_pages_per_block=None,
-              vmem_limit_bytes: int = 0, **kw):
+              vmem_limit_bytes: int = 0, with_stats: bool = False, **kw):
         _check_tunables(q_chunk, prefetch_depth)
         check_tunables(pool_k.shape[1], q.shape[1] // pool_k.shape[2],
                        num_kv_pages_per_block=num_kv_pages_per_block,
                        vmem_limit_bytes=vmem_limit_bytes)
+        if with_stats:
+            return paged_attention_chunked_stats(q, pool_k, *args, **kw)
         return paged_attention_chunked(q, pool_k, *args, **kw)
 
     def prepare(self, q, pool_k, pool_v, block_list, block_req, block_pos,
@@ -576,7 +716,8 @@ class _ChunkedAttentionOp(KernelOp):
                 sm_scale: Optional[float] = None, q_chunk: int = 16,
                 prefetch_depth: int = 0,
                 num_kv_pages_per_block: Optional[int] = None,
-                vmem_limit_bytes: int = 0) -> Launch:
+                vmem_limit_bytes: int = 0,
+                with_stats: bool = False) -> Launch:
         from repro_torch.kernels import paged_attention as kernel
 
         _check_tunables(q_chunk, prefetch_depth)
@@ -597,13 +738,14 @@ class _ChunkedAttentionOp(KernelOp):
             kernel.CHUNKED_SOURCE, q, BS, H // KV,
             dict(num_kv_pages_per_block=num_kv_pages_per_block,
                  vmem_limit_bytes=vmem_limit_bytes))
-        out = torch.empty_like(q)
+        out, stats, ptr = _outputs(q, KV, with_stats)
         splits = split_capacity(B, Tb, BS, split_keys)
         scratch, partials = _scratch(
             q, 2 * B * Tb + 3 * B + T + 1 + B * KV, splits)
         sb, sr, sh, _ = pool_k.stride()
         argv = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                out.data_ptr(), block_list.data_ptr(), block_req.data_ptr(),
+                out.data_ptr(), ptr, block_list.data_ptr(),
+                block_req.data_ptr(),
                 block_pos.data_ptr(), kv_lens.data_ptr(),
                 token_req.data_ptr(), token_pos.data_ptr(),
                 scratch.data_ptr(), partials, T, H, KV, HD, NB, BS, Tb, B,
@@ -611,7 +753,7 @@ class _ChunkedAttentionOp(KernelOp):
                 sr, sh, _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.CHUNKED_SOURCE).paged_attention_chunked
-        return Launch(fn, argv, out, scratch)
+        return Launch(fn, argv, stats or out, scratch)
 
 
 def _check_tunables(q_chunk: int, prefetch_depth: int) -> None:
@@ -633,16 +775,19 @@ class _DecodeAttentionOp(KernelOp):
     name = "paged_attention_decode"
 
     def plain(self, q, pool_k, *args, num_kv_pages_per_block=None,
-              vmem_limit_bytes: int = 0, **kw):
+              vmem_limit_bytes: int = 0, with_stats: bool = False, **kw):
         check_tunables(pool_k.shape[1], q.shape[1] // pool_k.shape[2],
                        num_kv_pages_per_block=num_kv_pages_per_block,
                        vmem_limit_bytes=vmem_limit_bytes)
+        if with_stats:
+            return paged_attention_opt_stats(q, pool_k, *args, **kw)
         return paged_attention_opt(q, pool_k, *args, **kw)
 
     def prepare(self, q, pool_k, pool_v, block_list, block_req, block_pos,
                 seq_lens, *, sm_scale: Optional[float] = None,
                 num_kv_pages_per_block: Optional[int] = None,
-                vmem_limit_bytes: int = 0) -> Launch:
+                vmem_limit_bytes: int = 0,
+                with_stats: bool = False) -> Launch:
         from repro_torch.kernels import paged_attention as kernel
 
         _check_split_pools(q, pool_k, pool_v)
@@ -659,19 +804,20 @@ class _DecodeAttentionOp(KernelOp):
             kernel.DECODE_SOURCE, q, BS, H // KV,
             dict(num_kv_pages_per_block=num_kv_pages_per_block,
                  vmem_limit_bytes=vmem_limit_bytes))
-        out = torch.empty_like(q)
+        out, stats, ptr = _outputs(q, KV, with_stats)
         splits = split_capacity(B, Tb, BS, split_keys)
         scratch, partials = _scratch(q, 2 * B * Tb + B + B * KV, splits)
         sb, sr, sh, _ = pool_k.stride()
         argv = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                out.data_ptr(), block_list.data_ptr(), block_req.data_ptr(),
+                out.data_ptr(), ptr, block_list.data_ptr(),
+                block_req.data_ptr(),
                 block_pos.data_ptr(), seq_lens.data_ptr(),
                 scratch.data_ptr(), partials, B, H, KV, HD, NB, BS, Tb,
                 splits, split_keys, tun["vmem_limit_bytes"], sb, sr, sh,
                 _DTYPE_CODE[q.dtype], _scale(sm_scale, HD),
                 torch.cuda.current_stream(q.device).cuda_stream)
         fn = kernel.library(kernel.DECODE_SOURCE).paged_attention_decode
-        return Launch(fn, argv, out, scratch)
+        return Launch(fn, argv, stats or out, scratch)
 
 
 paged_attention_ragged_op = _RaggedAttentionOp()

@@ -9,6 +9,10 @@ plain version, and the wrapper of the hand-written CUDA kernel (port of
   ids into global rows, and one gather + pool serves every (table, bag)
   pair.  It is the plain version: the CPU path, and what the kernel is held
   to.
+* :func:`batched_table_lookup_sharded`: row-sharded tables over a mesh
+  axis; each rank pools its rows through :data:`embedding_bag_window`
+  (the kernel's row-window form on a card, :func:`batched_table_window_
+  lookup` on the CPU) and a SUM combines.
 * :data:`embedding_bag`: the wrapper the model calls.  For a CUDA table it
   launches the kernel (``kernels/csrc/batched_embedding.cu``) or raises;
   for a CPU table it takes :func:`batched_table_lookup`.  Nothing falls
@@ -81,6 +85,49 @@ def batched_table_lookup(big_table: torch.Tensor, table_offsets: torch.Tensor,
     for l in range(L):      # in order of l, as the kernels sum
         acc += rows[:, :, l]
     return acc.to(big_table.dtype)
+
+
+def batched_table_window_lookup(table: torch.Tensor,
+                                table_offsets: torch.Tensor,
+                                indices: torch.Tensor, lo: int,
+                                hi: int) -> torch.Tensor:
+    """The plain version of the row-window lookup: ``table`` (hi - lo, D)
+    holds global rows ``[lo, hi)`` of the concatenated table; each bag sums
+    the rows of its global ids (``indices + table_offsets``) that lie in
+    the window, the others adding nothing (no wrap, no NaN: the
+    reference's sharded lookup).  Sums in float32 in the order of ``l``,
+    returned in the table's dtype."""
+    B, T, L = indices.shape
+    gid = (indices + table_offsets[None, :, None]).reshape(-1).long()
+    local = gid - lo
+    inside = (local >= 0) & (local < hi - lo)
+    rows = table.index_select(0, local.clamp(0, hi - lo - 1)).float()
+    rows = rows.masked_fill(~inside[:, None], 0.0).view(B, T, L, -1)
+    acc = torch.zeros((B, T, table.shape[1]), dtype=torch.float32,
+                      device=rows.device)
+    for l in range(L):      # in order of l, as the kernel sums
+        acc += rows[:, :, l]
+    return acc.to(table.dtype)
+
+
+def batched_table_lookup_sharded(big_table: torch.Tensor,
+                                 table_offsets: torch.Tensor,
+                                 indices: torch.Tensor, *, mesh,
+                                 axis: str = "model") -> torch.Tensor:
+    """Row-sharded tables (port of the reference's
+    ``batched_table_lookup_sharded``, TorchRec's row-wise parallel
+    embedding): ``big_table`` is this rank's contiguous block of the
+    concatenated table's rows (rank r of A holds ``[r R/A, (r+1) R/A)``),
+    each rank pools the rows it owns through :data:`embedding_bag_window`
+    (the row-window kernel on a card) and a SUM over ``axis`` combines.
+    Returns the pooled (B, T, D) on every rank."""
+    from repro_torch.distributed import collectives
+
+    rows = big_table.shape[0]
+    lo = mesh.axis_index(axis) * rows
+    pooled = embedding_bag_window(big_table, table_offsets, indices, lo,
+                                  lo + rows)
+    return collectives.all_reduce(pooled, mesh, axis, collectives.SUM)
 
 
 def _check_cuda_inputs(big_table, table_offsets, indices):
@@ -231,6 +278,40 @@ class _EmbeddingBagBackwardOp(KernelOp):
                       grad, None)
 
 
+class _EmbeddingBagWindowOp(KernelOp):
+    """The row-window embedding bag, ``(table, table_offsets, indices, lo,
+    hi) -> pooled (B, T, D)``: CUDA launches ``batched_embedding_window``
+    (the forward kernel's instances with the window on, so a launch
+    without a window keeps its bits) and adds one to :attr:`launches`;
+    CPU takes :func:`batched_table_window_lookup`."""
+
+    name = "batched_embedding_window"
+
+    def plain(self, table, table_offsets, indices, lo, hi):
+        return batched_table_window_lookup(table, table_offsets, indices,
+                                           int(lo), int(hi))
+
+    def prepare(self, table, table_offsets, indices, lo, hi) -> Launch:
+        from repro_torch.kernels import batched_embedding as kernel
+
+        _check_cuda_inputs(table, table_offsets, indices)
+        lo, hi = int(lo), int(hi)
+        if not 0 <= lo < hi or hi - lo != table.shape[0]:
+            raise ValueError(f"window [{lo}, {hi}) for a table of "
+                             f"{table.shape[0]} rows")
+        B, T, L = indices.shape
+        D = table.shape[1]
+        out = torch.empty((B, T, D), dtype=table.dtype, device=table.device)
+        if B * T == 0:
+            return Launch(None, (), out, None)
+        global_ids = (indices + table_offsets[None, :, None]).reshape(-1)
+        argv = (table.data_ptr(), global_ids.data_ptr(), out.data_ptr(),
+                B * T, L, D, lo, hi, _DTYPES[table.dtype],
+                torch.cuda.current_stream(table.device).cuda_stream)
+        return Launch(kernel.library().batched_embedding_window, argv, out,
+                      global_ids)
+
+
 class _EmbeddingBagFn(torch.autograd.Function):
     """The embedding bag with the backward kernel as its gradient (the
     table's only: the offsets and ids get none)."""
@@ -252,3 +333,4 @@ class _EmbeddingBagFn(torch.autograd.Function):
 
 embedding_bag = _EmbeddingBagOp()
 embedding_bag_backward = _EmbeddingBagBackwardOp()
+embedding_bag_window = _EmbeddingBagWindowOp()

@@ -111,10 +111,18 @@ class HostPool:
 
 @dataclass
 class BlockAllocator:
-    """Refcounted free-list allocator over ``num_blocks`` KV blocks."""
+    """Refcounted free-list allocator over ``num_blocks`` KV blocks.
+
+    ``num_shards`` > 1: the pool is sequence-sharded over that many ranks,
+    split CONTIGUOUSLY, so physical block ``b`` lives on shard ``b //
+    blocks_per_shard`` at local index ``b % blocks_per_shard``; the free
+    list is interleaved across shards so consecutive allocations cycle the
+    ranks and their attention work stays balanced (the reference's
+    layout, integer for integer)."""
 
     num_blocks: int
     block_size: int
+    num_shards: int = 1
     eviction_policy: Optional[Any] = None
     host_pool: Optional[HostPool] = None
     _free: List[int] = field(default_factory=list)
@@ -142,7 +150,24 @@ class BlockAllocator:
     blocks_allocated: int = 0
 
     def __post_init__(self):
-        self._free = list(range(self.num_blocks - 1, -1, -1))
+        if self.num_shards > 1:
+            assert self.num_blocks % self.num_shards == 0, (
+                self.num_blocks, self.num_shards)
+            # pop order cycles shards: 0, per, 2*per, ..., 1, per+1, ...
+            per = self.blocks_per_shard
+            order = [s * per + i for i in range(per)
+                     for s in range(self.num_shards)]
+            self._free = list(reversed(order))
+        else:
+            self._free = list(range(self.num_blocks - 1, -1, -1))
+
+    @property
+    def blocks_per_shard(self) -> int:
+        return self.num_blocks // self.num_shards
+
+    def shard_of(self, block: int) -> int:
+        """Owning rank of a physical block (contiguous pool slices)."""
+        return block // self.blocks_per_shard
 
     # -- block bookkeeping --------------------------------------------------
     def _eviction(self) -> Any:
@@ -569,6 +594,22 @@ class BlockAllocator:
         return (np.asarray(lists, np.int32), np.asarray(reqs, np.int32),
                 np.asarray(poss, np.int32), lens)
 
+    def build_sharded_block_lists(self, req_slots: List[Tuple[int, int]],
+                                  pad_req: int,
+                                  min_per_shard: Optional[int] = None,
+                                  ) -> Tuple[np.ndarray, np.ndarray,
+                                             np.ndarray]:
+        """Per-shard LOCAL BlockLists: ``req_slots`` is ``[(req_id, slot),
+        ...]``; each entry of a request's table lands on its owner shard
+        (:meth:`shard_of`) as a local pool index keyed by ``slot`` with its
+        ordinal block position.  Returns ``(block_list, block_req,
+        block_pos)``, each (S, M) int32; ``M`` is ``min_per_shard``
+        (default ``blocks_per_shard``) doubled until the fullest shard's
+        entries fit, padding entries carry ``pad_req``."""
+        return shard_block_lists(
+            [(slot, self._tables[r]) for r, slot in req_slots],
+            self.num_shards, self.blocks_per_shard, pad_req, min_per_shard)
+
     def write_slots(self, req_ids: List[int]) -> np.ndarray:
         """(B, 2) [block, offset] where the NEXT token of each request
         lands; reserves blocks on demand (:meth:`commit_token` after the
@@ -577,6 +618,47 @@ class BlockAllocator:
         for i, r in enumerate(req_ids):
             out[i] = self.reserve_tokens(r, 1)[0]
         return out
+
+
+def shard_block_lists(owner_pages, num_shards: int, blocks_per_shard: int,
+                      pad_req: int, min_per_shard: Optional[int] = None,
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The sharded render of ``owner_pages`` (``[(owner, pages), ...]``,
+    pages the owner's physical blocks in order): ``(block_list, block_req,
+    block_pos)``, each (S, M) int32, row ``s`` the entries pool shard
+    ``s`` serves as local indices (:meth:`BlockAllocator.
+    build_sharded_block_lists`, which renders the reference's owners; the
+    engine renders a drafted request's verify owners through here too)."""
+    S, per = num_shards, blocks_per_shard
+    entries: List[List[Tuple[int, int, int]]] = [[] for _ in range(S)]
+    for owner, pages in owner_pages:
+        for k, b in enumerate(pages):
+            entries[b // per].append((b % per, owner, k))
+    cap = min_per_shard if min_per_shard is not None else per
+    need = max((len(e) for e in entries), default=0)
+    while cap < need:
+        cap *= 2
+    bl = np.zeros((S, cap), np.int32)
+    br = np.full((S, cap), pad_req, np.int32)
+    bp = np.zeros((S, cap), np.int32)
+    for s in range(S):
+        for j, (b, owner, k) in enumerate(entries[s]):
+            bl[s, j], br[s, j], bp[s, j] = b, owner, k
+    return bl, br, bp
+
+
+def local_slots(slots: np.ndarray, shard: int,
+                blocks_per_shard: int) -> np.ndarray:
+    """Global write slots (T, 2) ``[block, offset]`` as shard ``shard``'s
+    local ones: a lane whose block lies on another shard (or a padding
+    lane) gets block ``blocks_per_shard``, out of the local pool's range,
+    whose write is dropped (the reference's sentinel)."""
+    blk = slots[:, 0]
+    own = (blk >= 0) & (blk // blocks_per_shard == shard)
+    out = slots.copy()
+    out[:, 0] = np.where(own, blk - shard * blocks_per_shard,
+                         blocks_per_shard)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -656,6 +738,56 @@ def copy_pool_blocks(pool: torch.Tensor, srcs, dsts) -> torch.Tensor:
                       for t in (srcs, dsts))
     if dsts.numel():
         pool[:, dsts] = pool[:, srcs]       # advanced index reads a copy
+    return pool
+
+
+def append_lanes(pool_layer: torch.Tensor, kv_new: torch.Tensor,
+                 lanes: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Write the lanes ``lanes`` (n,) of ``kv_new`` (T, R, HD) at the local
+    ``slots`` (n, 2) of one layer of a pool shard, in place: the sharded
+    engine's append, each rank writing only the lanes whose block it holds
+    (chosen on the host, so nothing waits for the device)."""
+    s = slots.long()
+    pool_layer[s[:, 0], s[:, 1]] = kv_new[lanes.long()].to(pool_layer.dtype)
+    return pool_layer
+
+
+def copy_pool_blocks_sharded(pool: torch.Tensor, srcs, dsts, mesh,
+                             blocks_per_shard: int,
+                             axis: str = "model") -> torch.Tensor:
+    """Copy-on-write over a sequence-sharded pool, in place: ``pool`` (L,
+    per, ...) is this rank's shard, ``srcs``/``dsts`` global block ids.  A
+    pair within one shard is copied there, as :func:`copy_pool_blocks`
+    copies; a pair whose source and destination lie on different ranks is
+    moved explicitly (the reference's global array hides the move): the
+    source's rank broadcasts the block over the axis and the
+    destination's rank writes it.  Every source is read before any
+    destination is written, on every rank, as on one device."""
+    from repro_torch.distributed import collectives
+
+    per, me = blocks_per_shard, mesh.axis_index(axis)
+    local_s, local_d, moved = [], [], []
+    for s, d in zip(srcs, dsts):
+        s, d = int(s), int(d)
+        if s // per == d // per:
+            if d // per == me:
+                local_s.append(s - me * per)
+                local_d.append(d - me * per)
+        else:
+            moved.append((s, d))
+    received = []
+    for s, d in moved:                 # same order on every rank
+        src_rank = s // per
+        buf = (pool[:, s - me * per].clone() if src_rank == me
+               else torch.empty_like(pool[:, 0]))
+        collectives.broadcast(buf, src_rank, mesh, axis)
+        if d // per == me:
+            received.append((d - me * per, buf))
+    if local_d:
+        copy_pool_blocks(pool, np.asarray(local_s, np.int64),
+                         np.asarray(local_d, np.int64))
+    for d, buf in received:
+        pool[:, d] = buf
     return pool
 
 

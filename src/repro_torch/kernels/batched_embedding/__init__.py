@@ -1,5 +1,5 @@
-"""Binding of the hand-written CUDA BatchedTable embedding-bag kernel and
-its backward (``kernels/csrc/batched_embedding.cu``).  The wrappers that
+"""Binding of the hand-written CUDA BatchedTable embedding-bag kernel, its
+row-window form and its backward (``kernels/csrc/batched_embedding.cu``).  The wrappers that
 check and launch them, and their plain PyTorch versions, live in
 ``repro_torch.core.embedding_api``."""
 from __future__ import annotations
@@ -18,6 +18,8 @@ def library() -> ctypes.CDLL:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn, argtypes in ((lib.batched_embedding, [p, p, p, i64, i, i, i64, i,
                                                   p]),
+                         (lib.batched_embedding_window, [p, p, p, i64, i,
+                                                         i, i64, i64, i, p]),
                          (lib.batched_embedding_backward, [p, p, p, i64, i,
                                                            i, i64, p])):
         if fn.argtypes is None:

@@ -287,7 +287,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // kMmaRows) are (lane lane0 + r / G, q head kvh * G + r % G) of q (lanes,
 // H, HD); all belong to one owner whose pages are list_blk/list_pos[0,
 // count) and which holds kvl keys.  Row r attends to key positions kp <
-// kvl with kp <= row_pos(r); a row with no valid key writes 0.
+// kvl with kp <= row_pos(r); a row with no valid key writes 0; stats: the
+// rows' (m, l), when asked for (paged_attention_common.cuh).
 // Synchronises before it reads the list (and so before it reuses shared
 // memory), and has no copy or product in flight when it returns.
 template <int HD, typename RowPos>
@@ -296,7 +297,7 @@ __device__ __forceinline__ void attend_tile_mma(
     int H, int G, int kvh, int lane0, int nrows, RowPos row_pos, int kvl,
     const int* __restrict__ list_blk, const int* __restrict__ list_pos,
     int count, int BS, const Pool<__nv_bfloat16>& pool, float scale,
-    void* smem) {
+    void* smem, RowStats stats = {nullptr, nullptr}) {
   static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "head dim");
   constexpr bool kWgmma = mma_wgmma(HD);
   using bf16 = __nv_bfloat16;
@@ -625,8 +626,10 @@ __device__ __forceinline__ void attend_tile_mma(
     const int row = warp * 16 + g + 8 * h;
     if (row >= nrows) continue;
     const float den = fmaxf(l[h], 1e-30f);
-    bf16* dst = out + (static_cast<size_t>(lane0 + row / G) * H + kvh * G +
-                       row % G) * HD + 2 * tig;
+    const size_t at = static_cast<size_t>(lane0 + row / G) * H + kvh * G +
+                      row % G;
+    if (tig == 0) stats.put(at, h ? sM[tid].y : sM[tid].x, l[h]);
+    bf16* dst = out + at * HD + 2 * tig;
 #pragma unroll
     for (int i = 0; i < HD / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) = __floats2bfloat162_rn(

@@ -15,6 +15,15 @@
 // [-R, 0) reads row id + R; a bag holding an id outside [-R, R) is written
 // as NaN, and that id is never read (jnp.take's fill mode, without a sync).
 //
+// The row window, batched_embedding_window (a rank's part of a row-sharded
+// table, for repro_torch.core.embedding_api.batched_table_lookup_sharded,
+// the port of the reference's batched_table_lookup_sharded,
+// src/repro/core/embedding_api.py:58): the table holds global rows
+// [lo, hi) only, at local row id - lo, and an id outside the window adds
+// nothing (the rank that owns it adds it; a SUM over the ranks combines).
+// No id wraps and no bag is NaN there, as in the reference's sharded
+// lookup.  The same instances with kWindow false are batched_embedding.
+//
 // Bound on the H100: the bytes of the rows gathered (plus the ids and the
 // output) at 3.35 TB/s; one add per element read is far below the card's
 // rate.  The rows are picked by data, so the gather is latency-bound unless
@@ -111,11 +120,12 @@ __device__ __forceinline__ uint4 pack(const float (&acc)[8], __nv_bfloat16) {
 // One group of G lanes per bag, kThreads / G bags per block.  V is the
 // number of 16-byte vectors of a row; lane j of a group owns vectors
 // j, j + G, ..., j + (NV - 1) * G that are below V.
-template <typename T, int G, int NV>
+template <typename T, int G, int NV, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
     embedding_bag_kernel(const uint4* __restrict__ table,
                          const int* __restrict__ ids, uint4* __restrict__ out,
-                         long long num_bags, int L, int V, long long R) {
+                         long long num_bags, int L, int V, long long R,
+                         long long lo, long long hi) {
   constexpr int kE = Elems<T>::kPerVec;
   const int lane = threadIdx.x % G;
   const long long bag =
@@ -143,10 +153,17 @@ __global__ void __launch_bounds__(kThreads)
       for (int u = 0; u < kUnroll; ++u) {
         const int id = __shfl_sync(0xffffffffu, mine, k + u, G);
         use[u] = live && k + u < n;
-        const long long g = id < 0 ? static_cast<long long>(id) + R
-                                   : static_cast<long long>(id);
-        const bool ok = use[u] && g >= 0 && g < R;
-        bad |= use[u] && !ok;
+        long long g;
+        bool ok;
+        if constexpr (kWindow) {               // rows [lo, hi) only
+          g = static_cast<long long>(id) - lo;
+          ok = use[u] && id >= lo && id < hi;
+        } else {
+          g = id < 0 ? static_cast<long long>(id) + R
+                     : static_cast<long long>(id);
+          ok = use[u] && g >= 0 && g < R;
+          bad |= use[u] && !ok;
+        }
         const uint4* row = table + (ok ? g : 0) * V;    // 64-bit offset
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
@@ -156,7 +173,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (!use[u]) continue;
+        if (!use[u]) continue;   // a window's miss loaded zeros: adds 0
 #pragma unroll
         for (int j = 0; j < NV; ++j) accumulate(acc[j], buf[u][j], T());
       }
@@ -177,35 +194,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int G, int NV>
+template <typename T, int G, int NV, bool kWindow>
 cudaError_t launch(const void* table, const void* ids, void* out,
                    long long num_bags, int L, int V, long long R,
-                   cudaStream_t st) {
+                   long long lo, long long hi, cudaStream_t st) {
   constexpr int kBags = kThreads / G;
   const long long blocks = (num_bags + kBags - 1) / kBags;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  embedding_bag_kernel<T, G, NV><<<static_cast<unsigned>(blocks), kThreads,
-                                   0, st>>>(
-      static_cast<const uint4*>(table), static_cast<const int*>(ids),
-      static_cast<uint4*>(out), num_bags, L, V, R);
+  embedding_bag_kernel<T, G, NV, kWindow>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+          static_cast<const uint4*>(table), static_cast<const int*>(ids),
+          static_cast<uint4*>(out), num_bags, L, V, R, lo, hi);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kWindow>
 cudaError_t launch_width(const void* table, const void* ids, void* out,
                          long long num_bags, int L, int V, long long R,
-                         cudaStream_t st) {
-  if (V <= 1) return launch<T, 1, 1>(table, ids, out, num_bags, L, V, R, st);
-  if (V <= 2) return launch<T, 2, 1>(table, ids, out, num_bags, L, V, R, st);
-  if (V <= 4) return launch<T, 4, 1>(table, ids, out, num_bags, L, V, R, st);
-  if (V <= 8) return launch<T, 8, 1>(table, ids, out, num_bags, L, V, R, st);
-  if (V <= 16)
-    return launch<T, 16, 1>(table, ids, out, num_bags, L, V, R, st);
-  if (V <= 32)
-    return launch<T, 32, 1>(table, ids, out, num_bags, L, V, R, st);
-  if (V <= 64)
-    return launch<T, 32, 2>(table, ids, out, num_bags, L, V, R, st);
-  return launch<T, 32, 4>(table, ids, out, num_bags, L, V, R, st);
+                         long long lo, long long hi, cudaStream_t st) {
+#define REPRO_EMB_LAUNCH(G, NV)                                         \
+  launch<T, G, NV, kWindow>(table, ids, out, num_bags, L, V, R, lo, hi, \
+                            st)
+  if (V <= 1) return REPRO_EMB_LAUNCH(1, 1);
+  if (V <= 2) return REPRO_EMB_LAUNCH(2, 1);
+  if (V <= 4) return REPRO_EMB_LAUNCH(4, 1);
+  if (V <= 8) return REPRO_EMB_LAUNCH(8, 1);
+  if (V <= 16) return REPRO_EMB_LAUNCH(16, 1);
+  if (V <= 32) return REPRO_EMB_LAUNCH(32, 1);
+  if (V <= 64) return REPRO_EMB_LAUNCH(32, 2);
+  return REPRO_EMB_LAUNCH(32, 4);
+#undef REPRO_EMB_LAUNCH
 }
 
 // The backward: one group of G lanes per bag, as the forward; lane j of a
@@ -318,9 +336,36 @@ extern "C" int batched_embedding(const void* table, const void* ids,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0
-          ? launch_width<float>(table, ids, out, num_bags, L, V, R, st)
-          : launch_width<__nv_bfloat16>(table, ids, out, num_bags, L, V, R,
-                                        st);
+          ? launch_width<float, false>(table, ids, out, num_bags, L, V, R, 0,
+                                       R, st)
+          : launch_width<__nv_bfloat16, false>(table, ids, out, num_bags, L,
+                                               V, R, 0, R, st);
+  return static_cast<int>(err);
+}
+
+// The row window: table (hi - lo, D) holds global rows [lo, hi); ids
+// (num_bags * L,) int32 global row ids; out[b] = sum of table[id - lo]
+// over the bag's ids in [lo, hi), the others adding nothing (see the
+// header).  0 <= lo < hi; the rest as batched_embedding.
+extern "C" int batched_embedding_window(const void* table, const void* ids,
+                                        void* out, long long num_bags, int L,
+                                        int D, long long lo, long long hi,
+                                        int dtype, void* stream) {
+  const int elt = dtype == 0 ? 4 : 2;
+  const long long row_bytes = static_cast<long long>(D) * elt;
+  if (num_bags < 0 || L < 0 || D < 1 || lo < 0 || hi <= lo ||
+      row_bytes % 16 != 0 || row_bytes / 16 > kMaxVectors ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_bags == 0) return 0;
+  const int V = static_cast<int>(row_bytes / 16);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == 0
+          ? launch_width<float, true>(table, ids, out, num_bags, L, V,
+                                      hi - lo, lo, hi, st)
+          : launch_width<__nv_bfloat16, true>(table, ids, out, num_bags, L,
+                                              V, hi - lo, lo, hi, st);
   return static_cast<int>(err);
 }
 

@@ -159,7 +159,8 @@ __global__ void __launch_bounds__(kThreads,
                              const int* __restrict__ counts,
                              const int* __restrict__ owner_lane,
                              int* __restrict__ counters,
-                             float* __restrict__ partials, int num_lanes,
+                             float* __restrict__ partials,
+                             paged::RowStats stats, int num_lanes,
                              int H, int KV, int B, int BS, int Tb,
                              int split_blocks, int max_splits, int split_keys,
                              float scale) {
@@ -181,7 +182,8 @@ __global__ void __launch_bounds__(kThreads,
           q, out, H, G, h, lane, token_pos[lane], kv_lens[b],
           list_blk + list0, list_pos + list0, counts[b], BS, pool, scale,
           split, nsplit(b), split_keys, w, KV, max_splits, partials,
-          counters + b * KV + h, reinterpret_cast<unsigned char*>(smem));
+          counters + b * KV + h, reinterpret_cast<unsigned char*>(smem),
+          stats);
     });
     return;
   }
@@ -207,7 +209,7 @@ __global__ void __launch_bounds__(kThreads,
         // synchronises before it touches shared memory
         paged::attend_tile_mma<HD>(q, out, H, G, kvh, lane0, n * G, row_pos,
                                    kvl, list_blk + list0, list_pos + list0,
-                                   count, BS, pool, scale, smem);
+                                   count, BS, pool, scale, smem, stats);
         continue;
       }
     }
@@ -215,7 +217,7 @@ __global__ void __launch_bounds__(kThreads,
     __syncthreads();            // the previous tile's shared reads are done
     paged::attend_tile<T, HD>(q, out, H, G, kvh, lane0, n * G, pos, kvl,
                               list_blk + list0, list_pos + list0, count, BS,
-                              pool, scale, smem);
+                              pool, scale, smem, stats);
   }
 }
 
@@ -234,7 +236,8 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    void* out, const int* token_req, const int* token_pos,
                    const int* kv_lens, int* scratch, float* partials,
-                   int max_splits, Tunables tun, int T_lanes, int H, int KV,
+                   paged::RowStats stats, int max_splits, Tunables tun,
+                   int T_lanes, int H, int KV,
                    int B, int BS, int Tb, int tq, long long sb, long long sr,
                    long long sh, float scale, cudaStream_t stream) {
   static bool configured = false;
@@ -266,7 +269,8 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
   chunked_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), pool, static_cast<T*>(out), token_req,
       token_pos, kv_lens, lane_count, tile_start, num_tiles, list_blk,
-      list_pos, counts, owner_lane, counters, partials, T_lanes, H, KV, B,
+      list_pos, counts, owner_lane, counters, partials, stats, T_lanes, H,
+      KV, B,
       BS, Tb, split_blocks, max_splits, tun.split_keys, scale);
   return cudaGetLastError();
 }
@@ -275,29 +279,30 @@ template <typename T>
 cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
                       const void* pool_v, void* out, const int* token_req,
                       const int* token_pos, const int* kv_lens, int* scratch,
-                      float* partials, int max_splits, Tunables tun,
+                      float* partials, paged::RowStats stats, int max_splits,
+                      Tunables tun,
                       int T_lanes, int H, int KV, int B, int BS, int Tb,
                       int tq, long long sb, long long sr, long long sh,
                       float scale, cudaStream_t stream) {
   switch (HD) {
     case 16:
       return launch<T, 16>(q, pool_k, pool_v, out, token_req, token_pos,
-                           kv_lens, scratch, partials, max_splits, tun,
+                           kv_lens, scratch, partials, stats, max_splits, tun,
                            T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
                            stream);
     case 32:
       return launch<T, 32>(q, pool_k, pool_v, out, token_req, token_pos,
-                           kv_lens, scratch, partials, max_splits, tun,
+                           kv_lens, scratch, partials, stats, max_splits, tun,
                            T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
                            stream);
     case 64:
       return launch<T, 64>(q, pool_k, pool_v, out, token_req, token_pos,
-                           kv_lens, scratch, partials, max_splits, tun,
+                           kv_lens, scratch, partials, stats, max_splits, tun,
                            T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
                            stream);
     case 128:
       return launch<T, 128>(q, pool_k, pool_v, out, token_req, token_pos,
-                            kv_lens, scratch, partials, max_splits, tun,
+                            kv_lens, scratch, partials, stats, max_splits, tun,
                             T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
                             stream);
     default:
@@ -307,8 +312,10 @@ cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  scratch holds
-// 2 * B * Tb + 3 * B + T + 1 + B * KV int32; partials max_splits x KV x
+// Plain C entry point, bound with ctypes.  stats: nullptr, or 2 * T * H
+// float32 that receive each (lane, q head) row's softmax max m, then its
+// sum l (paged::RowStats; the output is the same either way).  scratch
+// holds 2 * B * Tb + 3 * B + T + 1 + B * KV int32; partials max_splits x KV x
 // partial_floats(H / KV, HD) floats, max_splits >= 1 (the decode tile's
 // splits over all owners of one lane: at most ceil(Tb * BS / split_keys) +
 // B).  q, out, pool_k, pool_v and partials must be 16-byte aligned, and sb,
@@ -319,6 +326,7 @@ cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
 // launches (0 = ok).
 extern "C" int paged_attention_chunked(
     const void* q, const void* pool_k, const void* pool_v, void* out,
+    void* stats,
     const void* block_list, const void* block_req, const void* block_pos,
     const void* kv_lens, const void* token_req, const void* token_pos,
     void* scratch, void* partials, int T_lanes, int H, int KV, int HD,
@@ -358,15 +366,18 @@ extern "C" int paged_attention_chunked(
   const int* tpos = static_cast<const int*>(token_pos);
   float* part = static_cast<float*>(partials);
   const Tunables tun{split_keys, smem_cap};
+  float* m_out = static_cast<float*>(stats);
+  const paged::RowStats rs{m_out, m_out == nullptr ? nullptr
+                                                   : m_out + static_cast<size_t>(T_lanes) * H};
   if (dtype == 0)
     err = launch_hd<float>(HD, q, pool_k, pool_v, out, treq, tpos, kvl, ints,
-                           part, max_splits, tun, T_lanes, H, KV, B, BS, Tb,
-                           tq, sb, sr, sh, scale, st);
+                           part, rs, max_splits, tun, T_lanes, H, KV, B, BS,
+                           Tb, tq, sb, sr, sh, scale, st);
   else if (dtype == 1)
     err = launch_hd<__nv_bfloat16>(HD, q, pool_k, pool_v, out, treq, tpos,
-                                   kvl, ints, part, max_splits, tun, T_lanes,
-                                   H, KV, B, BS, Tb, tq, sb, sr, sh, scale,
-                                   st);
+                                   kvl, ints, part, rs, max_splits, tun,
+                                   T_lanes, H, KV, B, BS, Tb, tq, sb, sr, sh,
+                                   scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

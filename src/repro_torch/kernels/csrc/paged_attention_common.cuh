@@ -87,6 +87,25 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
+// The per-row softmax statistics a launch writes when asked: for row
+// (lane, q head), at index lane * H + head, m (the running max of the
+// row's scaled scores, -1e30 with no valid key) and l (the sum of its
+// weights relative to m, 0 with no valid key), both float32 and final for
+// the launch's keys.  With them the normalised output o / max(l, 1e-30)
+// combines across launches over disjoint keys (the sequence-sharded
+// pool's log-sum-exp combine).  m == nullptr: not asked for; nothing else
+// in the launch changes.
+struct RowStats {
+  float* m;
+  float* l;
+  __device__ __forceinline__ void put(size_t row, float mv, float lv) const {
+    if (m != nullptr) {
+      m[row] = mv;
+      l[row] = lv;
+    }
+  }
+};
+
 // A paged K/V pool seen through strides, in elements: the K row of pool
 // block b, offset o, kv head h starts at k + b*sb + o*sr + h*sh, its V row
 // at the same offset from v, and the head dim is contiguous.  The fused
@@ -194,14 +213,16 @@ constexpr size_t smem_floats() {
 // list_blk/list_pos[0, count) and which holds kvl keys.  This thread's row
 // is threadIdx.x / 4, at sequence position row_pos: it attends to key
 // positions kp < kvl with kp <= row_pos.  Softmax and sums run in f32 with
-// the -1e30 sentinel; rows with no valid key write 0.  The caller
-// synchronises before reusing shared memory for another tile.
+// the -1e30 sentinel; rows with no valid key write 0.  stats: the rows'
+// (m, l), when asked for.  The caller synchronises before reusing shared
+// memory for another tile.
 template <typename T, int HD>
 __device__ __forceinline__ void attend_tile(
     const T* __restrict__ q, T* __restrict__ out, int H, int G, int kvh,
     int lane0, int nrows, int row_pos, int kvl,
     const int* __restrict__ list_blk, const int* __restrict__ list_pos,
-    int count, int BS, const Pool<T>& pool, float scale, float* smem) {
+    int count, int BS, const Pool<T>& pool, float scale, float* smem,
+    RowStats stats = {nullptr, nullptr}) {
   constexpr int VEC = Vec<T>::kN;
   constexpr int VPR = HD / VEC;            // vectors per K or V row
   float* sQ = smem;                        // [kRows][HD + 1]
@@ -313,11 +334,13 @@ __device__ __forceinline__ void attend_tile(
 
   if (row_ok) {
     const float den = fmaxf(l, 1e-30f);
-    T* dst = out + (static_cast<size_t>(lane0 + row / G) * H + kvh * G +
-                    row % G) * HD;
+    const size_t at = static_cast<size_t>(lane0 + row / G) * H + kvh * G +
+                      row % G;
+    T* dst = out + at * HD;
 #pragma unroll
     for (int i = 0; i < HD / 4; ++i)
       dst[part + 4 * i] = from_f32<T>(acc[i] / den);
+    if (part == 0) stats.put(at, m, l);
   }
 }
 

@@ -49,8 +49,9 @@ __global__ void __launch_bounds__(kThreads,
     const T* __restrict__ q, const paged::Pool<T> pool, T* __restrict__ out,
     const int* __restrict__ seq_lens, const int* __restrict__ list_blk,
     const int* __restrict__ list_pos, const int* __restrict__ counts,
-    int* __restrict__ counters, float* __restrict__ partials, int B, int H,
-    int KV, int BS, int Tb, int max_splits, int split_keys, float scale) {
+    int* __restrict__ counters, float* __restrict__ partials,
+    paged::RowStats stats, int B, int H, int KV, int BS, int Tb,
+    int max_splits, int split_keys, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const auto nsplit = [=](int b) {
     return paged::num_splits(static_cast<long long>(counts[b]) * BS,
@@ -64,7 +65,7 @@ __global__ void __launch_bounds__(kThreads,
                                list_blk + list0, list_pos + list0, counts[b],
                                BS, pool, scale, split, nsplit(b), split_keys,
                                w, KV, max_splits, partials,
-                               counters + b * KV + h, smem);
+                               counters + b * KV + h, smem, stats);
   });
 }
 
@@ -80,7 +81,8 @@ struct Tunables {
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    void* out, const int* seq_lens, int* scratch,
-                   float* partials, int max_splits, Tunables tun, int B,
+                   float* partials, paged::RowStats stats, int max_splits,
+                   Tunables tun, int B,
                    int H, int KV, int BS, int Tb, long long sb, long long sr,
                    long long sh, float scale, cudaStream_t stream) {
   using Tile = paged::DecodeTile<T, HD>;
@@ -101,7 +103,8 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
       paged::split_grid_x(max_splits, KV, paged::kDecodeGridBlocks), KV);
   decode_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), pool, static_cast<T*>(out), seq_lens,
-      list_blk, list_pos, counts, counters, partials, B, H, KV, BS, Tb,
+      list_blk, list_pos, counts, counters, partials, stats, B, H, KV, BS,
+      Tb,
       max_splits, tun.split_keys, scale);
   return cudaGetLastError();
 }
@@ -109,26 +112,27 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
 template <typename T>
 cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
                       const void* pool_v, void* out, const int* seq_lens,
-                      int* scratch, float* partials, int max_splits,
-                      Tunables tun, int B, int H, int KV, int BS, int Tb,
+                      int* scratch, float* partials, paged::RowStats stats,
+                      int max_splits, Tunables tun, int B, int H, int KV,
+                      int BS, int Tb,
                       long long sb, long long sr, long long sh, float scale,
                       cudaStream_t stream) {
   switch (HD) {
     case 16:
       return launch<T, 16>(q, pool_k, pool_v, out, seq_lens, scratch,
-                           partials, max_splits, tun, B, H, KV, BS, Tb, sb,
+                           partials, stats, max_splits, tun, B, H, KV, BS, Tb, sb,
                            sr, sh, scale, stream);
     case 32:
       return launch<T, 32>(q, pool_k, pool_v, out, seq_lens, scratch,
-                           partials, max_splits, tun, B, H, KV, BS, Tb, sb,
+                           partials, stats, max_splits, tun, B, H, KV, BS, Tb, sb,
                            sr, sh, scale, stream);
     case 64:
       return launch<T, 64>(q, pool_k, pool_v, out, seq_lens, scratch,
-                           partials, max_splits, tun, B, H, KV, BS, Tb, sb,
+                           partials, stats, max_splits, tun, B, H, KV, BS, Tb, sb,
                            sr, sh, scale, stream);
     case 128:
       return launch<T, 128>(q, pool_k, pool_v, out, seq_lens, scratch,
-                            partials, max_splits, tun, B, H, KV, BS, Tb, sb,
+                            partials, stats, max_splits, tun, B, H, KV, BS, Tb, sb,
                             sr, sh, scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -137,8 +141,10 @@ cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  scratch holds
-// 2 * B * Tb + B + B * KV int32: list_blk, list_pos, counts and the decode
+// Plain C entry point, bound with ctypes.  stats: nullptr, or 2 * B * H
+// float32 that receive each (request, q head) row's softmax max m, then
+// its sum l (paged::RowStats; the output is the same either way).
+// scratch holds 2 * B * Tb + B + B * KV int32: list_blk, list_pos, counts and the decode
 // tile's arrival counters; partials max_splits x KV x partial_floats(H /
 // KV, HD) floats, max_splits >= 1 (the splits over all requests: at most
 // ceil(Tb * BS / split_keys) + B).  q, out, pool_k, pool_v and partials
@@ -149,6 +155,7 @@ cudaError_t launch_hd(int HD, const void* q, const void* pool_k,
 // cudaGetLastError() after the launches (0 = ok).
 extern "C" int paged_attention_decode(
     const void* q, const void* pool_k, const void* pool_v, void* out,
+    void* stats,
     const void* block_list, const void* block_req, const void* block_pos,
     const void* seq_lens, void* scratch, void* partials, int B, int H, int KV,
     int HD, int NB, int BS, int Tb, int max_splits, int split_keys,
@@ -173,14 +180,17 @@ extern "C" int paged_attention_decode(
   float* part = static_cast<float*>(partials);
   int* ints = static_cast<int*>(scratch);
   const Tunables tun{split_keys, smem_cap};
+  float* m_out = static_cast<float*>(stats);
+  const paged::RowStats rs{m_out, m_out == nullptr ? nullptr
+                                                   : m_out + static_cast<size_t>(B) * H};
   if (dtype == 0)
-    err = launch_hd<float>(HD, q, pool_k, pool_v, out, lens, ints, part,
+    err = launch_hd<float>(HD, q, pool_k, pool_v, out, lens, ints, part, rs,
                            max_splits, tun, B, H, KV, BS, Tb, sb, sr, sh,
                            scale, st);
   else if (dtype == 1)
     err = launch_hd<__nv_bfloat16>(HD, q, pool_k, pool_v, out, lens, ints,
-                                   part, max_splits, tun, B, H, KV, BS, Tb,
-                                   sb, sr, sh, scale, st);
+                                   part, rs, max_splits, tun, B, H, KV, BS,
+                                   Tb, sb, sr, sh, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -102,7 +102,8 @@ __global__ void __launch_bounds__(kThreads,
                             const int* __restrict__ list_pos,
                             const int* __restrict__ counts,
                             int* __restrict__ counters,
-                            float* __restrict__ partials, int num_lanes,
+                            float* __restrict__ partials,
+                            paged::RowStats stats, int num_lanes,
                             int H, int KV, int BS, int S, int Tb, int tq,
                             int tq_mma, int split_blocks, int max_splits,
                             int split_keys, float scale) {
@@ -135,7 +136,8 @@ __global__ void __launch_bounds__(kThreads,
           q, out, H, G, h, cu_q[j], kvl - 1, kvl, list_blk + list0,
           list_pos + list0, counts[j], BS, pool, scale, split, nsplit(j),
           split_keys, w, KV, max_splits, partials,
-          counters + j * KV + h, reinterpret_cast<unsigned char*>(smem));
+          counters + j * KV + h, reinterpret_cast<unsigned char*>(smem),
+          stats);
     });
     return;
   }
@@ -195,14 +197,14 @@ __global__ void __launch_bounds__(kThreads,
       const auto row_pos = [=](int r) { return first + r / G; };
       paged::attend_tile_mma<HD>(q, out, H, G, kvh, lane0, nrows, row_pos,
                                  kvl, list_blk + list0, list_pos + list0,
-                                 count, BS, pool, scale, smem);
+                                 count, BS, pool, scale, smem, stats);
       return;
     }
   }
   const int pos = seq >= 0 ? first + (tid >> 2) / G : -1;
   paged::attend_tile<T, HD>(q, out, H, G, kvh, lane0, nrows, pos, kvl,
                             list_blk + list0, list_pos + list0, count, BS,
-                            pool, scale, smem);
+                            pool, scale, smem, stats);
 }
 
 // The per-sequence page lists share one scratch buffer of
@@ -216,6 +218,7 @@ struct Lists {
   int* counters;
   float* partials;
   int max_splits;
+  paged::RowStats stats;
 };
 
 // The launch tunables: keys per decode split, lanes per tensor-core tile,
@@ -251,7 +254,8 @@ cudaError_t launch(const void* q, const void* kv_pool, void* out,
   ragged_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv_pool),
       static_cast<T*>(out), cu_q, cu_kv, lists.blk, lists.pos, lists.counts,
-      lists.counters, lists.partials, T_lanes, H, KV, BS, S, Tb, tq, tq_mma,
+      lists.counters, lists.partials, lists.stats, T_lanes, H, KV, BS, S, Tb,
+      tq, tq_mma,
       split_blocks, lists.max_splits, tun.split_keys, scale);
   return cudaGetLastError();
 }
@@ -281,8 +285,10 @@ cudaError_t launch_hd(int HD, const void* q, const void* kv_pool, void* out,
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  scratch holds
-// 2 * S * Tb + S + S * KV int32 (see Lists); partials max_splits x KV x
+// Plain C entry point, bound with ctypes.  stats: nullptr, or 2 * T * H
+// float32 that receive each (lane, q head) row's softmax max m, then its
+// sum l (paged::RowStats; the output is the same either way).  scratch
+// holds 2 * S * Tb + S + S * KV int32 (see Lists); partials max_splits x KV x
 // partial_floats(H / KV, HD) floats, max_splits >= 1 (the decode tile's
 // splits over all sequences of one lane: at most ceil(Tb * BS /
 // split_keys) + S when each BlockList entry belongs to one sequence).  q,
@@ -292,7 +298,8 @@ cudaError_t launch_hd(int HD, const void* q, const void* kv_pool, void* out,
 // whose shared memory exceeds it is refused).  dtype: 0 = float32, 1 =
 // bfloat16.  Returns cudaGetLastError() after the launches (0 = ok).
 extern "C" int paged_attention_ragged(
-    const void* q, const void* kv_pool, void* out, const void* block_list,
+    const void* q, const void* kv_pool, void* out, void* stats,
+    const void* block_list,
     const void* block_req, const void* block_pos, const void* cu_q_lens,
     const void* cu_kv_lens, const void* seq_slot, void* scratch,
     void* partials, int T_lanes, int H, int KV, int HD, int NB, int BS,
@@ -317,8 +324,11 @@ extern "C" int paged_attention_ragged(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T_lanes == 0) return 0;
+  float* m_out = static_cast<float*>(stats);
+  const paged::RowStats rs{m_out, m_out == nullptr ? nullptr
+                                                   : m_out + static_cast<size_t>(T_lanes) * H};
   const Lists lists{list_blk, list_pos, counts, counters,
-                    static_cast<float*>(partials), max_splits};
+                    static_cast<float*>(partials), max_splits, rs};
   const Tunables tun{split_keys, q_tile, smem_cap};
   if (dtype == 0)
     err = launch_hd<float>(HD, q, kv_pool, out, cq, ck, lists, tun, T_lanes,

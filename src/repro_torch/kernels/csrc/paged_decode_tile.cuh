@@ -199,8 +199,10 @@ __device__ __forceinline__ void run_splits(int split_x, int n, NSplit nsplit,
 // records of partial_floats(G, HD) floats, indexed w * KV + kvh; counter
 // is the owner's arrival count for kvh, which the launch's list kernel
 // reset to 0.  An owner whose splits do not fit in partials (only possible
-// if BlockList entries belong to more than one owner) writes 0.  The
-// caller synchronises before it reuses shared memory.
+// if BlockList entries belong to more than one owner) writes 0.  stats:
+// the G rows' (m, l) over all the owner's splits, when asked for
+// (paged_attention_common.cuh), written where the output is.  The caller
+// synchronises before it reuses shared memory.
 template <typename T, int HD>
 __device__ __forceinline__ void decode_split(
     const T* __restrict__ q, T* __restrict__ out, int H, int G, int kvh,
@@ -208,16 +210,19 @@ __device__ __forceinline__ void decode_split(
     const int* __restrict__ list_pos, int count, int BS, const Pool<T>& pool,
     float scale, int split, int nsplit, int split_keys, int w, int KV,
     int max_splits, float* __restrict__ partials, int* __restrict__ counter,
-    unsigned char* smem) {
+    unsigned char* smem, RowStats stats) {
   using Tile = DecodeTile<T, HD>;
   constexpr int VEC = Tile::kVec, CH = Tile::kChunks;
   constexpr int TPK = kThreads / kKeys;      // threads copying one key row
   const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
-  const size_t row0 = (static_cast<size_t>(lane) * H + kvh * G) * HD;
+  const size_t srow0 = static_cast<size_t>(lane) * H + kvh * G;
+  const size_t row0 = srow0 * HD;
   if (nsplit > 1 && w - split + nsplit > max_splits) {   // uniform
-    if (split == 0)
+    if (split == 0) {
       for (int i = tid; i < G * HD; i += kThreads)
         out[row0 + i] = from_f32<T>(0.f);
+      if (tid < G) stats.put(srow0 + tid, kNegInf, 0.f);
+    }
     return;
   }
   const uint32_t sK = mma::shared_addr(smem);
@@ -418,7 +423,10 @@ __device__ __forceinline__ void decode_split(
       for (int v = 0; v < VEC; ++v) rec[u * VEC + v] = acc[j][v];
     }
   }
-  if (nsplit == 1) return;
+  if (nsplit == 1) {
+    if (tid < G) stats.put(srow0 + tid, sM[tid], sL[tid]);
+    return;
+  }
   if (tid < G) {
     rec[G * HD + tid] = sM[tid];
     rec[G * HD + G + tid] = sL[tid];
@@ -447,6 +455,7 @@ __device__ __forceinline__ void decode_split(
       l += f * __ldcg(r + G * HD + G + g);
     }
     out[row0 + u] = from_f32<T>(o / fmaxf(l, 1e-30f));
+    if (u - g * HD == 0) stats.put(srow0 + g, m, l);
   }
 }
 

@@ -18,9 +18,9 @@ _p, _i, _i64, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_float)
 # C signature of each source's entry point (named like the source).
 _ARGTYPES = {
-    SOURCE: [_p] * 11 + [_i] * 13 + [_f, _p],
-    CHUNKED_SOURCE: [_p] * 12 + [_i] * 12 + [_i64] * 3 + [_i, _f, _p],
-    DECODE_SOURCE: [_p] * 10 + [_i] * 10 + [_i64] * 3 + [_i, _f, _p],
+    SOURCE: [_p] * 12 + [_i] * 13 + [_f, _p],
+    CHUNKED_SOURCE: [_p] * 13 + [_i] * 12 + [_i64] * 3 + [_i, _f, _p],
+    DECODE_SOURCE: [_p] * 11 + [_i] * 10 + [_i64] * 3 + [_i, _f, _p],
 }
 
 

@@ -23,6 +23,15 @@ kernel follows ``--device``.  ``--arch`` takes the dense and MoE configs
 (granite-moe-1b-a400m fits one card; qwen3-moe-235b-a22b only
 ``--reduced``).
 
+``--devices N`` (N > 1) serves on a mesh of N ranks, one process each,
+joined over gloo through a ``file://`` rendezvous in a temporary
+directory (``repro_torch.launch.mesh.run_ranks``): rank r takes
+``cuda:(r % device_count)``, every rank runs the whole host loop on the
+same requests, the params are tensor-parallel and the KV pool
+sequence-sharded over the ranks (``ServeConfig.devices``), and rank 0's
+summary is printed (``attention=sharded devices=N mesh=...``); greedy
+streams are the single-device run's.
+
 Weights are random, drawn from a seeded generator on the device.  Pass
 ``--device cpu`` (with ``--reduced`` for a tiny float32 model) to run the
 plain PyTorch path without a card.
@@ -31,7 +40,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import sys
 import time
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -47,7 +58,7 @@ from repro_torch.serving.disagg import DisaggEngine
 from repro_torch.serving.engine import Request, ServingEngine
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
     p.add_argument("--requests", type=int, default=8)
@@ -120,7 +131,47 @@ def main(argv=None) -> None:
                         "cached-free blocks are demoted to a host LRU and "
                         "promoted back on a prefix hit; pair with "
                         "--eviction tiered")
+    p.add_argument("--devices", type=int, default=1,
+                   help="ranks of the serving mesh (one process each, "
+                        "gloo); 1 = one device")
+    return p
+
+
+def main(argv=None) -> Dict:
+    """Serve and print the summary; returns ``{"lines", "outputs",
+    "metrics"}`` (rank 0's with ``--devices N``)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    p = _parser()
     args = p.parse_args(argv)
+    if args.devices < 1:
+        p.error("--devices must be >= 1")
+    if args.devices > 1:
+        from repro_torch import device as device_lib
+        from repro_torch.launch.mesh import run_ranks
+
+        device_lib.resolve(args.device)
+        ranks = run_ranks(_serve_rank, args.devices, (argv,),
+                          device=args.device, timeout=3600.0)
+        out = ranks[0]
+        if any(r["outputs"] != out["outputs"] for r in ranks[1:]):
+            raise RuntimeError("--devices: the ranks' streams differ")
+    else:
+        out = _serve(p, args)
+    for line in out["lines"]:
+        print(line)
+    return out
+
+
+def _serve_rank(argv: List[str]) -> Dict:
+    """One rank of ``--devices N``: :func:`_serve` inside the rank's
+    process group."""
+    p = _parser()
+    return _serve(p, p.parse_args(argv))
+
+
+def _serve(p, args) -> Dict:
+    lines: List[str] = []
+    say = lines.append
     if args.policy:
         parts = args.policy.split("/")
         if len(parts) == 1:
@@ -145,7 +196,8 @@ def main(argv=None) -> None:
                         num_queries_per_block=args.num_queries_per_block,
                         num_kv_pages_per_block=args.num_kv_pages_per_block,
                         vmem_limit_bytes=args.vmem_limit_bytes,
-                        sanitize=args.sanitize == "on")
+                        sanitize=args.sanitize == "on",
+                        devices=args.devices if args.devices > 1 else 0)
     trace, ctx = None, contextlib.nullcontext()
     if serve.trace:
         trace = Trace.load(serve.trace)
@@ -191,56 +243,61 @@ def main(argv=None) -> None:
     m = engine.metrics()
     if trace is not None:
         c = result.counters()
-        print(f"replayed trace {trace.name} [{trace.scenario}] "
-              f"{len(trace.requests)} requests in {result.steps} virtual "
-              f"steps ({c['idle_ff']} idle fast-forwards)")
-        print(f"virtual TTFT p50 {report.p50_ttft_s:.2f} / p99 "
-              f"{report.p99_ttft_s:.2f} s  TPOT p50 {report.p50_tpot_s:.3f} "
-              f"/ p99 {report.p99_tpot_s:.3f} s  attainment "
-              f"ttft={report.attainment_ttft:.0%} "
-              f"tpot={report.attainment_tpot:.0%}  "
-              f"SLO {'MET' if report.ok else 'MISSED'} "
-              f"(targets {args.slo_ttft}s / {args.slo_tpot}s)")
-    print(f"served {m['finished']} requests, {m['output_tokens']} tokens "
-          f"in {dt:.2f}s ({m['output_tokens']/dt:.1f} tok/s) "
-          f"[attention={m['backend']} device={args.device} "
-          f"steps={m['steps']} overlap={m['overlap']}]")
-    print(f"TTFT p50 {m['p50_ttft_s']*1e3:.1f} / p99 {m['p99_ttft_s']*1e3:.1f} "
-          f"ms  TPOT p50 {m['p50_tpot_s']*1e3:.1f} / p99 "
-          f"{m['p99_tpot_s']*1e3:.1f} ms")
-    print(f"attn {m['attn_impl']}  q_chunk={m['q_chunk']} "
-          f"prefetch_depth={m['prefetch_depth']} "
-          f"num_queries_per_block={m['num_queries_per_block']} "
-          f"num_kv_pages_per_block={m['num_kv_pages_per_block']} "
-          f"vmem_limit_bytes={m['vmem_limit_bytes']}")
-    print(f"preemptions {m['preemptions']}  "
-          f"prefix hit rate {m['prefix_hit_rate']:.2f}  "
-          f"cow copies {m['cow_copies']}")
-    print(f"policies {m['admission_policy']}/{m['preemption_policy']}/"
-          f"{m['eviction_policy']}  counters {m['policy_counters']}")
+        say(f"replayed trace {trace.name} [{trace.scenario}] "
+            f"{len(trace.requests)} requests in {result.steps} virtual "
+            f"steps ({c['idle_ff']} idle fast-forwards)")
+        say(f"virtual TTFT p50 {report.p50_ttft_s:.2f} / p99 "
+            f"{report.p99_ttft_s:.2f} s  TPOT p50 {report.p50_tpot_s:.3f} "
+            f"/ p99 {report.p99_tpot_s:.3f} s  attainment "
+            f"ttft={report.attainment_ttft:.0%} "
+            f"tpot={report.attainment_tpot:.0%}  "
+            f"SLO {'MET' if report.ok else 'MISSED'} "
+            f"(targets {args.slo_ttft}s / {args.slo_tpot}s)")
+    say(f"served {m['finished']} requests, {m['output_tokens']} tokens "
+        f"in {dt:.2f}s ({m['output_tokens']/dt:.1f} tok/s) "
+        f"[attention={m['backend']} device={args.device} "
+        f"devices={m['devices']} mesh={m['mesh_shape']} "
+        f"steps={m['steps']} overlap={m['overlap']}]")
+    say(f"TTFT p50 {m['p50_ttft_s']*1e3:.1f} / p99 {m['p99_ttft_s']*1e3:.1f} "
+        f"ms  TPOT p50 {m['p50_tpot_s']*1e3:.1f} / p99 "
+        f"{m['p99_tpot_s']*1e3:.1f} ms")
+    say(f"attn {m['attn_impl']}  q_chunk={m['q_chunk']} "
+        f"prefetch_depth={m['prefetch_depth']} "
+        f"num_queries_per_block={m['num_queries_per_block']} "
+        f"num_kv_pages_per_block={m['num_kv_pages_per_block']} "
+        f"vmem_limit_bytes={m['vmem_limit_bytes']}")
+    say(f"preemptions {m['preemptions']}  "
+        f"prefix hit rate {m['prefix_hit_rate']:.2f}  "
+        f"cow copies {m['cow_copies']}")
+    say(f"policies {m['admission_policy']}/{m['preemption_policy']}/"
+        f"{m['eviction_policy']}  counters {m['policy_counters']}")
     t = m["tier"]
-    print(f"role {m['role']}  tier hbm={t['hbm_blocks']} "
-          f"host={t['host_blocks']} (used {t['host_blocks_used']})  "
-          f"demotes {t['demotes']}  promotes {t['promotes']}  "
-          f"hits {t['hits']}  drops {t['drops']}")
+    say(f"role {m['role']}  tier hbm={t['hbm_blocks']} "
+        f"host={t['host_blocks']} (used {t['host_blocks_used']})  "
+        f"demotes {t['demotes']}  promotes {t['promotes']}  "
+        f"hits {t['hits']}  drops {t['drops']}")
     if serve.roles:
         h = m["handoff_ms"]
-        print(f"handoffs {m['handoffs']}  latency p50 {h['p50']:.2f} / "
-              f"p99 {h['p99']:.2f} ms  prefill steps "
-              f"{m['roles']['prefill']['steps']}  decode steps "
-              f"{m['roles']['decode']['steps']}")
+        say(f"handoffs {m['handoffs']}  latency p50 {h['p50']:.2f} / "
+            f"p99 {h['p99']:.2f} ms  prefill steps "
+            f"{m['roles']['prefill']['steps']}  decode steps "
+            f"{m['roles']['decode']['steps']}")
     san = m["sanitize"]
-    print(f"sanitize {'on' if san['enabled'] else 'off'}  "
-          f"retraces={san['retraces']} "
-          f"transfer_guard_trips={san['transfer_guard_trips']} "
-          f"invariant_checks={san['invariant_checks']} "
-          f"allowed_host_syncs={san['allowed_host_syncs']} "
-          f"compiles={san['compiles']}")
+    say(f"sanitize {'on' if san['enabled'] else 'off'}  "
+        f"retraces={san['retraces']} "
+        f"transfer_guard_trips={san['transfer_guard_trips']} "
+        f"invariant_checks={san['invariant_checks']} "
+        f"allowed_host_syncs={san['allowed_host_syncs']} "
+        f"compiles={san['compiles']}")
     s = m["spec"]
-    print(f"spec {s['proposer']} k={s['k']}  "
-          f"accept_rate {s['acceptance_rate']:.2f}  "
-          f"mean_accepted {s['mean_accepted_len']:.2f}  "
-          f"tokens/step {m['tokens_per_step']:.2f}")
+    say(f"spec {s['proposer']} k={s['k']}  "
+        f"accept_rate {s['acceptance_rate']:.2f}  "
+        f"mean_accepted {s['mean_accepted_len']:.2f}  "
+        f"tokens/step {m['tokens_per_step']:.2f}")
+
+    outputs = ({r.req_id: [int(t) for t in r.output] for r in
+                engine.finished} if hasattr(engine, "finished") else {})
+    return {"lines": lines, "outputs": outputs, "metrics": m}
 
 
 if __name__ == "__main__":

@@ -44,12 +44,21 @@ def attention_init(gen: torch.Generator, d_model: int, a: AttentionConfig,
 
 
 def project_qkv(params, x: torch.Tensor, a: AttentionConfig,
-                positions: torch.Tensor):
-    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope applied."""
+                positions: torch.Tensor, tp=None):
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope applied.
+
+    ``tp`` (a ``TensorParallel``): each of ``wq``/``wk``/``wv`` that the
+    rules split holds this rank's whole heads, and the products of those
+    are gathered over the axis in one collective (every rank needs every
+    head: the KV pool is sharded by sequence, not by head); one left whole
+    is applied as it is."""
     B, S, _ = x.shape
-    q = torch.matmul(x, params["wq"])
-    k = torch.matmul(x, params["wk"])
-    v = torch.matmul(x, params["wv"])
+    qkv = {name: torch.matmul(x, params[name]) for name in ("wq", "wk", "wv")}
+    if tp is not None:
+        split = [n for n in qkv if tp.split("layers", "attn", n)]
+        if split:
+            qkv.update(zip(split, tp.gather_last([qkv[n] for n in split])))
+    q, k, v = qkv["wq"], qkv["wk"], qkv["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(B, S, a.num_heads, a.head_dim)
@@ -160,3 +169,11 @@ def encode_kv(params, enc, a: AttentionConfig):
         k, v = k + params["bk"], v + params["bv"]
     return (k.reshape(B, S, a.num_kv_heads, a.head_dim),
             v.reshape(B, S, a.num_kv_heads, a.head_dim))
+
+
+def out_proj_tp(ctx: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:
+    """``ctx @ wo`` with ``wo`` row-parallel (this rank's whole heads of
+    its input rows): the rank's heads of the whole ``ctx`` times its rows,
+    summed over the axis in float32."""
+    lo, hi = tp.bounds(ctx.shape[-1])
+    return tp.psum(torch.matmul(ctx[..., lo:hi], wo))

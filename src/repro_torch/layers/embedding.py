@@ -1,4 +1,6 @@
-"""Token embedding / tied LM head (port of ``repro.layers.embedding``)."""
+"""Token embedding / tied LM head (port of ``repro.layers.embedding``),
+and their vocabulary-parallel forms over a mesh axis (Megatron's): each
+rank holds a contiguous block of the table's rows."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +24,22 @@ def unembed(params_head, x: torch.Tensor) -> torch.Tensor:
     f32) and the result is widened, so no f32 copy of the table is made.
     """
     return torch.matmul(x, params_head["table"].t()).float()
+
+
+def embed_vocab_parallel(params, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`embed` over a row-sharded table: each rank looks up the ids
+    its rows hold, the others give zeros, and a SUM over the axis (exact:
+    one rank holds each row) gives the whole embedding on every rank.
+    ``tp``: a :class:`repro_torch.distributed.sharding.TensorParallel`."""
+    table = params["table"]
+    rows = table.shape[0]
+    local = tokens.long() - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0)
+    return tp.psum_exact(x)
+
+
+def unembed_vocab_parallel(params_head, x: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`unembed` over a row-sharded table: each rank's logits of its
+    vocabulary block, gathered along the vocabulary in rank order."""
+    return tp.gather(unembed(params_head, x), dim=-1)

@@ -1,5 +1,6 @@
 """Feed-forward blocks: SwiGLU (llama/qwen) and GELU (whisper) (port of
-``repro.layers.mlp``)."""
+``repro.layers.mlp``), and their tensor-parallel form over a mesh axis
+(:func:`mlp_apply_tp`)."""
 from __future__ import annotations
 
 import torch
@@ -58,3 +59,21 @@ def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "gelu":
         return gelu_mlp(params, x)
     return swiglu(params, x)
+
+
+def mlp_apply_tp(params, x: torch.Tensor, act: str, tp) -> torch.Tensor:
+    """:func:`mlp_apply` with Megatron's split: ``w_gate``/``w_up``
+    (``w_in``) column-parallel, so each rank holds its block of the hidden
+    units, and ``w_down`` (``w_out``) row-parallel over the same block,
+    its partial products summed over the axis in float32 (``tp``: a
+    ``TensorParallel``).  The biases are whole on every rank: ``b_in``'s
+    block is added before the activation, ``b_out`` after the sum."""
+    if act == "gelu":
+        lo, hi = tp.bounds(params["b_in"].shape[-1])
+        h = torch.matmul(x, params["w_in"]) + params["b_in"][..., lo:hi]
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        return tp.psum(torch.matmul(h, params["w_out"])) + params["b_out"]
+    g = torch.matmul(x, params["w_gate"])
+    u = torch.matmul(x, params["w_up"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    return tp.psum(torch.matmul(h, params["w_down"]))

@@ -26,7 +26,8 @@ run, and bf16 greedy streams with it).  At full capacity most gates are
 exact zeros, which add exactly 0.
 
 The reference's mesh arguments (``shard``, ``data_axes``, ``expert_axis``)
-wait for the port's multi-device serving.
+wait for expert parallelism (ROADMAP A10's training half); until then a
+MoE config does not serve on a mesh.
 """
 from __future__ import annotations
 

@@ -14,6 +14,18 @@
   token per request over split K/V pools, through the decode-shape
   BlockList kernel.
 
+Both paged paths also run on a mesh of ranks (``mesh=``, the
+mesh-native serving path of the reference): the params are this rank's
+shard (:meth:`TransformerLM.shard_params`, the reference's
+``ShardingRules`` with ``head_dim``), the pool this rank's block of the
+sequence-sharded pool, and the BlockList this rank's LOCAL one.  Each
+layer gathers the heads of a split ``wq``/``wk``/``wv``, appends the lanes
+whose blocks this rank holds, takes the attention partials of its keys
+from the kernel (its ``(m, l)`` statistics beside the output) and
+log-sum-exp-combines them over the axis; ``wo`` and ``w_down`` are
+row-parallel (a float32 SUM), the embedding and the head
+vocabulary-parallel.  A weight the rules leave whole is applied whole.
+
 Parameters are a dict with the JAX pytree's names and layouts: ``embed``,
 ``layers`` (``ln1``, ``ln2``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``},
 ``mlp`` {``w_gate``, ``w_up``, ``w_down``} or, for a MoE config, ``moe``
@@ -29,8 +41,8 @@ differentiable end to end; with grad enabled each layer of ``forward``
 runs under the ``remat`` policy (``repro_torch.training.remat``: True or
 ``"full"``, ``"dots"``, False or ``"none"``).  Left out: ``scan_layers``
 and ``unroll_attn`` (JAX compile notions: the layers are a Python loop
-here); ``shard_moe`` and ``moe_groups`` (expert sharding, with multi-GPU,
-A10).
+here); ``shard_moe`` and ``moe_groups`` (expert sharding, the training half of
+A10), so a MoE config does not run on a mesh here.
 """
 from __future__ import annotations
 
@@ -42,8 +54,10 @@ from repro_torch import device as device_lib
 from repro_torch.config import ModelConfig
 from repro_torch.core import attention_api, paged_kv
 from repro_torch.layers import attention as attn_lib
-from repro_torch.layers.embedding import embed, embedding_init, unembed
-from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.embedding import (
+    embed, embed_vocab_parallel, embedding_init, unembed,
+    unembed_vocab_parallel)
+from repro_torch.layers.mlp import mlp_apply, mlp_apply_tp, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norm import rmsnorm, rmsnorm_init
 from repro_torch.models import stacking
@@ -60,14 +74,26 @@ class TransformerLM:
         self.device = device_lib.resolve(device)
         self.dtype = stacking.DTYPES[cfg.dtype]
 
-    def init(self, seed: int = 0) -> Dict:
+    def init(self, seed: int = 0, shard=None) -> Dict:
         """Random parameters from a seeded ``torch.Generator`` on the
-        model's device (normal, scaled by fan-in^-0.5; norms at 1)."""
+        model's device (normal, scaled by fan-in^-0.5; norms at 1).
+
+        ``shard``: ``fn(path, leaf) -> leaf`` applied to each leaf as soon
+        as it is drawn (a layer's leaves before they are stacked), so a
+        rank keeps only its shard of the same values (``shard_fn``):
+        the whole tree is never held at once."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
         gen = stacking.generator(seed, dev)
+        cut = shard or (lambda path, t: t)
+
+        def cut_tree(prefix, tree):
+            if isinstance(tree, dict):
+                return {k: cut_tree(prefix + (k,), v)
+                        for k, v in tree.items()}
+            return cut(prefix, tree)
 
         def layer():
-            return {
+            return cut_tree(("layers",), {
                 "ln1": rmsnorm_init(cfg.d_model, dt, dev),
                 "ln2": rmsnorm_init(cfg.d_model, dt, dev),
                 "attn": attn_lib.attention_init(gen, cfg.d_model,
@@ -76,24 +102,107 @@ class TransformerLM:
                    if cfg.moe is not None else
                    {"mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dt,
                                     dev)}),
-            }
+            })
 
         layers = stacking.init_stacked(cfg.num_layers, layer)
         params = {
-            "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dt,
-                                    dev),
+            "embed": cut_tree(("embed",), embedding_init(
+                gen, cfg.vocab_size, cfg.d_model, dt, dev)),
             "layers": layers,
-            "final_norm": rmsnorm_init(cfg.d_model, dt, dev),
+            "final_norm": cut_tree(("final_norm",), rmsnorm_init(
+                cfg.d_model, dt, dev)),
         }
         if not cfg.tie_embeddings:
-            params["head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model,
-                                            dt, dev)
+            params["head"] = cut_tree(("head",), embedding_init(
+                gen, cfg.vocab_size, cfg.d_model, dt, dev))
         return params
 
     def init_abstract(self) -> Dict:
         """:meth:`init`'s tree (keys, shapes, dtypes) as meta tensors,
         drawn from nothing and allocated nowhere."""
         return stacking.init_abstract(self)
+
+    # ------------------------------------------------------------------ mesh
+    def sharding_rules(self, mesh, axis: str = "model"):
+        """The reference's rules for this model's params on ``mesh``
+        (attention projections split on whole heads only)."""
+        from repro_torch.distributed.sharding import ShardingRules
+        return ShardingRules(mesh, model_axis=axis,
+                             head_dim=self.cfg.attention.head_dim)
+
+    def shard_fn(self, mesh, axis: str = "model"):
+        """``fn(path, leaf)``: this rank's shard of a full leaf at ``path``
+        (for :meth:`init`'s ``shard``)."""
+        from repro_torch.distributed.sharding import shard_leaf
+        rules = self.sharding_rules(mesh, axis)
+        return lambda path, t: shard_leaf(
+            t, rules.param_spec(tuple(path), tuple(t.shape)), mesh)
+
+    def shard_params(self, params, mesh, axis: str = "model") -> Dict:
+        """This rank's shard of params (:meth:`sharding_rules`): a full
+        leaf is cut, a leaf already of its shard's shape (from
+        ``init(shard=...)``) is kept; any other shape raises."""
+        from repro_torch.distributed.sharding import shard_leaf
+        rules = self.sharding_rules(mesh, axis)
+        full = self.init_abstract()
+
+        def walk(path, p, f):
+            if isinstance(p, dict):
+                return {k: walk(path + (k,), p[k], f[k]) for k in p}
+            spec = rules.param_spec(path, tuple(f.shape))
+            if tuple(p.shape) == tuple(f.shape):
+                return shard_leaf(p, spec, mesh)
+            want = tuple(shard_leaf(f, spec, mesh).shape)
+            if tuple(p.shape) != want:
+                raise ValueError(f"{'/'.join(path)}: shape {tuple(p.shape)} "
+                                 f"is neither the full {tuple(f.shape)} nor "
+                                 f"this rank's shard {want}")
+            return p
+
+        return walk((), params, full)
+
+    def tensor_parallel(self, mesh, axis: str = "model"):
+        """The ``TensorParallel`` the sharded paths read (which leaves are
+        split, from the specs of :meth:`init_abstract`'s tree)."""
+        from repro_torch.distributed.sharding import TensorParallel
+        cache = self.__dict__.setdefault("_tp_cache", {})
+        key = (id(mesh), axis)
+        if key not in cache:
+            if self.cfg.moe is not None:
+                raise NotImplementedError(
+                    f"{self.cfg.name} on a mesh: expert parallelism is the "
+                    "training half's (ROADMAP A10)")
+            specs = self.sharding_rules(mesh, axis).params_tree(
+                self.init_abstract())
+            cache[key] = TensorParallel(mesh, specs, axis)
+        return cache[key]
+
+    def _embed_tp(self, params, tokens, tp):
+        if tp.split("embed", "table"):
+            return embed_vocab_parallel(params["embed"], tokens, tp)
+        return embed(params["embed"], tokens)
+
+    def _unembed_tp(self, params, x, tp):
+        name = "head" if "head" in params else "embed"
+        if tp.split(name, "table"):
+            return unembed_vocab_parallel(params[name], x, tp)
+        return unembed(params[name], x)
+
+    def _layer_tail_tp(self, lp, x, ctx, tp):
+        """x + wo(ctx), then + the FFN, each split where the rules split
+        it."""
+        cfg = self.cfg
+        ctx = ctx.reshape(x.shape[0], -1)
+        if tp.split("layers", "attn", "wo"):
+            x = x + attn_lib.out_proj_tp(ctx, lp["attn"]["wo"], tp)
+        else:
+            x = x + torch.matmul(ctx, lp["attn"]["wo"])
+        h = rmsnorm(lp["ln2"], x[:, None], cfg.norm_eps)
+        mlp_split = tp.split("layers", "mlp", ("w_in" if cfg.act == "gelu"
+                                                else "w_gate"))
+        if mlp_split:
+            return x + mlp_apply_tp(lp["mlp"], h, cfg.act, tp)[:, 0]
+        return x + mlp_apply(lp["mlp"], h, cfg.act)[:, 0]
 
     # --------------------------------------------------------------- forward
     def _ffn(self, lp, h, *, full_capacity: bool):
@@ -202,7 +311,8 @@ class TransformerLM:
 
     # ---------------------------------------------------------------- decode
     def decode_step_paged(self, params, pools, lists, tokens, *,
-                          num_lanes: Optional[int] = None):
+                          num_lanes: Optional[int] = None, mesh=None,
+                          axis: str = "model"):
         """Paged decode, one token per request (the paper's technique).
 
         pools {"k", "v"} (L, NB, BS, KV, HD), updated IN PLACE; lists:
@@ -213,7 +323,17 @@ class TransformerLM:
         (:data:`attention_api.paged_attention_op`) over ``seq_lens + 1``
         keys.  ``num_lanes``: as in :meth:`decode_tokens_paged` (B when
         every slot is real).  Returns (logits (B, V) f32, pools).
+
+        ``mesh``: the sharded paper path (module docstring): params this
+        rank's shard, pools its (L, NB / S, ...) block, block_* its LOCAL
+        BlockList, and ``own_lanes`` / ``own_slots`` the requests whose
+        token's block it holds, at local slots; attention through
+        :func:`attention_api.paged_attention_sharded` (the decode kernel's
+        partials, combined over ``axis``).
         """
+        if mesh is not None:
+            return self._decode_step_sharded(params, pools, lists, tokens,
+                                             mesh, axis)
         cfg = self.cfg
         a = cfg.attention
         seq_lens = lists["seq_lens"]
@@ -240,11 +360,38 @@ class TransformerLM:
         head = params.get("head", params["embed"])
         return unembed(head, x)[:, 0], pools
 
+    def _decode_step_sharded(self, params, pools, lists, tokens, mesh,
+                             axis):
+        cfg = self.cfg
+        a = cfg.attention
+        tp = self.tensor_parallel(mesh, axis)
+        seq_lens = lists["seq_lens"]
+        x = self._embed_tp(params, tokens, tp)              # (B, D)
+        lp_all = params["layers"]
+        for i in range(cfg.num_layers):
+            lp = stacking.layer(lp_all, i)
+            h = rmsnorm(lp["ln1"], x[:, None], cfg.norm_eps)
+            q, k_new, v_new = attn_lib.project_qkv(lp["attn"], h, a,
+                                                   seq_lens[:, None], tp)
+            pk, pv = pools["k"][i], pools["v"][i]
+            paged_kv.append_lanes(pk, k_new[:, 0], lists["own_lanes"],
+                                  lists["own_slots"])
+            paged_kv.append_lanes(pv, v_new[:, 0], lists["own_lanes"],
+                                  lists["own_slots"])
+            ctx = attention_api.paged_attention_sharded(
+                q[:, 0].contiguous(), pk, pv, lists["block_list"],
+                lists["block_req"], lists["block_pos"], seq_lens + 1,
+                mesh=mesh, axis=axis)
+            x = self._layer_tail_tp(lp, x, ctx, tp)
+        x = rmsnorm(params["final_norm"], x[:, None], cfg.norm_eps)
+        return self._unembed_tp(params, x, tp)[:, 0], pools
+
     def decode_tokens_paged(self, params, pools, lists, tokens, *,
                             num_lanes: Optional[int] = None,
                             attn_impl: str = "ragged", q_chunk: int = 16,
                             prefetch_depth: int = 0,
-                            attn_tunables: Optional[Dict[str, int]] = None):
+                            attn_tunables: Optional[Dict[str, int]] = None,
+                            mesh=None, axis: str = "model"):
         """Fused chunked-prefill + decode over flat token lanes.
 
         Per layer each lane's K/V is written into the fused pool
@@ -271,10 +418,24 @@ class TransformerLM:
 
         Returns (logits (B, V) f32 at each slot's last lane, or (B, R, V)
         at ``logit_lanes`` when present, pools).
+
+        ``mesh``: the mesh-native serving step (module docstring): params
+        this rank's shard, ``pools["kv"]`` its (L, NB / S, ...) block,
+        block_list/block_req/block_pos its LOCAL BlockList (its row of
+        :meth:`BlockAllocator.build_sharded_block_lists`), and
+        ``own_lanes`` (n,) / ``own_slots`` (n, 2) the lanes whose block it
+        holds, at local slots (``num_lanes`` is then not read).  Each
+        layer's attention goes through
+        :func:`attention_api.paged_attention_ragged_sharded` or
+        :func:`attention_api.paged_attention_chunked_sharded`.
         """
         if attn_impl not in ("ragged", "chunked"):
             raise ValueError(
                 f"attn_impl {attn_impl!r}: expected 'ragged' or 'chunked'")
+        if mesh is not None:
+            return self._decode_tokens_sharded(
+                params, pools, lists, tokens, attn_impl, q_chunk,
+                prefetch_depth, attn_tunables, mesh, axis)
         cfg = self.cfg
         a = cfg.attention
         pool = pools["kv"]
@@ -318,6 +479,51 @@ class TransformerLM:
         x_last = x[lists["last_lane"].long()]
         x_last = rmsnorm(params["final_norm"], x_last[:, None], cfg.norm_eps)
         return unembed(head, x_last)[:, 0], pools
+
+    def _decode_tokens_sharded(self, params, pools, lists, tokens,
+                               attn_impl, q_chunk, prefetch_depth,
+                               attn_tunables, mesh, axis):
+        cfg = self.cfg
+        a = cfg.attention
+        tp = self.tensor_parallel(mesh, axis)
+        pool = pools["kv"]
+        token_pos = lists["token_pos"]
+        tun = dict(attn_tunables or {})
+        split_kw = {k: tun[k] for k in ("num_kv_pages_per_block",
+                                        "vmem_limit_bytes") if k in tun}
+        x = self._embed_tp(params, tokens, tp)              # (T, D)
+        lp_all = params["layers"]
+        for i in range(cfg.num_layers):
+            lp = stacking.layer(lp_all, i)
+            h = rmsnorm(lp["ln1"], x[:, None], cfg.norm_eps)
+            q, k_new, v_new = attn_lib.project_qkv(lp["attn"], h, a,
+                                                   token_pos[:, None], tp)
+            paged_kv.append_lanes(
+                pool[i], paged_kv.fuse_kv_heads(k_new[:, 0], v_new[:, 0]),
+                lists["own_lanes"], lists["own_slots"])
+            if attn_impl == "ragged":
+                ctx = attention_api.paged_attention_ragged_sharded(
+                    q[:, 0].contiguous(), pool[i], lists["block_list"],
+                    lists["block_req"], lists["block_pos"],
+                    lists["cu_q_lens"], lists["cu_kv_lens"],
+                    lists["seq_slot"], mesh=mesh, axis=axis, **tun)
+            else:
+                pk, pv = paged_kv.fused_kv_views(pool[i])
+                ctx = attention_api.paged_attention_chunked_sharded(
+                    q[:, 0].contiguous(), pk, pv, lists["block_list"],
+                    lists["block_req"], lists["block_pos"],
+                    lists["kv_lens"], lists["token_req"], token_pos,
+                    mesh=mesh, axis=axis, q_chunk=q_chunk,
+                    prefetch_depth=prefetch_depth, **split_kw)
+            x = self._layer_tail_tp(lp, x, ctx, tp)
+        rows = lists.get("logit_lanes")
+        if rows is None:
+            x_sel = x[lists["last_lane"].long()][:, None]
+        else:
+            x_sel = x[rows.long()]                          # (B, R, D)
+        x_sel = rmsnorm(params["final_norm"], x_sel, cfg.norm_eps)
+        logits = self._unembed_tp(params, x_sel, tp)
+        return (logits[:, 0] if rows is None else logits), pools
 
 
 

@@ -53,8 +53,25 @@ forward's dispatch, the host-sync guard around the build half, and the
 allocator's invariants after every commit; ``metrics()["sanitize"]`` and
 the ``sanitize.*`` counters report them.
 
-Not in the port yet, refused at construction with ``NotImplementedError``:
-a mesh or ``devices > 1``.
+A mesh (``mesh=`` a :class:`repro_torch.launch.mesh.Mesh`, or
+``ServeConfig.devices > 1``, which builds one with ``make_serving_mesh``)
+runs the same engine mesh-native on S ranks, one process each: the params
+are this rank's shard by the reference's ``ShardingRules`` (``head_dim``
+set), the fused pool this rank's block of ``NB / S`` blocks (NB rounded up
+to a multiple of S; the allocator's free list interleaves the shards),
+and each step's BlockList the per-shard LOCAL lists
+(``build_sharded_block_lists``, the drafted owners included) of which the
+forward takes this rank's row; every layer log-sum-exp-combines the
+ranks' attention partials (``TransformerLM.decode_tokens_paged``).  Every
+rank runs this host program on the same inputs and draws from the same
+seeded generator over the same combined logits, so the ranks' streams
+agree, and greedy streams are the single-device engine's.  A
+copy-on-write pair across ranks moves its block over the axis
+(``paged_kv.copy_pool_blocks_sharded``).  ``metrics()`` reports
+``backend == "sharded"``, ``devices`` and ``mesh_shape``.  Refused with a
+mesh, as the reference refuses it: the host tier (``ValueError``); and in
+the port, a MoE config (``NotImplementedError``: expert parallelism is the
+training half's).
 """
 from __future__ import annotations
 
@@ -69,6 +86,7 @@ from repro_torch import device as device_lib
 from repro_torch.analysis import sanitize as sanitize_lib
 from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.core import attention_api
+from repro_torch.core import paged_kv
 from repro_torch.core.paged_kv import (
     BlockAllocator, HostPool, copy_pool_blocks, make_fused_pool,
     read_pool_block, write_pool_block)
@@ -118,14 +136,9 @@ class _PendingStep:
 
 
 def _refuse(serve: ServeConfig, mesh, role: str) -> None:
-    unsupported = {
-        "a mesh": mesh is not None,
-        f"devices={serve.devices}": serve.devices > 1,
-    }
-    for what, hit in unsupported.items():
-        if hit:
-            raise NotImplementedError(
-                f"{what}: the port's engine serves one device")
+    if mesh is not None and not hasattr(mesh, "axis_index"):
+        raise TypeError(f"mesh {mesh!r}: expected a repro_torch.launch.mesh"
+                        ".Mesh")
     if role not in ("full", "prefill"):
         raise ValueError(f"unknown engine role {role!r}")
     if serve.attn_impl not in ("ragged", "chunked"):
@@ -141,6 +154,15 @@ class ServingEngine:
                  proposer=None, mesh=None, role: str = "full",
                  device="cuda"):
         _refuse(serve, mesh, role)
+        if mesh is None and serve.devices > 1:
+            from repro_torch.launch.mesh import make_serving_mesh
+            mesh = make_serving_mesh(model=serve.devices)
+        self.mesh = mesh
+        self.mesh_axis = serve.parallel.model_axis
+        S = mesh.size(self.mesh_axis) if mesh is not None else 1
+        self.shards = S
+        self.rank = mesh.axis_index(self.mesh_axis) if mesh is not None else 0
+        self.cow_moves = 0      # copy-on-write pairs moved across ranks
         self.device = device_lib.resolve(device)
         self.model = model
         self.cfg = cfg
@@ -153,6 +175,7 @@ class ServingEngine:
         self.prefilled: List[Request] = []
         bs = serve.kv_block_size
         nb = num_blocks or serve.max_blocks or serve.max_batch * 64
+        nb = -(-nb // S) * S            # the pool splits into equal shards
         a = cfg.attention
         adm, pre, evi = policy_lib.resolve_triple(
             admission=admission, preemption=preemption, eviction=eviction,
@@ -160,14 +183,24 @@ class ServingEngine:
         self.policies = {p.axis: p.name for p in (adm, pre, evi)}
         self._policy_objs = (adm, pre, evi)
         self.alloc = BlockAllocator(num_blocks=nb, block_size=bs,
-                                    eviction_policy=evi)
+                                    num_shards=S, eviction_policy=evi)
         self.host_pool: Optional[HostPool] = None
         if serve.host_blocks > 0:
+            if S > 1:
+                raise ValueError(
+                    "host KV tier requires an unsharded pool (the demote/"
+                    "promote block copies assume single-device block "
+                    "slices)")
             self.host_pool = HostPool(serve.host_blocks)
             self.alloc.host_pool = self.host_pool
+        # this rank's block of the sequence-sharded pool (all of it on one
+        # device)
         self.pools = {"kv": make_fused_pool(
-            cfg.num_layers, nb, bs, a.num_kv_heads, a.head_dim,
+            cfg.num_layers, nb // S, bs, a.num_kv_heads, a.head_dim,
             model.dtype, self.device)}
+        if mesh is not None:
+            model.tensor_parallel(mesh, self.mesh_axis)  # refuses MoE
+            params = model.shard_params(params, mesh, self.mesh_axis)
         self.params = params
         self.B = serve.max_batch
         self.max_total = nb
@@ -181,7 +214,8 @@ class ServingEngine:
         self.prefetch_depth = int(serve.prefetch_depth)
         # "cuda": the hand-written kernel; "plain": its PyTorch version
         kernel = "cuda" if self.device.type == "cuda" else "plain"
-        self._metrics = EngineMetrics(backend=kernel)
+        self._metrics = EngineMetrics(
+            backend="sharded" if mesh is not None else kernel)
         # The kernels' tunables: an explicit value > 0 wins; with the
         # ragged kernel and any left at 0, the measured table for this
         # (block size, head dim, kernel) cell, counted tuned_resolved /
@@ -267,7 +301,9 @@ class ServingEngine:
         position: so every verify lane runs the single-lane (decode) tile
         on exactly the inputs the draftless engine's decode of that token
         has, and the greedy streams stay those of the draftless engine in
-        bf16 too.  Without drafts the arrays are the reference's."""
+        bf16 too.  Without drafts the arrays are the reference's; with a
+        mesh the BlockList arrays are the (S, M) per-shard local lists, as
+        the reference renders them."""
         alloc, B = self.alloc, self.B
         T = bucket_pow2(plan.num_tokens)
         reqs = list(plan.decode) + [req for req, _ in plan.prefill]
@@ -371,6 +407,12 @@ class ServingEngine:
         cu_kv = np.zeros((O + 1,), np.int32)
         cu_q[1:] = np.cumsum(q_lens)
         cu_kv[1:] = np.cumsum(kv_l)
+        if self.mesh is not None:
+            # the per-shard LOCAL lists (S, M) of the same owners: every
+            # rank attends against the row its pool shard serves
+            bl, br, bp = paged_kv.shard_block_lists(
+                [(owner, pages) for owner, _, _, pages in owners],
+                alloc.num_shards, alloc.blocks_per_shard, pad_req=O)
         lists = {
             "block_list": bl, "block_req": br, "block_pos": bp,
             "kv_lens": kv_lens, "token_req": token_req,
@@ -492,8 +534,16 @@ class ServingEngine:
         if copies:
             srcs = np.asarray([s for s, _ in copies], np.int64)
             dsts = np.asarray([d for _, d in copies], np.int64)
+            if self.mesh is not None:
+                per = self.alloc.blocks_per_shard
+                self.cow_moves += int(np.sum(srcs // per != dsts // per))
             for p in self.pools.values():
-                copy_pool_blocks(p, srcs, dsts)
+                if self.mesh is not None:
+                    paged_kv.copy_pool_blocks_sharded(
+                        p, srcs, dsts, self.mesh,
+                        self.alloc.blocks_per_shard, self.mesh_axis)
+                else:
+                    copy_pool_blocks(p, srcs, dsts)
 
     def _drain_tier(self) -> None:
         """Apply the queued host-tier traffic to the device pool, in order.
@@ -520,17 +570,36 @@ class ServingEngine:
         self._drain_tier()
         self._drain_cow()
 
+    def _rank_lists(self, lists_np, num_lanes: int):
+        """This rank's view of rendered lists: its row of the sharded
+        BlockList, and in place of ``slots`` the lanes whose block it
+        holds (``own_lanes``) at their local slots (``own_slots``)."""
+        r, per = self.rank, self.alloc.blocks_per_shard
+        out = dict(lists_np)
+        for k in ("block_list", "block_req", "block_pos"):
+            out[k] = np.ascontiguousarray(lists_np[k][r])
+        slots = out.pop("slots")[:num_lanes]
+        own = np.nonzero(slots[:, 0] // per == r)[0].astype(np.int32)
+        out["own_lanes"] = own
+        out["own_slots"] = paged_kv.local_slots(slots[own], r, per)
+        return out
+
     def _forward(self, plan: StepPlan, lists_np, tokens: torch.Tensor,
                  tag: str = "step"):
         """Upload the rendered lists and run the fused forward (``tag``
         names the dispatch to the retrace guard)."""
+        mesh_kw = {}
+        sig = lists_np
+        if self.mesh is not None:
+            lists_np = self._rank_lists(lists_np, plan.num_tokens)
+            mesh_kw = dict(mesh=self.mesh, axis=self.mesh_axis)
         lists = {k: self._upload(v) for k, v in lists_np.items()}
-        with self._expect_cached(tag, lists_np, tokens):
+        with self._expect_cached(tag, sig, tokens):
             logits, self.pools = self.model.decode_tokens_paged(
                 self.params, self.pools, lists, tokens,
                 num_lanes=plan.num_tokens, attn_impl=self.attn_impl,
                 q_chunk=self.q_chunk, prefetch_depth=self.prefetch_depth,
-                attn_tunables=self.attn_tunables)
+                attn_tunables=self.attn_tunables, **mesh_kw)
         return logits
 
     def _build(self, plan: StepPlan, t0: float, t1: float) -> _PendingStep:
@@ -784,7 +853,11 @@ class ServingEngine:
         m = self._metrics.summary()
         hits, misses = self.alloc.prefix_hits, self.alloc.prefix_misses
         m.update({
-            "devices": 1,
+            # the mesh the steps ran on (axis name -> size; None on one
+            # device) and its rank count
+            "mesh_shape": (dict(self.mesh.shape) if self.mesh is not None
+                           else None),
+            "devices": self.mesh.devices if self.mesh is not None else 1,
             "overlap": self.overlap,
             "prefetch_depth": self.prefetch_depth,
             "q_chunk": self.q_chunk,

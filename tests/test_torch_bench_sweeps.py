@@ -2,9 +2,9 @@
 CPU, with stub modules for speed: a typo'd triple or proposer exits
 before any module runs, only the policy- and proposer-sensitive modules
 repeat, every JSON row carries the resolved triple, proposer and
-``sanitize`` stamps with the schema version and commit, ``--backend`` and
-``--devices`` are refused, and a CPU ``recsys_e2e`` row has no energy
-reading."""
+``sanitize`` stamps with the schema version and commit, ``--backend`` is
+refused and ``--devices`` refuses a malformed count, and a CPU
+``recsys_e2e`` row has no energy reading."""
 import json
 
 import pytest
@@ -79,10 +79,16 @@ def test_only_sensitive_modules_repeat_and_rows_are_stamped(
 
 @pytest.mark.parametrize("flag", ["--backend", "--devices"])
 def test_refused_flags(calls, flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        harness.main(["--device", "cpu", f"{flag}=1,2"])
-    with pytest.raises(SystemExit, match=harness.REFUSED[flag][:20]):
-        harness.main(["--device", "cpu", flag, "ref"])
+    if flag in harness.REFUSED:
+        with pytest.raises(SystemExit, match="not ported"):
+            harness.main(["--device", "cpu", f"{flag}=1,2"])
+        with pytest.raises(SystemExit, match=harness.REFUSED[flag][:20]):
+            harness.main(["--device", "cpu", flag, "ref"])
+    else:       # --devices runs rank counts: only a bad count is refused
+        with pytest.raises(SystemExit, match="not a device count"):
+            harness.main(["--device", "cpu", flag, "ref"])
+        with pytest.raises(SystemExit, match="counts are >= 1"):
+            harness.main(["--device", "cpu", f"{flag}=1,0"])
     assert calls == []
 
 

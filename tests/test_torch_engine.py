@@ -162,11 +162,14 @@ def test_filter_logits_matches_jax_and_samples_stay_in_support():
         assert np.all(np.isfinite(want[np.arange(5), tok]))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(devices=2)])
-def test_engine_refuses_what_the_port_leaves_out(models, kw):
+@pytest.mark.parametrize("kw,error", [
+    (dict(mesh=object()), TypeError),           # not a launch.mesh.Mesh
+    (dict(devices=2), ValueError),              # no process group of 2
+])
+def test_engine_refuses_what_the_port_leaves_out(models, kw, error):
     _, (cfg_t, model_t, params_t) = models
     ctor = {k: kw.pop(k) for k in ("mesh", "role") if k in kw}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         tengine.ServingEngine(model_t, params_t, cfg_t,
                               ServeConfig(model=cfg_t.name, **kw),
                               num_blocks=8, device="cpu", **ctor)

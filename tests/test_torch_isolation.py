@@ -89,10 +89,37 @@ import repro_torch.configs.whisper_tiny, repro_torch.configs.internvl2_26b
 import repro_torch.bench.llm_e2e, repro_torch.bench.saturation
 import repro_torch.bench.energy, repro_torch.launch.dryrun
 import repro_torch.roofline.model_flops, repro_torch.configs
+import repro_torch.distributed.collectives, repro_torch.distributed.sharding
+import repro_torch.launch.mesh, repro_torch.bench.collectives
+import repro_torch.bench.sharded
 assert not any(m.split(".")[0] in ("jax", "repro", "benchmarks")
                for m in sys.modules)
 print("ok")
 """
+
+
+_MESH_BLOCKER = _BLOCKER.split("import repro_torch.serving.engine")[0] + """
+import repro_torch.distributed.collectives, repro_torch.distributed.sharding
+import repro_torch.launch.mesh, repro_torch.bench.collectives
+import repro_torch.bench.sharded
+assert not any(m.split(".")[0] in ("jax", "repro", "benchmarks")
+               for m in sys.modules)
+print("ok")
+"""
+
+
+def test_mesh_modules_import_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _MESH_BLOCKER],
+                       capture_output=True, text=True, timeout=120, env=env)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    files = [PORT / "launch" / "mesh.py", PORT / "bench" / "collectives.py",
+             PORT / "bench" / "sharded.py",
+             *sorted((PORT / "distributed").glob("*.py"))]
+    assert all(f.exists() for f in files)
+    assert [(f.name, n) for f in files for n in _imports(f)
+            if n.split(".")[0] in ("jax", "jaxlib", "repro",
+                                   "benchmarks")] == []
 
 
 def test_port_imports_with_jax_blocked():

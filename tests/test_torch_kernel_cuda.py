@@ -38,7 +38,10 @@ ragged give the same bits, each meets its plain version's tolerance and,
 in bfloat16, the per-element limit that outputs under 0.25 moved by 8
 ulps fail; a lane's bits do not depend on its neighbours in the launch,
 two calls give the same bits (the splits combine in split order, not in
-arrival order), and the ops add no host sync.
+arrival order), and the ops add no host sync.  With ``with_stats`` the
+three paged kernels' ``(m, l)`` lie within 2e-5 of max(1, |value|) of the
+plain partials and their output keeps its bits; B4's row window gives its
+plain version's bits, and a table's windows sum to the whole lookup.
 """
 import os
 import shutil
@@ -115,6 +118,42 @@ def test_kernel_matches_plain_version(card, shape, case, dtype, atol):
         assert api.ragged_bf16_share(got, *args) <= 1
     pad_from = int(c["cu_q_lens"][-1])
     assert torch.all(got[pad_from:] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,case", CASES)
+def test_stats_leave_the_output_bit_for_bit(card, shape, case, dtype):
+    """``with_stats``: the ragged and chunked kernels' (m, l) within 2e-5
+    of max(1, |value|) of the plain partials on float32 q and K, and the
+    output the same bits as without them."""
+    c = ragged_case(np.random.default_rng(0), **dict(shape, **case))
+    args = _args(c, dtype, card)
+    fargs = [a.float() if a.is_floating_point() else a for a in args]
+    _, pm, pl = api.paged_attention_ragged_stats(*fargs)
+    tr, tp, kl = api.ragged_lane_metadata(args[5], args[6], args[7],
+                                          args[0].shape[0], args[7].shape[0])
+    pk, pv = fused_kv_views(args[1])
+    for op, a in ((api.paged_attention_ragged_op, args),
+                  (api.paged_attention_chunked_op,
+                   (args[0], pk, pv, *args[2:5], kl, tr, tp))):
+        out, m, l = op(*a, with_stats=True)
+        assert torch.equal(out, op(*a))
+        assert ((m - pm).abs() / pm.abs().clamp_min(1)).max() <= 2e-5
+        assert ((l - pl).abs() / pl.clamp_min(1)).max() <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_stats_leave_the_output_bit_for_bit(card, dtype):
+    c = decode_case(np.random.default_rng(0),
+                    **dict(LONG_WIDTHS["fig17"], **LONG_DECODE))
+    args = [torch.from_numpy(c[k]).to(card) for k in DECODE_ARG_ORDER]
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    out, m, l = api.paged_attention_op(*args, with_stats=True)
+    assert torch.equal(out, api.paged_attention_op(*args))
+    _, pm, pl = api.paged_attention_opt_stats(
+        *[a.float() if a.is_floating_point() else a for a in args])
+    assert ((m - pm).abs() / pm.abs().clamp_min(1)).max() <= 2e-5
+    assert ((l - pl).abs() / pl.clamp_min(1)).max() <= 2e-5
 
 
 def test_kernel_refuses_bad_inputs(card):
@@ -481,6 +520,27 @@ def test_embedding_kernel_matches_plain_version(card, case, dtype, atol):
     assert got.dtype == dtype and got.shape == (*idx.shape[:2], tbl.shape[1])
     want = emb_api.batched_table_lookup(tbl, offs, idx)
     assert _emb_err(got, want) <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_window_kernel_matches_plain_version(card, dtype):
+    """The row window: its plain version's bits (both sum in float32 in
+    the order of the bag, a miss adding 0), one launch a call, and the
+    windows of a table summing to the whole lookup."""
+    tbl, offs, idx = _emb_inputs(card, 500, 64, 32, 4, 6, torch.float32)
+    lo, hi = 600, 1400
+    win = tbl[lo:hi].to(dtype).contiguous()
+    before = emb_api.embedding_bag_window.launches
+    got = emb_api.embedding_bag_window(win, offs, idx, lo, hi)
+    torch.cuda.synchronize()
+    assert emb_api.embedding_bag_window.launches == before + 1
+    want = emb_api.batched_table_window_lookup(win, offs, idx, lo, hi)
+    assert torch.equal(got, want)
+    parts = sum(emb_api.embedding_bag_window(tbl[a:a + 500].contiguous(),
+                                             offs, idx, a, a + 500)
+                for a in range(0, 2000, 500))
+    assert _emb_err(parts, emb_api.batched_table_lookup(tbl, offs,
+                                                        idx)) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype,atol", EMB_DTYPES)

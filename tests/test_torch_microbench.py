@@ -159,8 +159,10 @@ def test_run_harness_takes_the_quick_dlrm_sweep(capsys):
 
 
 def test_run_harness_refuses_unknown_modules():
-    with pytest.raises(SystemExit, match="collectives"):
-        run.main(["--device", "cpu", "--only", "collectives"])
+    # (collectives, the example here until it was ported, is a module now)
+    assert "collectives" in run.MODULES
+    with pytest.raises(SystemExit, match="no_such_module"):
+        run.main(["--device", "cpu", "--only", "no_such_module"])
 
 
 def test_microbench_entry_points_default_to_the_card(monkeypatch):

@@ -33,17 +33,46 @@ def test_launcher_trains_on_the_cpu(arch, capsys):
     assert summary["min_loss"] <= summary["final_loss"]
 
 
-def test_launcher_checkpoints_and_resumes(tmp_path, capsys):
+def _trainers(monkeypatch, every=None):
+    """The Trainers the launcher builds, recorded; ``every`` overrides
+    their checkpoint cadence."""
+    built = []
+    real = train.Trainer
+
+    def make(**kw):
+        t = real(**kw)
+        if every is not None:
+            t.checkpoint_every = every
+        built.append(t)
+        return t
+
+    monkeypatch.setattr(train, "Trainer", make)
+    return built
+
+
+def test_launcher_checkpoints_at_the_reference_cadence(tmp_path,
+                                                       monkeypatch):
+    built = _trainers(monkeypatch)
+    train.main(["--arch", "smollm-360m", "--steps", "1", "--ckpt-dir",
+                str(tmp_path), *SMALL])
+    assert [t.checkpoint_every for t in built] == [200]
+    assert built[0].ckpt is not None
+
+
+def test_launcher_checkpoints_and_resumes(tmp_path, capsys, monkeypatch):
+    # the round trip at a cadence of 4 steps (the launcher's is 200:
+    # the test above), so it trains 4 steps, not 200
+    _trainers(monkeypatch, every=4)
     ckpt = str(tmp_path / "ckpt")
     args = ["--arch", "smollm-360m", "--device", "cpu", "--reduced",
             "--batch", "2", "--seq", "16", "--ckpt-dir", ckpt]
-    train.main(["--steps", "200", *args])
-    assert (tmp_path / "ckpt" / "step_000000200" / "shard_h0.npz").exists()
-    assert (tmp_path / "ckpt" / "LATEST").read_text() == "200"
+    train.main(["--steps", "4", *args])
+    assert (tmp_path / "ckpt" / "step_000000004" / "shard_h0.npz").exists()
+    assert (tmp_path / "ckpt" / "LATEST").read_text() == "4"
     capsys.readouterr()
     summary = train.main(["--steps", "2", "--resume", *args])
     out = capsys.readouterr().out
-    assert "resumed from step 200" in out
+    assert "resumed from step 4" in out
     assert math.isfinite(summary["final_loss"])
 
 
