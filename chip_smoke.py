@@ -166,7 +166,8 @@ Phases, each of which raises on failure (the script catches none):
    which are held to the CPU run; ``repro_torch.perf.gate`` must pass
    against ``BENCH_009.json`` with those rows from the CPU run; the ragged
    kernel's launches must equal the forward steps x 2 layers;
-26. the sweep at full width: phase 5's smollm-360m (32 layers, bf16,
+26. the sweep at full width: phase 5's smollm-360m (8 of its 32 layers,
+   ``SMOLLM_CUT_LAYERS``, bf16,
    seeded weights) through the four scenarios x seven configurations and
    ``draft-model`` on ``mixed``: per row the counters, wall ms, TTFT p50 /
    p99 on the replay's virtual clock (the arrivals are virtual), TPOT p50
@@ -174,7 +175,7 @@ Phases, each of which raises on failure (the script catches none):
    ``ngram``, ``overlap`` and ``draft-model`` rows' greedy streams must
    equal their ``fcfs`` twin's, the ``auto`` asserts of the reference
    hold, every pool drains with the allocator's invariants intact, and
-   the ragged kernel's launches equal the forward steps x 32;
+   the ragged kernel's launches equal the forward steps x layers;
 27. (a) phase 5's 16 requests with ``overlap=True``: the build half of
    every step runs under ``torch.cuda.set_sync_debug_mode("error")`` (a
    call that waits for the card fails the phase), the greedy streams must
@@ -190,11 +191,12 @@ Phases, each of which raises on failure (the script catches none):
    reference renders them (a drafted request one owner of 1 + k lanes, on
    the tensor-core tile): its time, bounds and its largest difference
    from the per-lane output;
-28. the paper's LLM, llama31-8b, at full width (32 layers, H 32, KV 8,
-   hd 128, bf16, seeded weights on the card; the earlier phases' models
-   freed first, the peak device memory after the weights printed): (a)
-   phase 5's 16 requests through the ragged kernel (B1): launches steps x
-   32, invariants, the pool drains; TTFT / TPOT p50 / p99, tok/s, steps
+28. the paper's LLM, llama31-8b, at full width (H 32, KV 8, hd 128, 8 of
+   its 32 layers (``LLAMA_LAYERS``; also in phases 29-30
+   and 42-43; 47b keeps all 32), bf16, seeded weights on the card; the earlier phases'
+   models freed first, the peak device memory after the weights printed):
+   (a) phase 5's 16 requests through the ragged kernel (B1): launches
+   steps x layers, invariants, the pool drains; TTFT / TPOT p50 / p99, tok/s, steps
    by kind; layer 0's inputs of a mixed and a decode-only step held to
    the plain version (phase 3's bf16 limit) and timed beside both bounds,
    as phase 6; phase 7's profile of three decode-only steps (busy share,
@@ -276,7 +278,8 @@ Phases, each of which raises on failure (the script catches none):
    card and the CPU, 5 steps of ``make_train_step`` (AdamW,
    ``cosine_warmup``, TF32 off): per step loss rtol 1e-4, grad_norm rtol
    1e-3, lr rtol 1e-6; the parameters after the last step atol 2e-4;
-37. LM training at full width: smollm-360m in float32 (32 layers, d 960,
+37. LM training at full width: smollm-360m in float32 (8 of its 32
+   layers, ``SMOLLM_CUT_LAYERS``; d 960,
    remat ``full``) through the launcher's pieces (``Trainer``,
    ``DataPipeline``, ``CheckpointManager``), batch 8 x 256, 10 steps,
    a checkpoint at step 5; a fresh ``Trainer`` (another seed) restores
@@ -382,9 +385,46 @@ Phases, each of which raises on failure (the script catches none):
    (``repro_torch.bench.collectives``) on 2 ranks: every primitive's time
    labelled "gloo, 2 ranks on one card" (host-staged: no NVLink number),
    none refused.
+48. the training half on gloo ranks that share the card, float32 with
+   TF32 off unless said: (a) smollm-360m at full width (8 of its 32
+   layers), 3 steps of
+   ``jit_train_step`` on a (data 2, model 2) mesh (FSDP over data, the
+   SwiGLU and the vocabulary over model; each rank drawing its shards of
+   seed 0's weights) on phase 37's 8 x 256 batches, each step's loss and
+   grad_norm on every rank against one device's ``make_train_step`` on the
+   same weights and batches, and each rank's shards after step 3 against
+   the same slices of the one-device params; (b) granite-moe-1b-a400m the
+   same (all 24 layers) with
+   ``shard_moe=True, moe_groups=2`` (its experts split over model)
+   against one device at ``moe_groups=2``, at the same limits; one MoE
+   layer at full width with ``moe_groups=4`` (two groups a data row, so
+   the experts' tokens move by all-to-all), forward and backward against
+   one device at ``moe_groups=4``; then phase 5's requests
+   on 2 ranks through B1 in bf16, the greedy streams held to one device by
+   phase 30's rule; (c) rm2 at phase 10's size row-sharded over 2 ranks at
+   B 4096 (phase 38's setup): the rank's gradient shards of batch 0
+   against one rank's whole gradient (its rows kept), the MLP and cross
+   leaves against a float64 gradient (the top MLP's last layer, past every
+   ReLU, within 1e-5 of a leaf's largest value, the others within 1e-2: a
+   ReLU input within float32's rounding of 0 takes the other side and
+   moves them by one sample's term) beside a TF32 control that must fail
+   both, the ReLU units that part counted, the window backward's
+   captured call against its plain version (atol 1e-5), its time (one rank
+   at a time) beside its byte bound, its plain version and
+   ``F.embedding_bag``'s backward on the window, then 3 training steps,
+   B4's window forward and backward launched once a step each; (d)
+   smollm-360m's 32 layers as 4 pipeline stages of 8, one rank each, 8
+   microbatches of 2 x 256 through ``pipeline_forward``, held to the
+   unpipelined forward, ``bubble_fraction(4, 8)`` printed, a stage shift
+   timed (staged through pinned host memory: gloo's send / recv take host
+   tensors only); (e) ``compressed_psum_tree`` over smollm-360m's whole
+   gradient tree on 4 ranks: the int32 sums exact (an int64 SUM and a
+   gathered sample), each leaf within half the int8 scale of the f32 mean,
+   the wire bytes against f32's.
 
 Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29, 30,
-34b-d, 37, 38, 40, 41, 42a-b, 43, 45, 46 and, on every rank, 47a-c) runs
+34b-d, 37, 38, 40, 41, 42a-b, 43, 45, 46 and, on every rank, 47a-c and
+48b-c) runs
 with every kernel's launch count set to 0 just before it and read just
 after.  The card's peaks come
 from ``repro_torch.roofline.analysis.HW``.
@@ -395,20 +435,23 @@ records say so in ``tile`` and carry the mixed and decode steps' times,
 steps and launches (at llama31-8b's width too, under ``llama31_8b``).
 Phases 28-30's readings are one JSON line with the card's name and power
 limit, phases 31-34's another, phases 35-38's a third, phases
-39-41's a fourth, phases 42-46's a fifth and phase 47's a sixth.  The line
-before the last is the kernels' JSON record (the seven kernels and B4's
-backward); the last line is
+39-41's a fourth, phases 42-46's a fifth, phase 47's a sixth and phase
+48's a seventh.  The line before the last is the kernels' JSON record (the
+seven kernels, B4's backward and the backward's row window); the last line
+is
 ``{"ok": true, "device": {...}}``.  Without a card the script exits
 nonzero before printing either.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
 import re
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -464,6 +507,19 @@ DECODE_TILE = ("the decode tile: one block per (split of "
 EMB_BATCH = 4096
 TRAIN_STEPS = 10                   # phases 37-38
 LM_BATCH, LM_SEQ = 8, 256          # phase 37's batches
+# llama31-8b in phases 28-30 and 42-43, smollm-360m in 26, 37 and 48a:
+# their full width at a cut depth, so that the whole script keeps within
+# its time limit (the kernels run per layer, so a layer's numbers do not
+# move)
+LLAMA_LAYERS = 8
+SMOLLM_CUT_LAYERS = 8      # smollm-360m in phases 26, 37 and 48a
+
+
+def llama_config(cfg_mod):
+    """llama31-8b at its full width, LLAMA_LAYERS of its 32 layers."""
+    return dataclasses.replace(cfg_mod.get_config("llama31-8b"),
+                               num_layers=LLAMA_LAYERS)
+
 SERVE_BLOCKS, SERVE_BS, SERVE_BATCH, SERVE_NEW = 4096, 16, 16, 32
 STREAM_N = (128 * 16384, 2 ** 28)    # the reference's full n; 1 GiB f32
 STREAM_BLOCK_ROWS = (8, 64, 256, 1024)
@@ -1327,7 +1383,8 @@ def main() -> int:
     # the launch counts, held here: a Capture replaces a module attribute
     counted = (api.paged_attention_ragged_op, api.paged_attention_chunked_op,
                api.paged_attention_op, emb_api.embedding_bag,
-               emb_api.embedding_bag_backward, *stream_ops.OPS,
+               emb_api.embedding_bag_backward,
+               emb_api.embedding_bag_backward_window, *stream_ops.OPS,
                *gs_ops.OPS, flash_attention)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1655,12 +1712,17 @@ def main() -> int:
     log(f"  phase 25: {time.perf_counter() - t25:.1f} s")
 
     # 26. the sweep at full width ---------------------------------------------
-    log("== 26. trace replay at full width: smollm-360m (32 layers, bf16), "
-        "4 scenarios x 7 configurations + draft-model on mixed")
+    log(f"== 26. trace replay at full width: smollm-360m ({SMOLLM_CUT_LAYERS} "
+        "of its 32 layers, bf16), 4 scenarios x 7 configurations + "
+        "draft-model on mixed")
     t26 = time.perf_counter()
+    cfg26 = dataclasses.replace(cfg, num_layers=SMOLLM_CUT_LAYERS)
+    model26 = build_model(cfg26, device=dev)
+    replay = replay_sweep(torch, counted, model26, model26.init(seed=0),
+                          cfg26, dev, card)
+    del model26
     model = build_model(cfg, device=dev)
     params = model.init(seed=0)
-    replay = replay_sweep(torch, counted, model, params, cfg, dev, card)
     log(f"  phase 26: {time.perf_counter() - t26:.1f} s")
 
     # 27. the overlapped loop and the verify step at full width --------------
@@ -1700,7 +1762,8 @@ def main() -> int:
     del verify_in
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"== 28. llama31-8b at full width (32 layers, bf16, seeded weights); "
+    log(f"== 28. llama31-8b at full width ({LLAMA_LAYERS} of its 32 layers, "
+        f"bf16, seeded weights); "
         f"device memory held before it "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t28 = time.perf_counter()
@@ -1830,7 +1893,7 @@ def main() -> int:
     t42 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    model8 = build_model(cfg_mod.get_config("llama31-8b"), device=dev)
+    model8 = build_model(llama_config(cfg_mod), device=dev)
     params8 = model8.init(seed=0)
     e2e = llm_e2e_phase(torch, cfg_mod, build_model, api, counted, model8,
                         params8, dev, card)
@@ -1891,6 +1954,44 @@ def main() -> int:
         f"{time.perf_counter() - t47:.1f} s")
     log(json.dumps({"mesh": mesh47, "card": card}, default=str))
     llama_ranks = mesh47["llama31_8b"]["ranks"]
+
+    # 48. the training half on a mesh of gloo ranks on the one card -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t48 = time.perf_counter()
+    log(f"== 48a. smollm-360m f32 at full width, {MESH_STEPS} steps of "
+        f"jit_train_step on a {TRAIN_MESH} (data, model) mesh against one "
+        "device")
+    mesh48 = {"smollm_360m": mesh_training(
+        torch, "smollm-360m", (), card, "48a smollm-360m",
+        (("num_layers", SMOLLM_CUT_LAYERS),))}
+    log(f"  phase 48a: {time.perf_counter() - t48:.1f} s")
+    log("== 48b. granite-moe-1b-a400m: trained expert-parallel on "
+        f"{TRAIN_MESH}, then served on {SHARDED_RANKS} ranks through B1")
+    t48b = time.perf_counter()
+    mesh48["granite_moe"] = moe_mesh_phase(torch, cfg_mod, engine_mod,
+                                           build_model, prompts, dev, card)
+    log(f"  phase 48b: {time.perf_counter() - t48b:.1f} s")
+    log(f"== 48c. rm2 at 20 x 1 M rows, f32, B={EMB_BATCH}, row-sharded "
+        f"over {SHARDED_RANKS} ranks: the window backward, {MESH_STEPS} "
+        "training steps")
+    t48c = time.perf_counter()
+    mesh48["rm2"] = rm2_train_phase(card)
+    log(f"  phase 48c: {time.perf_counter() - t48c:.1f} s")
+    log(f"== 48d. smollm-360m f32 as {PIPE_STAGES} pipeline stages, "
+        f"{PIPE_MICRO} microbatches of {PIPE_MB} x {LM_SEQ}")
+    t48d = time.perf_counter()
+    mesh48["pipeline"] = pipeline_phase(torch, cfg_mod, build_model, dev,
+                                        card)
+    log(f"  phase 48d: {time.perf_counter() - t48d:.1f} s")
+    log(f"== 48e. compressed_psum_tree over smollm-360m's gradient tree on "
+        f"{COMP_RANKS} ranks")
+    t48e = time.perf_counter()
+    mesh48["compression"] = compression_phase(card)
+    log(f"  phase 48e: {time.perf_counter() - t48e:.1f} s; phase 48: "
+        f"{time.perf_counter() - t48:.1f} s")
+    log(json.dumps({"train_mesh": mesh48, "card": card}, default=str))
+    win48 = mesh48["rm2"]
 
     def sharded_of(key):
         """A paged kernel's phase-47b record: each rank's launches and its
@@ -1960,6 +2061,20 @@ def main() -> int:
                                       "bound_by", "library_ms")},
         "max_abs_err": bwd_err, "rm1": bwd["rm1"], "rm2": bwd["rm2"],
         "instances": bwd_inst}, {
+        "name": "batched_embedding_backward_window", "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{EMB_KERNEL}.cu",
+        "replaces": "src/repro/kernels/batched_embedding/kernel.py:41",
+        "gradient_of": "src/repro/core/embedding_api.py:58 (the row-sharded "
+                       "lookup; jax.grad, no TPU backward kernel)",
+        "launches": win48[0]["launches"]["batched_embedding_backward_window"],
+        "launches_by_rank": [rk["launches"][
+            "batched_embedding_backward_window"] for rk in win48],
+        **{k: win48[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+        "max_abs_err": max(rk["max_abs_err"] for rk in win48),
+        "ranks": [{k: rk[k] for k in ("rank", "rows", "ms", "plain_ms",
+                                      "bound_ms", "library_ms",
+                                      "max_abs_err")} for rk in win48]}, {
         "name": STREAM_KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{STREAM_KERNEL}.cu",
         "replaces": "src/repro/kernels/stream/kernel.py:34",
@@ -2080,12 +2195,12 @@ def llama_kernel_steps(torch, np, api, capture, attn_impl, card,
 
 def llama_phase28(torch, np, cfg_mod, engine_mod, api, counted, build_model,
                   prompts, phase5, phase16_ms, dev, card):
-    """Phases 28a-c: llama31-8b at full width (32 layers, bf16, seeded
-    weights) through the ragged kernel, the chunked kernel and the paper
-    path.  Returns (the phase's readings, model, params, the ragged
+    """Phases 28a-c: llama31-8b at full width (LLAMA_LAYERS layers, bf16,
+    seeded weights) through the ragged kernel, the chunked kernel and the
+    paper path.  Returns (the phase's readings, model, params, the ragged
     kernel's layer-0 inputs and keywords of 28a's decode-only and mixed
     steps)."""
-    cfg = cfg_mod.get_config("llama31-8b")
+    cfg = llama_config(cfg_mod)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev)
@@ -4249,8 +4364,8 @@ def training_reference_check(torch, cfg_mod, build_model, dev):
 
 
 def lm_training(torch, cfg_mod, build_model, counted, dev, card):
-    """Phase 37: smollm-360m at full width in float32 (32 layers, d 960,
-    remat ``full``) through the launcher's pieces (``launch/train.py``):
+    """Phase 37: smollm-360m at full width in float32 (SMOLLM_CUT_LAYERS
+    layers, d 960, remat ``full``) through the launcher's pieces (``launch/train.py``):
     AdamW, ``cosine_warmup(3e-4, 1, 10)``, ``SyntheticLMDataset`` batches
     of 8 x 256 through ``DataPipeline``, ``Trainer`` and a
     ``CheckpointManager`` that saves step 5.  A fresh trainer (other seed)
@@ -4269,7 +4384,7 @@ def lm_training(torch, cfg_mod, build_model, counted, dev, card):
     from repro_torch.training.trainer import Trainer
 
     cfg = dataclasses.replace(cfg_mod.get_config("smollm-360m"),
-                              dtype="float32")
+                              dtype="float32", num_layers=SMOLLM_CUT_LAYERS)
     model = build_model(cfg, device=dev, remat="full")
     opt = adamw()
     step = make_train_step(model, opt, cosine_warmup(
@@ -5564,21 +5679,11 @@ def llama_rank_job(prompts, impls, paper):
     return out
 
 
-def llama_sharded_phase(torch, np, cfg_mod, engine_mod, build_model, api,
-                        prompts, dev, card):
-    """Phase 47b: the single-device runs on phase 28a's weights (streams
-    and every sampled token's top-2 logits), then two meshes of 2 ranks at
-    once (:func:`llama_rank_job`: B1 and the paper path on one, B2 on the
-    other; four processes share the card), held to them by phase 30's
-    rule."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from repro_torch.launch.mesh import run_ranks
-
-    cfg = cfg_mod.get_config("llama31-8b")
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=dev)
-    params = model.init(seed=0)
+def serve_with_gaps(torch, cfg_mod, engine_mod, model, params, cfg, prompts,
+                    dev):
+    """Phase 5's requests through B1 on one device (a pool of
+    SHARDED_BLOCKS), with the top two logits of every sampled token:
+    (streams, {(req_id, token): top-2}, metrics, wall seconds)."""
     sampling = engine_mod.sampling_lib
     sample = sampling.sample_batched
     last, gaps = {}, {}
@@ -5609,8 +5714,28 @@ def llama_sharded_phase(torch, np, cfg_mod, engine_mod, build_model, api,
     finally:
         sampling.sample_batched = sample
     streams = {r.req_id: list(r.output) for r in eng.finished}
-    m1 = eng.metrics()
+    metrics = eng.metrics()
     del eng, build, build_and_record        # the bound method holds eng
+    return streams, gaps, metrics, wall
+
+
+def llama_sharded_phase(torch, np, cfg_mod, engine_mod, build_model, api,
+                        prompts, dev, card):
+    """Phase 47b: the single-device runs on phase 28a's weights (streams
+    and every sampled token's top-2 logits), then two meshes of 2 ranks at
+    once (:func:`llama_rank_job`: B1 and the paper path on one, B2 on the
+    other; four processes share the card), held to them by phase 30's
+    rule."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = cfg_mod.get_config("llama31-8b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    streams, gaps, m1, wall = serve_with_gaps(
+        torch, cfg_mod, engine_mod, model, params, cfg, prompts, dev)
     p_toks, p_gaps, _, p_ms = paper_steps(torch, np, api.paged_attention_op,
                                           model, params, cfg, dev)
     log(f"  one device: {m1['steps']} steps, wall {wall:.2f}s, "
@@ -5798,6 +5923,756 @@ def collectives_phase(card):
         raise AssertionError(f"47d: refused {refused}, timed {len(timed)}")
     return [{k: r[k] for k in ("name", "us", "derived", "backend", "ranks",
                                "ranks_per_card")} for r in timed]
+
+
+# ---------------------------------------------------------------- phase 48
+TRAIN_MESH = (2, 2)             # 48a / 48b's (data, model) mesh of 4 ranks
+MESH_STEPS = 3
+MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_PARAM_ATOL = 1e-5, 1e-4, 1e-4
+EP_GROUPS = 4                   # 48b's all-to-all check: 2 groups a data row
+EP_OUT_ATOL, EP_AUX_RTOL, EP_GRAD_RTOL = 1e-5, 1e-6, 1e-5
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 8, 2
+PIPE_RTOL = 1e-4                # of max(1, |value|): batch 2 against 16
+COMP_RANKS = 4
+COMP_SAMPLE = 4096              # positions a leaf gathered from every rank
+
+
+def f32_job(fn, *args):
+    """``fn(*args)`` on a rank with TF32 off (phase 48 runs in float32)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return fn(*args)
+
+
+def _paths(tree, prefix=()):
+    """(path, leaf) of a tree of dicts and lists, in ``repro_torch.tree``'s
+    order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def granite_mesh_config(cfg_mod):
+    """granite-moe-1b-a400m, its full width and depth (48b)."""
+    return cfg_mod.get_config("granite-moe-1b-a400m")
+
+
+def mesh_training(torch, arch, model_kw, card, what, overrides=()):
+    """48a / 48b's training half: MESH_STEPS steps of ``jit_train_step``
+    on TRAIN_MESH (each rank drawing its shards of seed 0's weights,
+    ``init(shard=)``) against ``make_train_step`` on one device from the
+    same weights and batches (phase 37's 8 x 256): each step's loss and
+    grad_norm on every rank, and each rank's shards after the last step
+    against the same slices of the one-device params: the loss and
+    grad_norm at MESH_LOSS_RTOL / MESH_NORM_RTOL, the shards within
+    MESH_PARAM_ATOL (the elements past it counted and printed)."""
+    import numpy as np
+
+    from repro_torch.bench import sharded_train as st
+    from repro_torch.config import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.mesh import run_ranks
+
+    vocab = get_config(arch).vocab_size
+    ds = SyntheticLMDataset(vocab, LM_SEQ, LM_BATCH)
+    spec = st.TrainSpec(arch, tuple(ds.batch_at(i) for i in range(MESH_STEPS)),
+                        reduced=False, model_kw=model_kw,
+                        overrides=overrides)
+    n = TRAIN_MESH[0] * TRAIN_MESH[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_48_") as tmp:
+        t0 = time.perf_counter()
+        single = f32_job(st.train_job, spec, None, "cuda", tmp)
+        t_single = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = run_ranks(f32_job, n, (st.train_job, spec, TRAIN_MESH,
+                                       "cuda", tmp), device="cuda",
+                          timeout=900.0)
+        t_mesh = time.perf_counter() - t1
+        full = torch.load(single["shards"], map_location="cpu")
+        _, model = st.build(spec, "cpu")
+        out = dict(one_device=single["metrics"], seconds_one=t_single,
+                   seconds_mesh=t_mesh, ranks=[])
+        for rk in ranks:
+            got = dict(_paths(torch.load(rk["shards"], map_location="cpu")))
+            exp = dict(_paths(st.expected_shard(model, full, rk["coords"],
+                                                TRAIN_MESH)))
+            dense, beyond, nel, far = 0.0, 0, 0, {}
+            for path, a in got.items():
+                b = exp[path]
+                if tuple(a.shape) != tuple(b.shape):
+                    raise AssertionError(f"{what} rank {rk['coords']} "
+                                         f"{path}: shard {tuple(a.shape)} "
+                                         f"!= {b.shape}")
+                d = np.abs(a.float().numpy() - b)
+                beyond += int((d > 1e-5).sum())
+                nel += d.size
+                if d.max() > MESH_PARAM_ATOL:
+                    far[path] = (float(d.max()),
+                                 int((d > MESH_PARAM_ATOL).sum()))
+                dense = max(dense, float(d.max()))
+            for i, (g, w) in enumerate(zip(rk["metrics"], single["metrics"])):
+                if (abs(g["loss"] - w["loss"]) > MESH_LOSS_RTOL * abs(w["loss"])
+                        or abs(g["grad_norm"] - w["grad_norm"])
+                        > MESH_NORM_RTOL * abs(w["grad_norm"])):
+                    raise AssertionError(f"{what} rank {rk['coords']} step "
+                                         f"{i + 1}: {g} against one "
+                                         f"device's {w}")
+            if dense > MESH_PARAM_ATOL:
+                raise AssertionError(f"{what} rank {rk['coords']}: params "
+                                     f"{dense:.2e} from one device's; past "
+                                     f"{MESH_PARAM_ATOL}: {far}")
+            out["ranks"].append(dict(coords=rk["coords"],
+                                     metrics=rk["metrics"],
+                                     param_max_abs_diff=dense,
+                                     params_beyond_1e5=beyond,
+                                     shard_elements=nel, leaves_past=far))
+            log(f"  {what} rank {rk['coords']}: losses "
+                + ", ".join(f"{m['loss']:.6f}" for m in rk["metrics"])
+                + " grad_norm "
+                + ", ".join(f"{m['grad_norm']:.6f}" for m in rk["metrics"])
+                + f"; shards after step {MESH_STEPS} within {dense:.2e} of "
+                f"one device's ({beyond} of {nel} elements past 1e-5; past "
+                f"{MESH_PARAM_ATOL}: {far}); step s "
+                + ", ".join(f"{m['step_s']:.2f}" for m in rk["metrics"])
+                + f"  [{card}]")
+    log(f"  {what} one device: losses "
+        + ", ".join(f"{m['loss']:.6f}" for m in single["metrics"])
+        + " grad_norm "
+        + ", ".join(f"{m['grad_norm']:.6f}" for m in single["metrics"])
+        + "; step s " + ", ".join(f"{m['step_s']:.2f}"
+                                  for m in single["metrics"])
+        + f" ({t_single:.1f}s); the mesh {t_mesh:.1f}s with its spawn (gloo "
+        f"through host memory, 4 ranks on one card)  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_all_to_all_check(card):
+    """48b's all-to-all check: one granite-moe-1b-a400m MoE layer at full
+    width (float32, seeded) on TRAIN_MESH at ``moe_groups`` EP_GROUPS, two
+    groups a data row, so each rank routes one and the experts' tokens
+    move by all-to-all (``moe.dispatch_counts`` must say so): phase 37's
+    8 x 256 tokens forward and the backward of ``sum(out * w) + aux``
+    against ``moe_apply`` of the whole layer and batch on one device at
+    the same groups (``sharded_train.moe_grads_job``): the output at
+    EP_OUT_ATOL, the aux loss at EP_AUX_RTOL, each shard's gradient within
+    EP_GRAD_RTOL of its leaf's largest value."""
+    from repro_torch.bench import sharded_train as st
+    from repro_torch.launch.mesh import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(f32_job, TRAIN_MESH[0] * TRAIN_MESH[1], (
+        st.moe_grads_job, "granite-moe-1b-a400m", False, (LM_BATCH, LM_SEQ),
+        TRAIN_MESH, EP_GROUPS, "cuda"), device="cuda", timeout=600.0)
+    seconds = time.perf_counter() - t0
+    for rk in ranks:
+        worst = max(rk["grad_errs"].values())
+        log(f"  48b all-to-all rank {rk['coords']}: moe_groups {EP_GROUPS}, "
+            f"layouts {rk['dispatch']}; output {rk['out_err']:.2e} from one "
+            f"device's, aux {rk['aux_rel']:.2e} of it, gradients within "
+            f"{worst:.2e} of each leaf's largest value "
+            + str({k: f"{v:.1e}" for k, v in rk["grad_errs"].items()})
+            + f"  [{card}]")
+        if (rk["dispatch"] != {"all_to_all": 1, "sum": 0}
+                or rk["out_err"] > EP_OUT_ATOL
+                or rk["aux_rel"] > EP_AUX_RTOL or worst > EP_GRAD_RTOL):
+            raise AssertionError(f"48b all-to-all rank {rk['coords']}: {rk}")
+    log(f"  48b all-to-all: {seconds:.1f}s with its spawn")
+    return dict(ranks=ranks, seconds=seconds)
+
+
+def moe_rank_job(prompts):
+    """48b's serving half on one rank: granite-moe-1b-a400m's shard of
+    seed 0's weights on the serving mesh, phase 5's requests through B1,
+    its experts split over the ranks."""
+    import torch
+
+    from repro_torch import config as cfg_mod
+    from repro_torch.core import attention_api as api
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import engine as engine_mod
+
+    dev = torch.device("cuda")
+    mesh = make_serving_mesh()
+    rank = mesh.axis_index("model")
+    cfg = granite_mesh_config(cfg_mod)
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0, shard=model.shard_fn(mesh))
+    serve = serve_config(cfg_mod, cfg, "ragged", kv_block_size=SERVE_BS,
+                         max_batch=SERVE_BATCH)
+    eng = engine_mod.ServingEngine(model, params, cfg, serve,
+                                   num_blocks=SHARDED_BLOCKS, device=dev,
+                                   mesh=mesh)
+    ops = (api.paged_attention_ragged_op, api.paged_attention_chunked_op,
+           api.paged_attention_op)
+    for op in ops:
+        op.launches = 0
+    wall = serve_phase5(engine_mod, eng, prompts, torch)
+    launches = [op.launches for op in ops]
+    m = eng.metrics()
+    eng.alloc.check_invariants(drained=True)
+    if launches != [m["steps"] * cfg.num_layers, 0, 0]:
+        raise AssertionError(f"rank {rank}: launches {launches}, "
+                             f"{m['steps']} steps")
+    return dict(rank=rank, streams={r.req_id: list(r.output)
+                                    for r in eng.finished},
+                launches=launches[0], steps=m["steps"], wall=wall,
+                tok_s=m["output_tokens"] / wall, backend=m["backend"],
+                devices=m["devices"], p50_tpot_s=m["p50_tpot_s"])
+
+
+def moe_mesh_phase(torch, cfg_mod, engine_mod, build_model, prompts, dev,
+                   card):
+    """48b: granite-moe trained on TRAIN_MESH with ``shard_moe=True,
+    moe_groups=2`` against one device at ``moe_groups=2``; then served on
+    2 ranks through B1 (bf16), held to one device by phase 30's rule."""
+    from repro_torch.launch.mesh import run_ranks
+
+    out = {"train": mesh_training(torch, "granite-moe-1b-a400m",
+                                  (("shard_moe", True), ("moe_groups", 2)),
+                                  card, "48b granite-moe"),
+           "all_to_all": moe_all_to_all_check(card)}
+    cfg = granite_mesh_config(cfg_mod)
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=0)
+    streams, gaps, m1, wall = serve_with_gaps(
+        torch, cfg_mod, engine_mod, model, params, cfg, prompts, dev)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(moe_rank_job, SHARDED_RANKS, (prompts,), device="cuda",
+                      timeout=900.0)
+    out["serve"] = dict(one_device=dict(steps=m1["steps"], wall=wall,
+                                        tok_s=m1["output_tokens"] / wall),
+                        seconds=time.perf_counter() - t0, ranks=[])
+    for rk in ranks:
+        parity = bf16_parity(rk.pop("streams"), streams, gaps,
+                             f"rank {rk['rank']}", "one device")
+        if (rk["backend"], rk["devices"]) != ("sharded", SHARDED_RANKS):
+            raise AssertionError(f"48b rank {rk['rank']}: {rk}")
+        rk["parity"] = parity
+        out["serve"]["ranks"].append(rk)
+        log(f"  48b granite-moe serving rank {rk['rank']}: {rk['steps']} "
+            f"steps, B1 launches {rk['launches']} = steps x "
+            f"{cfg.num_layers}, {rk['tok_s']:.1f} tok/s (one device "
+            f"{m1['output_tokens'] / wall:.1f}), TPOT p50 "
+            f"{rk['p50_tpot_s'] * 1e3:.1f} ms; against one device: "
+            + "; ".join(f"{k} {v}" for k, v in parity.items()
+                        if v != "identical")
+            + f" ({sum(v == 'identical' for v in parity.values())} of "
+              f"{len(parity)} identical)  [{card}]")
+    if ranks[0]["parity"] != ranks[1]["parity"]:
+        raise AssertionError("48b: the ranks' streams differ")
+    return out
+
+
+# 48c: the MLP and cross leaves against a float64 gradient, of each leaf's
+# largest |value|.  A ReLU input within float32's rounding of 0 takes the
+# other side in float64 and moves these leaves by one sample's term
+# (~1e-3 of a leaf here, the CPU alike); the top MLP's last layer lies past
+# every ReLU and is held tight.  The TF32 control must fail both.
+DLRM_F64_RTOL, DLRM_LAST_RTOL = 1e-2, 1e-5
+
+
+class _ReluInputs:
+    """Records the input of every ``torch.relu`` of ``repro_torch.models.
+    dlrm`` while on (the module's ``torch`` replaced by a proxy)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import dlrm
+
+        self.torch, self.module, self.seen = torch, dlrm, []
+        recorder = self
+
+        class _Proxy:
+            def __getattr__(self, name):
+                return getattr(recorder.torch, name)
+
+            @staticmethod
+            def relu(x):
+                recorder.seen.append(x.detach())
+                return recorder.torch.relu(x)
+
+        self.proxy = _Proxy()
+
+    def __enter__(self):
+        self.seen = []
+        self.module.torch = self.proxy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.torch = self.torch
+
+
+def relu_flips(a, b):
+    """The ReLU units whose side differs between two recorded forwards, and
+    the largest |input| among them in ``b``."""
+    flips, near = 0, 0.0
+    for x, y in zip(a, b):
+        differ = (x > 0) != (y > 0)
+        if differ.any():
+            flips += int(differ.sum())
+            near = max(near, float(y[differ].abs().max()))
+    return flips, near
+
+
+def dense_grads_f64(torch, model, params, batch):
+    """DLRM's gradient of every MLP and cross leaf in float64 (the pooled
+    bags from the float32 lookup, then the dense part in float64): a tree
+    of ``params``'s shape without the table."""
+    with torch.no_grad():
+        pooled = model.embedding_lookup(params, batch["indices"]).double()
+    f64 = {k: [{n: t.double().requires_grad_(True) for n, t in l.items()}
+               for l in params[k]] for k in ("bottom", "cross", "top")}
+    model.embedding_lookup = lambda p, idx: pooled
+    try:
+        z = model.forward(f64, {"dense": batch["dense"].double(),
+                                "indices": batch["indices"]})
+    finally:
+        del model.embedding_lookup
+    y = batch["label"].double()
+    loss = torch.mean(torch.clamp_min(z, 0) - z * y
+                      + torch.log1p(torch.exp(-z.abs())))
+    leaves = [t for k in f64 for l in f64[k] for t in l.values()]
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return {k: [{n: next(grads) for n in l} for l in f64[k]] for k in f64}
+
+
+class _Captured:
+    """Keeps a clone of the first call's arguments and output of the
+    window backward (the op's own launch, so its count still counts)."""
+
+    def __init__(self, emb_api):
+        self.api, self.op, self.got = emb_api, \
+            emb_api.embedding_bag_backward_window, None
+        emb_api.embedding_bag_backward_window = self
+
+    def __call__(self, go, gids, lo, hi):
+        out = self.op(go, gids, lo, hi)
+        if self.got is None:
+            self.got = (go.clone(), gids.clone(), lo, hi, out.clone())
+        return out
+
+    def close(self):
+        self.api.embedding_bag_backward_window = self.op
+
+
+def rm2_train_rank_job():
+    """48c on one rank: rm2 at 1 M rows a table, float32, B = 4096 (phase
+    38's setup), its rows of the table over the ``model`` axis of a (1, 2)
+    mesh.  The one-rank gradient of batch 0 (the whole table, this rank's
+    rows kept), the mesh's gradient of the same batch against it (the
+    table's rows at atol 1e-5) and, for the MLP and cross leaves, against a
+    float64 gradient (:func:`dense_grads_f64`), beside one rank's float32
+    one and the TF32 control (one rank's with TF32 on; DLRM_F64_RTOL,
+    DLRM_LAST_RTOL), with the ReLU units whose side differs between one
+    rank's float32 forward and the float64 one; the window backward's
+    captured call against its plain version, its times (one rank at a
+    time), then MESH_STEPS steps of ``jit_train_step``."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import config as cfg_mod
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import embedding_api as emb_api
+    from repro_torch.data.pipeline import SyntheticRecSysDataset
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.training.train_step import (
+        TrainState, abstract_state, jit_train_step, loss_and_grads)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = make_smoke_mesh(1, 2)
+    r = mesh.axis_index("model")
+    cfg = cfg_mod.get_config("rm2")
+    model = build_model(cfg, device=dev)
+    ds = SyntheticRecSysDataset(cfg, EMB_BATCH)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in ds.batch_at(i).items()}
+               for i in range(MESH_STEPS)]
+    full = model.init(0)
+    relus = _ReluInputs(torch)
+    with relus:
+        one_loss, g_full = loss_and_grads(model.loss, full, batches[0])
+    f32_relus = relus.seen
+    want = model.shard_params(g_full, mesh)
+    del g_full
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = model.shard_params(
+            loss_and_grads(model.loss, full, batches[0])[1], mesh)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with relus:
+        ref64 = model.shard_params(
+            dense_grads_f64(torch, model, full, batches[0]), mesh)
+    flips, flip_near = relu_flips(f32_relus, relus.seen)
+    del f32_relus, relus
+    params = model.shard_params(full, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    R, D = params["embedding"].shape
+    lo, hi = r * R, (r + 1) * R
+    cap = _Captured(emb_api)
+    try:
+        loss, grads = loss_and_grads(functools.partial(model.loss, mesh=mesh),
+                                     params, batches[0])
+    finally:
+        cap.close()
+    got_p, want_p = dict(_paths(grads)), dict(_paths(want))
+    tf32_p = dict(_paths(tf32))
+    leaf_errs = {}
+    for path, r64 in _paths(ref64):
+        a, w, m = got_p[path].double(), want_p[path].double(), r64.abs().max()
+        leaf_errs[path] = dict(
+            mesh_vs_f64=float((a - r64).abs().max() / m),
+            one_vs_f64=float((w - r64).abs().max() / m),
+            mesh_vs_one=float((a - w).abs().max() / m),
+            tf32_vs_f64=float((tf32_p[path].double() - r64).abs().max() / m))
+    last = f"top/{len(params['top']) - 1}/"
+    past = [v for k, v in leaf_errs.items() if k.startswith(last)]
+    rows_err = float((grads["embedding"] - want["embedding"]).abs().max())
+    del grads, want, ref64, tf32, tf32_p
+    go, gids, _, _, got = cap.got
+    op = emb_api.embedding_bag_backward_window
+    plain = emb_api.batched_table_backward_window(go, gids, lo, hi)
+    kernel_err = float((got - plain).abs().max())
+    del got
+    local = gids.long() - lo
+    inside = (local >= 0) & (local < hi - lo)
+    L = cfg.gathers_per_table
+    bags = local.clamp(0, hi - lo - 1).view(-1, L)
+    weights = inside.float().view(-1, L)
+    weight = params["embedding"].detach().requires_grad_(True)
+    lib_out = F.embedding_bag(bags, weight, mode="sum",
+                              per_sample_weights=weights)
+    lib_err = float((torch.autograd.grad(
+        lib_out, [weight], go.view(-1, D), retain_graph=True)[0]
+        - plain).abs().max())
+    del plain
+    for turn in range(mesh.size("model")):  # one rank at a time times
+        if turn == r:
+            ms = kernel_ms(op, go, gids, lo, hi, device=dev)
+            plain_ms = device_ms(lambda: emb_api.batched_table_backward_window(
+                go, gids, lo, hi), device=dev, reps=5)
+            library_ms = device_ms(lambda: torch.autograd.grad(
+                lib_out, [weight], go.view(-1, D), retain_graph=True),
+                device=dev, reps=10)
+        collectives.barrier(mesh)
+    del lib_out, weight
+    distinct = torch.unique(gids.long()[inside]).numel()
+    nbytes = go.numel() * 4 + gids.numel() * 4 + 2 * distinct * D * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = int(inside.sum()) * D / PEAK_OPS["torch.float32"]
+    opt = adamw(weight_decay=0.0)
+    shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in batches[0].items()}
+    step = jit_train_step(model, opt, constant(1e-3), mesh,
+                          model.sharding_rules(mesh),
+                          abstract_state(model, opt), shapes)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    counted = (emb_api.embedding_bag, emb_api.embedding_bag_backward,
+               emb_api.embedding_bag_window,
+               emb_api.embedding_bag_backward_window)
+    for c in counted:
+        c.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = {c.name if hasattr(c, "name") else "batched_embedding":
+                c.launches for c in counted}
+    return dict(rank=r, rows=[lo, hi], one_rank_loss=float(one_loss),
+                mesh_loss=float(loss), leaf_errs=leaf_errs,
+                mesh_vs_f64=max(v["mesh_vs_f64"] for v in leaf_errs.values()),
+                one_vs_f64=max(v["one_vs_f64"] for v in leaf_errs.values()),
+                mesh_vs_one=max(v["mesh_vs_one"] for v in leaf_errs.values()),
+                tf32_vs_f64=max(v["tf32_vs_f64"] for v in leaf_errs.values()),
+                last_mesh_vs_f64=max(v["mesh_vs_f64"] for v in past),
+                last_tf32_vs_f64=max(v["tf32_vs_f64"] for v in past),
+                relu_flips=flips, relu_flip_near=flip_near,
+                rows_max_abs_err=rows_err, max_abs_err=kernel_err,
+                library_err=lib_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                distinct_rows=distinct, ids_inside=int(inside.sum()),
+                losses=losses, step_s=step_s, launches=launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def rm2_train_phase(card):
+    """48c: :func:`rm2_train_rank_job` on 2 ranks, held to its limits."""
+    from repro_torch.launch.mesh import run_ranks
+
+    ranks = run_ranks(rm2_train_rank_job, SHARDED_RANKS, (), device="cuda",
+                      timeout=900.0)
+    for rk in ranks:
+        log(f"  48c rank {rk['rank']} rows [{rk['rows'][0]}, "
+            f"{rk['rows'][1]}): loss {rk['mesh_loss']:.6f} (one rank "
+            f"{rk['one_rank_loss']:.6f}); table rows within "
+            f"{rk['rows_max_abs_err']:.2e} of one rank's gradient; the MLP and "
+            f"cross leaves, of each leaf's largest |value|: the mesh "
+            f"{rk['mesh_vs_f64']:.2e} and one rank {rk['one_vs_f64']:.2e} "
+            f"from a float64 gradient, {rk['mesh_vs_one']:.2e} apart, the "
+            f"TF32 control {rk['tf32_vs_f64']:.2e} (limit {DLRM_F64_RTOL}); "
+            f"one rank's float32 forward and the float64 one part at "
+            f"{rk['relu_flips']} ReLU unit(s), inputs up to "
+            f"{rk['relu_flip_near']:.1e}; the top MLP's last layer (past "
+            f"every ReLU): the mesh {rk['last_mesh_vs_f64']:.2e}, the TF32 control "
+            f"{rk['last_tf32_vs_f64']:.2e} (limit {DLRM_LAST_RTOL}); "
+            f"window backward against plain "
+            f"{rk['max_abs_err']:.2e} (F.embedding_bag backward "
+            f"{rk['library_err']:.2e}); kernel {rk['ms']:.4f} ms  plain "
+            f"{rk['plain_ms']:.4f} ms  F.embedding_bag backward "
+            f"{rk['library_ms']:.4f} ms  bound {rk['bound_ms']:.4f} ms "
+            f"({rk['distinct_rows']} distinct rows of {rk['ids_inside']} "
+            f"ids in the window) -> {rk['bound_ms'] / rk['ms']:.1%} of "
+            f"bound; {MESH_STEPS} steps: losses "
+            + ", ".join(f"{x:.6f}" for x in rk["losses"])
+            + ", step s " + ", ".join(f"{x:.2f}" for x in rk["step_s"])
+            + f"; launches {rk['launches']}; peak {rk['peak_gib']:.2f} GiB"
+            f"  [{card}]")
+        L = rk["launches"]
+        if (rk["max_abs_err"] > 1e-5 or rk["rows_max_abs_err"] > 1e-5
+                or rk["mesh_vs_f64"] > DLRM_F64_RTOL
+                or rk["last_mesh_vs_f64"] > DLRM_LAST_RTOL
+                or rk["tf32_vs_f64"] <= DLRM_F64_RTOL
+                or rk["last_tf32_vs_f64"] <= DLRM_LAST_RTOL
+                or rk["library_err"] > 1e-4
+                or abs(rk["mesh_loss"] - rk["one_rank_loss"]) > 1e-5
+                or L["batched_embedding_window"] != MESH_STEPS
+                or L["batched_embedding_backward_window"] != MESH_STEPS
+                or L["batched_embedding"] or L["batched_embedding_backward"]
+                or not all(x == x and abs(x) < 1e9 for x in rk["losses"])):
+            raise AssertionError(f"48c rank {rk['rank']}: {rk}")
+    return ranks
+
+
+def pipeline_rank_job():
+    """48d on one rank: stage s of smollm-360m (float32) holding layers
+    [8s, 8s + 8), MICRO microbatches of 2 x 256 embedded tokens through
+    ``pipeline_forward``; returns the outputs, the loop's seconds and one
+    stage shift's ms."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import config as cfg_mod
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.layers.embedding import embed
+    from repro_torch.models import stacking
+    from repro_torch.models.api import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = make_mesh((PIPE_STAGES,), ("pp",))
+    s = mesh.axis_index("pp")
+    cfg = dataclasses.replace(cfg_mod.get_config("smollm-360m"),
+                              dtype="float32")
+    model = build_model(cfg, device=dev, remat=False)
+    params = model.init(0)
+    per = cfg.num_layers // PIPE_STAGES
+    layers = stacking.unstack(params["layers"], cfg.num_layers)[
+        s * per:(s + 1) * per]
+    toks = torch.from_numpy(SyntheticLMDataset(
+        cfg.vocab_size, LM_SEQ, PIPE_MICRO * PIPE_MB).batch_at(0)[
+        "tokens"]).to(dev)
+    with torch.no_grad():
+        x = embed(params["embed"], toks).view(PIPE_MICRO, PIPE_MB, LM_SEQ, -1)
+        del params
+        positions = torch.arange(LM_SEQ, device=dev).expand(PIPE_MB, LM_SEQ)
+
+        def stage(lps, h):
+            for lp in lps:
+                h = model._block(lp, h, positions)[0]
+            return h
+
+        pipeline_forward(stage, layers, x, mesh=mesh, axis="pp",
+                         num_stages=PIPE_STAGES)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline_forward(stage, layers, x, mesh=mesh, axis="pp",
+                               num_stages=PIPE_STAGES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for _ in range(5):
+            collectives.shift(x[0], mesh, "pp")
+        torch.cuda.synchronize()
+        shift_ms = (time.perf_counter() - t1) / 5 * 1e3
+    return dict(stage=s, out=out.cpu().numpy(), seconds=seconds,
+                shift_ms=shift_ms)
+
+
+def pipeline_phase(torch, cfg_mod, build_model, dev, card):
+    """48d: :func:`pipeline_rank_job` on 4 ranks against the unpipelined
+    forward of the 32 layers on one device."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.distributed.pipeline import bubble_fraction
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.layers.embedding import embed
+    from repro_torch.models import stacking
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(cfg_mod.get_config("smollm-360m"),
+                              dtype="float32")
+    model = build_model(cfg, device=dev, remat=False)
+    params = model.init(0)
+    toks = torch.from_numpy(SyntheticLMDataset(
+        cfg.vocab_size, LM_SEQ, PIPE_MICRO * PIPE_MB).batch_at(0)[
+        "tokens"]).to(dev)
+    with torch.no_grad():
+        h = embed(params["embed"], toks)
+        positions = torch.arange(LM_SEQ, device=dev).expand(*toks.shape)
+        for lp in stacking.unstack(params["layers"], cfg.num_layers):
+            h = model._block(lp, h, positions)[0]
+    want = h.cpu().numpy().reshape(PIPE_MICRO, PIPE_MB, LM_SEQ, -1)
+    del params, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(pipeline_rank_job, PIPE_STAGES, (), device="cuda",
+                      timeout=600.0)
+    scale = np.maximum(1.0, np.abs(want))
+    errs = [float((np.abs(rk["out"] - want) / scale).max()) for rk in ranks]
+    bubble = bubble_fraction(PIPE_STAGES, PIPE_MICRO)
+    log(f"  48d: {PIPE_STAGES} stages x {cfg.num_layers // PIPE_STAGES} "
+        f"layers, {PIPE_MICRO} microbatches of {PIPE_MB} x {LM_SEQ}: every "
+        f"rank's output within {max(errs):.2e} of max(1, |value|) of the "
+        f"unpipelined forward; bubble_fraction({PIPE_STAGES}, {PIPE_MICRO}) "
+        f"= {bubble:.6f}; the loop "
+        + ", ".join(f"{rk['seconds']:.2f}" for rk in ranks)
+        + f" s by stage; one stage shift ({PIPE_MB} x {LM_SEQ} x "
+        f"{cfg.d_model} f32, staged through pinned host memory) "
+        + ", ".join(f"{rk['shift_ms']:.2f}" for rk in ranks)
+        + f" ms  [{card}]")
+    if max(errs) > PIPE_RTOL:
+        raise AssertionError(f"48d: pipeline output {errs} from the "
+                             "unpipelined forward")
+    return dict(bubble_fraction=bubble, max_rel_err=max(errs),
+                seconds=[rk["seconds"] for rk in ranks],
+                shift_ms=[rk["shift_ms"] for rk in ranks])
+
+
+def compression_rank_job():
+    """48e on one rank: smollm-360m's (float32) whole gradient tree of its
+    2 x 256 rows of phase 37's first batch through
+    ``compressed_psum_tree`` over 4 ranks; the int32 sums checked exactly
+    (an int64 SUM of every leaf's int8 values, and a gathered sample of
+    COMP_SAMPLE positions a leaf summed on the rank), each reduced leaf
+    against the float32 mean within the int8 bound (half the max scale)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import config as cfg_mod
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.distributed import collectives, compression
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training.train_step import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = make_mesh((COMP_RANKS,), ("x",))
+    r, n = mesh.axis_index("x"), COMP_RANKS
+    cfg = dataclasses.replace(cfg_mod.get_config("smollm-360m"),
+                              dtype="float32")
+    model = build_model(cfg, device=dev, remat=False)
+    params = model.init(0)
+    per = LM_BATCH // n
+    toks = SyntheticLMDataset(cfg.vocab_size, LM_SEQ, LM_BATCH).batch_at(0)[
+        "tokens"][r * per:(r + 1) * per]
+    _, grads = loss_and_grads(model.loss, params,
+                              {"tokens": torch.from_numpy(toks).to(dev)})
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reduced, resid = compression.compressed_psum_tree(
+        grads, compression.init_residuals(grads), mesh, "x")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    comps = tree_lib.leaves(grads)
+    qs, scales, summed = compression.quantized_sum(comps, mesh, "x")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    exact = sampled = True
+    bound_ratio, at = 0.0, 0
+    for c, q, s, red in zip(comps, qs, scales, tree_lib.leaves(reduced)):
+        part = summed[at:at + q.numel()]
+        at += q.numel()
+        wide = collectives.all_reduce(q.reshape(-1).to(torch.int64), mesh,
+                                      "x")
+        exact &= bool(torch.equal(wide, part.to(torch.int64)))
+        pos = torch.randint(0, q.numel(), (COMP_SAMPLE,), generator=gen,
+                            device=dev)
+        got = collectives.all_gather(q.reshape(-1)[pos].contiguous()[None],
+                                     mesh, "x", dim=0)
+        sampled &= bool(torch.equal(got.to(torch.int64).sum(0),
+                                    part[pos].to(torch.int64)))
+        mean = collectives.all_reduce(c.clone(), mesh, "x") / n
+        bound_ratio = max(bound_ratio, float(
+            (red - mean).abs().max() / (s / 2)))
+        del wide, mean
+    res_ratio = max(float(x.abs().max() / (s / 2))
+                    for x, s in zip(tree_lib.leaves(resid), scales))
+    return dict(rank=r, seconds=seconds, exact=exact, sampled_exact=sampled,
+                bound_ratio=bound_ratio, residual_ratio=res_ratio,
+                leaves=len(comps), elements=int(summed.numel()),
+                wire=compression.wire_bytes(grads))
+
+
+def compression_phase(card):
+    """48e: :func:`compression_rank_job` on 4 ranks, held to its limits."""
+    from repro_torch.launch.mesh import run_ranks
+
+    ranks = run_ranks(compression_rank_job, COMP_RANKS, (), device="cuda",
+                      timeout=600.0)
+    for rk in ranks:
+        w = rk["wire"]
+        log(f"  48e rank {rk['rank']}: compressed_psum_tree of {rk['leaves']}"
+            f" leaves, {rk['elements']} elements in {rk['seconds']:.2f}s "
+            f"(gloo, 4 ranks on one card); int32 sums exact: {rk['exact']} "
+            f"(int64 SUM), {rk['sampled_exact']} (a gathered sample of "
+            f"{COMP_SAMPLE} a leaf); |reduced - f32 mean| at most "
+            f"{rk['bound_ratio']:.4f} of the int8 bound (half the scale), "
+            f"residual at most {rk['residual_ratio']:.4f} of it; wire bytes "
+            f"a rank: int8 {w['int8']} (+ scales) against f32 "
+            f"{w['float32']} ({w['float32'] / w['int8']:.2f}x; gloo moved "
+            f"{w['int32_as_sent']} as int32)  [{card}]")
+        if not (rk["exact"] and rk["sampled_exact"]
+                and rk["bound_ratio"] <= 1.0 + 1e-3
+                and rk["residual_ratio"] <= 1.0 + 1e-3):
+            raise AssertionError(f"48e rank {rk['rank']}: {rk}")
+    return ranks
 
 
 def _leaves(tree):

@@ -12,7 +12,11 @@ plain version, and the wrapper of the hand-written CUDA kernel (port of
 * :func:`batched_table_lookup_sharded`: row-sharded tables over a mesh
   axis; each rank pools its rows through :data:`embedding_bag_window`
   (the kernel's row-window form on a card, :func:`batched_table_window_
-  lookup` on the CPU) and a SUM combines.
+  lookup` on the CPU) and a SUM combines, whose backward is the identity.
+  Where the table requires grad the window is an autograd Function whose
+  backward is :data:`embedding_bag_backward_window` (the backward kernel's
+  row window on a card, :func:`batched_table_backward_window` on the
+  CPU): each rank writes the gradient of its own rows.
 * :data:`embedding_bag`: the wrapper the model calls.  For a CUDA table it
   launches the kernel (``kernels/csrc/batched_embedding.cu``) or raises;
   for a CPU table it takes :func:`batched_table_lookup`.  Nothing falls
@@ -127,7 +131,7 @@ def batched_table_lookup_sharded(big_table: torch.Tensor,
     lo = mesh.axis_index(axis) * rows
     pooled = embedding_bag_window(big_table, table_offsets, indices, lo,
                                   lo + rows)
-    return collectives.all_reduce(pooled, mesh, axis, collectives.SUM)
+    return collectives.reduce_from(pooled, mesh, axis)
 
 
 def _check_cuda_inputs(big_table, table_offsets, indices):
@@ -180,6 +184,50 @@ def batched_table_backward(grad_out: torch.Tensor, global_ids: torch.Tensor,
     grad = torch.zeros((num_rows, D), dtype=torch.float32,
                        device=grad_out.device)
     return grad.index_add_(0, gid[ok], src[ok])
+
+
+def batched_table_backward_window(grad_out: torch.Tensor,
+                                  global_ids: torch.Tensor, lo: int,
+                                  hi: int) -> torch.Tensor:
+    """The gradient of :func:`batched_table_window_lookup` with respect to
+    its table (the plain version of the backward's row window): grad_out
+    (B, T, D) float32, global_ids (B*T*L,) -> (hi - lo, D) float32, bag b's
+    gradient added into row id - lo of each of its ids in ``[lo, hi)``,
+    any other id adding nothing."""
+    D = grad_out.shape[-1]
+    bags = grad_out.reshape(-1, D).float()
+    L = global_ids.numel() // max(bags.shape[0], 1)
+    local = global_ids.long() - lo
+    ok = (local >= 0) & (local < hi - lo)
+    src = bags[:, None, :].expand(bags.shape[0], L, D).reshape(-1, D)
+    grad = torch.zeros((hi - lo, D), dtype=torch.float32,
+                       device=grad_out.device)
+    return grad.index_add_(0, local[ok], src[ok])
+
+
+def _check_backward_inputs(grad_out, global_ids):
+    """The backward kernels' checks; returns (num_bags, L, D)."""
+    dev = grad_out.device
+    if grad_out.dtype != torch.float32:
+        raise TypeError(f"grad_out dtype {grad_out.dtype}: the backward "
+                        "takes float32")
+    if global_ids.dtype != torch.int32 or global_ids.device != dev:
+        raise TypeError(f"global ids must be int32 on {dev}, got "
+                        f"{global_ids.dtype} on {global_ids.device}")
+    D = grad_out.shape[-1]
+    if D * 4 % 16 or D * 4 > _MAX_ROW_BYTES:
+        raise ValueError(f"rows of {D * 4} bytes: the kernel takes rows "
+                         f"of a multiple of 16 bytes, at most "
+                         f"{_MAX_ROW_BYTES}")
+    if not (grad_out.is_contiguous() and global_ids.is_contiguous()):
+        raise ValueError("grad_out and the ids must be contiguous")
+    if grad_out.data_ptr() % 16:
+        raise ValueError("grad_out must be 16-byte aligned")
+    num_bags = grad_out.numel() // D
+    L = global_ids.numel() // max(num_bags, 1)
+    if num_bags * L != global_ids.numel():
+        raise ValueError(f"{global_ids.numel()} ids for {num_bags} bags")
+    return num_bags, L, D
 
 
 class _EmbeddingBagOp:
@@ -249,25 +297,7 @@ class _EmbeddingBagBackwardOp(KernelOp):
         from repro_torch.kernels import batched_embedding as kernel
 
         dev = grad_out.device
-        if grad_out.dtype != torch.float32:
-            raise TypeError(f"grad_out dtype {grad_out.dtype}: the backward "
-                            "takes float32")
-        if global_ids.dtype != torch.int32 or global_ids.device != dev:
-            raise TypeError(f"global ids must be int32 on {dev}, got "
-                            f"{global_ids.dtype} on {global_ids.device}")
-        D = grad_out.shape[-1]
-        if D * 4 % 16 or D * 4 > _MAX_ROW_BYTES:
-            raise ValueError(f"rows of {D * 4} bytes: the kernel takes rows "
-                             f"of a multiple of 16 bytes, at most "
-                             f"{_MAX_ROW_BYTES}")
-        if not (grad_out.is_contiguous() and global_ids.is_contiguous()):
-            raise ValueError("grad_out and the ids must be contiguous")
-        if grad_out.data_ptr() % 16:
-            raise ValueError("grad_out must be 16-byte aligned")
-        num_bags = grad_out.numel() // D
-        L = global_ids.numel() // max(num_bags, 1)
-        if num_bags * L != global_ids.numel():
-            raise ValueError(f"{global_ids.numel()} ids for {num_bags} bags")
+        num_bags, L, D = _check_backward_inputs(grad_out, global_ids)
         grad = torch.zeros((num_rows, D), dtype=torch.float32, device=dev)
         if num_bags == 0:
             return Launch(None, (), grad, None)
@@ -278,6 +308,38 @@ class _EmbeddingBagBackwardOp(KernelOp):
                       grad, None)
 
 
+class _EmbeddingBagBackwardWindowOp(KernelOp):
+    """The backward's row window, chosen by the device of ``grad_out``:
+    ``(grad_out (B, T, D) float32, global_ids (B*T*L,) int32, lo, hi) ->
+    grad (hi - lo, D) float32``.  CUDA: checks, zeroes the gradient,
+    launches ``batched_embedding_backward_window`` (the backward's
+    instances with the window on) and adds one to :attr:`launches`; CPU:
+    :func:`batched_table_backward_window`."""
+
+    name = "batched_embedding_backward_window"
+
+    def plain(self, grad_out, global_ids, lo, hi):
+        return batched_table_backward_window(grad_out, global_ids, int(lo),
+                                             int(hi))
+
+    def prepare(self, grad_out, global_ids, lo, hi) -> Launch:
+        from repro_torch.kernels import batched_embedding as kernel
+
+        dev = grad_out.device
+        lo, hi = int(lo), int(hi)
+        if not 0 <= lo < hi:
+            raise ValueError(f"window [{lo}, {hi})")
+        num_bags, L, D = _check_backward_inputs(grad_out, global_ids)
+        grad = torch.zeros((hi - lo, D), dtype=torch.float32, device=dev)
+        if num_bags == 0:
+            return Launch(None, (), grad, None)
+        argv = (grad_out.data_ptr(), global_ids.data_ptr(), grad.data_ptr(),
+                num_bags, L, D, lo, hi,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return Launch(kernel.library().batched_embedding_backward_window,
+                      argv, grad, None)
+
+
 class _EmbeddingBagWindowOp(KernelOp):
     """The row-window embedding bag, ``(table, table_offsets, indices, lo,
     hi) -> pooled (B, T, D)``: CUDA launches ``batched_embedding_window``
@@ -286,6 +348,15 @@ class _EmbeddingBagWindowOp(KernelOp):
     CPU takes :func:`batched_table_window_lookup`."""
 
     name = "batched_embedding_window"
+
+    def __call__(self, table, table_offsets, indices, lo, hi):
+        if table.requires_grad and torch.is_grad_enabled():
+            if table.dtype != torch.float32:
+                raise TypeError(f"a {table.dtype} table that requires grad: "
+                                "the backward takes float32 tables")
+            return _EmbeddingBagWindowFn.apply(table, table_offsets, indices,
+                                               int(lo), int(hi))
+        return super().__call__(table, table_offsets, indices, lo, hi)
 
     def plain(self, table, table_offsets, indices, lo, hi):
         return batched_table_window_lookup(table, table_offsets, indices,
@@ -331,6 +402,26 @@ class _EmbeddingBagFn(torch.autograd.Function):
         return grad, None, None
 
 
+class _EmbeddingBagWindowFn(torch.autograd.Function):
+    """The row window with the backward's row window as its gradient (the
+    table's only)."""
+
+    @staticmethod
+    def forward(ctx, table, table_offsets, indices, lo, hi):
+        ctx.window = (lo, hi)
+        ctx.save_for_backward(
+            (indices + table_offsets[None, :, None]).reshape(-1))
+        return embedding_bag_window(table, table_offsets, indices, lo, hi)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (global_ids,) = ctx.saved_tensors
+        grad = embedding_bag_backward_window(grad_out.contiguous(),
+                                             global_ids, *ctx.window)
+        return grad, None, None, None, None
+
+
 embedding_bag = _EmbeddingBagOp()
 embedding_bag_backward = _EmbeddingBagBackwardOp()
 embedding_bag_window = _EmbeddingBagWindowOp()
+embedding_bag_backward_window = _EmbeddingBagBackwardWindowOp()

@@ -130,7 +130,7 @@ class ShardingRules:
 
     def params_tree(self, params) -> Dict:
         """Spec tree matching a params (or meta-tensor) tree."""
-        return _map_with_path(lambda path, leaf: self.param_spec(
+        return map_with_path(lambda path, leaf: self.param_spec(
             path, tuple(leaf.shape)), params)
 
     # ------------------------------------------------------------- batch/cache
@@ -195,12 +195,25 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format) if split else x
 
 
-def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree (:meth:`ShardingRules.params_tree`) in the
+    order ``repro_torch.tree`` walks the params: dicts by sorted key,
+    lists in order, each spec (a tuple) a leaf."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for v in specs for s in spec_leaves(v)]
+    return [specs]
+
+
+def map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over a tree of dicts and lists, ``path`` the keys
+    (list indices as strings) down to the leaf; None stays None."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (str(k),))
+        return {k: map_with_path(fn, v, path + (str(k),))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, path + (str(i),))
+        return type(tree)(map_with_path(fn, v, path + (str(i),))
                           for i, v in enumerate(tree))
     if tree is None:
         return None
@@ -212,35 +225,103 @@ def _is_moe_path(path: Tuple[str, ...]) -> bool:
     return "moe" in path and "shared" not in path
 
 
-class TensorParallel:
-    """What a model's sharded forward reads of a mesh and of its params'
-    specs: which leaves ``model`` splits (:meth:`split`), this rank's
-    block of a split dim (:meth:`bounds`), and the collectives of
-    Megatron's layers over ``axis``: :meth:`gather` and
-    :meth:`gather_last` (column-parallel outputs, vocabulary-parallel
-    logits), :meth:`psum` (row-parallel
-    partial products, summed in float32) and :meth:`psum_exact` (a SUM
-    where one rank holds each value and the others zeros)."""
+def _split_dim(spec: Spec, ndim: int, axis: Optional[str]) -> Optional[int]:
+    """The dim of a tensor of ``ndim`` dims (a layer of a stacked leaf has
+    fewer than its spec) that ``spec`` splits over ``axis``; None if none."""
+    if axis is None:
+        return None
+    off = len(spec) - ndim
+    for d, e in enumerate(spec):
+        if e == axis or (isinstance(e, (tuple, list)) and axis in e):
+            return d - off
+    return None
 
-    def __init__(self, mesh, specs: Dict, axis: str = "model"):
+
+class TensorParallel:
+    """What a model's sharded paths read of a mesh and of its params'
+    specs: which leaves ``model`` splits (:meth:`split`), this rank's
+    block of a split dim (:meth:`bounds`), FSDP's gather of the leaves the
+    data axis splits (:meth:`gather_params`), and the collectives of
+    Megatron's layers over ``axis``: :meth:`enter` (f: a whole tensor into
+    a split computation), :meth:`psum` (g: row-parallel partial products,
+    summed in float32), :meth:`psum_exact` (a SUM where one rank holds
+    each value and the others zeros), :meth:`gather` and
+    :meth:`gather_last` (serving's column-parallel outputs and logits).
+    Each is differentiable with its conjugate backward
+    (``distributed.collectives``)."""
+
+    def __init__(self, mesh, specs: Dict, axis: str = "model",
+                 data_axis: str = "data"):
         self.mesh = mesh
         self.axis = axis
         self.specs = specs
         self.size = mesh.size(axis)
         self.rank = mesh.axis_index(axis)
+        self.data_axis = (data_axis if data_axis in mesh.axis_names
+                          and mesh.size(data_axis) > 1 else None)
 
-    def split(self, *path: str) -> bool:
-        """Whether the leaf at ``path`` is split over the axis."""
+    def _spec(self, *path):
         node = self.specs
         for k in path:
-            node = node[k]
+            node = node[int(k)] if isinstance(node, list) else node[k]
+        return node
+
+    def split(self, *path) -> bool:
+        """Whether the leaf at ``path`` is split over the axis."""
         return any(e == self.axis or (isinstance(e, (tuple, list))
-                                      and self.axis in e) for e in node)
+                                      and self.axis in e)
+                   for e in self._spec(*path))
 
     def bounds(self, dim: int) -> Tuple[int, int]:
         """``[lo, hi)`` of this rank's block of a dim of ``dim``."""
         step = dim // self.size
         return self.rank * step, (self.rank + 1) * step
+
+    def gather_params(self, tree, *path):
+        """``tree`` (this rank's shards of the params at ``path``: a layer of
+        the stacked ``layers``, say) with every leaf the data axis splits
+        gathered whole over it, in one collective; backward reduce-scatters
+        their gradients and all-reduces the others' over the data axis
+        (FSDP, and the data-parallel SUM).  ``tree`` itself without a data
+        axis."""
+        if self.data_axis is None:
+            return tree
+        leaves, dims = [], []
+
+        def walk(node, spec):
+            if isinstance(node, dict):
+                for k in node:
+                    walk(node[k], spec[k])
+            elif isinstance(node, (list, tuple)):
+                for v, sp in zip(node, spec):
+                    walk(v, sp)
+            elif node is not None:
+                leaves.append(node)
+                dims.append(_split_dim(spec, node.dim(), self.data_axis)
+                            if node.is_floating_point() else None)
+
+        walk(tree, self._spec(*path))
+        from repro_torch.distributed import collectives
+        floats = [i for i, t in enumerate(leaves) if t.is_floating_point()]
+        whole = collectives.gather_shards([leaves[i] for i in floats],
+                                          [dims[i] for i in floats],
+                                          self.mesh, self.data_axis)
+        for i, t in zip(floats, whole):
+            leaves[i] = t
+        it = iter(leaves)
+
+        def build(node):
+            if isinstance(node, dict):
+                return {k: build(v) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(build(v) for v in node)
+            return None if node is None else next(it)
+
+        return build(tree)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.distributed import collectives
+        return collectives.copy_to(x, self.mesh, self.axis)
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         from repro_torch.distributed import collectives
@@ -262,8 +343,8 @@ class TensorParallel:
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         from repro_torch.distributed import collectives
-        return collectives.all_reduce_f32(x, self.mesh, self.axis)
+        return collectives.reduce_from(x, self.mesh, self.axis)
 
     def psum_exact(self, x: torch.Tensor) -> torch.Tensor:
         from repro_torch.distributed import collectives
-        return collectives.all_reduce(x, self.mesh, self.axis)
+        return collectives.reduce_from(x, self.mesh, self.axis, f32=False)

@@ -1,5 +1,6 @@
 """Binding of the hand-written CUDA BatchedTable embedding-bag kernel, its
-row-window form and its backward (``kernels/csrc/batched_embedding.cu``).  The wrappers that
+row-window form, its backward and the backward's row window
+(``kernels/csrc/batched_embedding.cu``).  The wrappers that
 check and launch them, and their plain PyTorch versions, live in
 ``repro_torch.core.embedding_api``."""
 from __future__ import annotations
@@ -21,7 +22,9 @@ def library() -> ctypes.CDLL:
                          (lib.batched_embedding_window, [p, p, p, i64, i,
                                                          i, i64, i64, i, p]),
                          (lib.batched_embedding_backward, [p, p, p, i64, i,
-                                                           i, i64, p])):
+                                                           i, i64, p]),
+                         (lib.batched_embedding_backward_window,
+                          [p, p, p, i64, i, i, i64, i64, p])):
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -64,6 +64,14 @@
 // several bags touch change from run to run: compare with a tolerance,
 // never bitwise.  Not done yet: a sorted, deterministic segment reduction,
 // red.global.add.v4.f32, staging.
+//
+// The backward's row window, batched_embedding_backward_window (the
+// gradient of batched_embedding_window, for a rank's part of a row-sharded
+// table in training): the same instances with kWindow on, into a
+// (hi - lo, D) gradient: an id in [lo, hi) adds into row id - lo, any other
+// id adds nothing (no wrap, as the window's forward).  With kWindow off a
+// launch computes what it did before the window.  Bound: as the backward's,
+// over the rows of the window the bags touch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -228,14 +236,15 @@ cudaError_t launch_width(const void* table, const void* ids, void* out,
 
 // The backward: one group of G lanes per bag, as the forward; lane j of a
 // group holds vectors j, j + G, ... of grad_out[b] and adds them into the
-// rows of the bag's ids.
-template <int G, int NV>
+// rows of the bag's ids.  kWindow: grad_table holds rows [lo, hi) (R is
+// hi - lo), an id adds into row id - lo when it lies in the window.
+template <int G, int NV, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
     embedding_bag_backward_kernel(const float4* __restrict__ grad_out,
                                   const int* __restrict__ ids,
                                   float* __restrict__ grad_table,
                                   long long num_bags, int L, int V,
-                                  long long R) {
+                                  long long R, long long lo) {
   const int lane = threadIdx.x % G;
   const long long bag =
       static_cast<long long>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
@@ -257,8 +266,13 @@ __global__ void __launch_bounds__(kThreads)
     const int mine = (live && lane < n) ? __ldg(bag_ids + l0 + lane) : 0;
     for (int k = 0; k < n; ++k) {
       const int id = __shfl_sync(0xffffffffu, mine, k, G);
-      const long long row = id < 0 ? static_cast<long long>(id) + R
-                                   : static_cast<long long>(id);
+      long long row;
+      if (kWindow) {
+        row = static_cast<long long>(id) - lo;
+      } else {
+        row = id < 0 ? static_cast<long long>(id) + R
+                     : static_cast<long long>(id);
+      }
       if (!live || row < 0 || row >= R) continue;
       float* dst = grad_table + row * (4LL * V);        // 64-bit offset
 #pragma unroll
@@ -274,46 +288,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int G, int NV>
+template <int G, int NV, bool kWindow>
 cudaError_t launch_backward(const void* grad_out, const void* ids,
                             void* grad_table, long long num_bags, int L,
-                            int V, long long R, cudaStream_t st) {
+                            int V, long long R, long long lo,
+                            cudaStream_t st) {
   constexpr int kBags = kThreads / G;
   const long long blocks = (num_bags + kBags - 1) / kBags;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  embedding_bag_backward_kernel<G, NV>
+  embedding_bag_backward_kernel<G, NV, kWindow>
       <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
           static_cast<const float4*>(grad_out), static_cast<const int*>(ids),
-          static_cast<float*>(grad_table), num_bags, L, V, R);
+          static_cast<float*>(grad_table), num_bags, L, V, R, lo);
   return cudaGetLastError();
 }
 
+template <bool kWindow>
 cudaError_t launch_backward_width(const void* grad_out, const void* ids,
                                   void* grad_table, long long num_bags, int L,
-                                  int V, long long R, cudaStream_t st) {
-  if (V <= 1)
-    return launch_backward<1, 1>(grad_out, ids, grad_table, num_bags, L, V,
-                                 R, st);
-  if (V <= 2)
-    return launch_backward<2, 1>(grad_out, ids, grad_table, num_bags, L, V,
-                                 R, st);
-  if (V <= 4)
-    return launch_backward<4, 1>(grad_out, ids, grad_table, num_bags, L, V,
-                                 R, st);
-  if (V <= 8)
-    return launch_backward<8, 1>(grad_out, ids, grad_table, num_bags, L, V,
-                                 R, st);
-  if (V <= 16)
-    return launch_backward<16, 1>(grad_out, ids, grad_table, num_bags, L, V,
-                                  R, st);
-  if (V <= 32)
-    return launch_backward<32, 1>(grad_out, ids, grad_table, num_bags, L, V,
-                                  R, st);
-  if (V <= 64)
-    return launch_backward<32, 2>(grad_out, ids, grad_table, num_bags, L, V,
-                                  R, st);
-  return launch_backward<32, 4>(grad_out, ids, grad_table, num_bags, L, V, R,
-                                st);
+                                  int V, long long R, long long lo,
+                                  cudaStream_t st) {
+#define REPRO_EMB_BACKWARD(G, NV)                                          \
+  launch_backward<G, NV, kWindow>(grad_out, ids, grad_table, num_bags, L, \
+                                  V, R, lo, st)
+  if (V <= 1) return REPRO_EMB_BACKWARD(1, 1);
+  if (V <= 2) return REPRO_EMB_BACKWARD(2, 1);
+  if (V <= 4) return REPRO_EMB_BACKWARD(4, 1);
+  if (V <= 8) return REPRO_EMB_BACKWARD(8, 1);
+  if (V <= 16) return REPRO_EMB_BACKWARD(16, 1);
+  if (V <= 32) return REPRO_EMB_BACKWARD(32, 1);
+  if (V <= 64) return REPRO_EMB_BACKWARD(32, 2);
+  return REPRO_EMB_BACKWARD(32, 4);
+#undef REPRO_EMB_BACKWARD
 }
 
 }  // namespace
@@ -385,7 +391,25 @@ extern "C" int batched_embedding_backward(const void* grad_out,
       row_bytes / 16 > kMaxVectors)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_bags == 0) return 0;
-  return static_cast<int>(launch_backward_width(
+  return static_cast<int>(launch_backward_width<false>(
       grad_out, ids, grad_table, num_bags, L, static_cast<int>(row_bytes / 16),
-      R, static_cast<cudaStream_t>(stream)));
+      R, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// The backward's row window: grad_table (hi - lo, D) float32, zeroed by the
+// caller, holds global rows [lo, hi); adds grad_out[b] into row id - lo of
+// every id of bag b in [lo, hi) (see the header).  0 <= lo < hi; the rest
+// as batched_embedding_backward.
+extern "C" int batched_embedding_backward_window(
+    const void* grad_out, const void* ids, void* grad_table,
+    long long num_bags, int L, int D, long long lo, long long hi,
+    void* stream) {
+  const long long row_bytes = static_cast<long long>(D) * 4;
+  if (num_bags < 0 || L < 0 || D < 1 || lo < 0 || hi <= lo ||
+      row_bytes % 16 != 0 || row_bytes / 16 > kMaxVectors)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_bags == 0) return 0;
+  return static_cast<int>(launch_backward_width<true>(
+      grad_out, ids, grad_table, num_bags, L, static_cast<int>(row_bytes / 16),
+      hi - lo, lo, static_cast<cudaStream_t>(stream)));
 }

@@ -14,11 +14,14 @@ host program on the same inputs; only the collectives of
 * :func:`make_serving_mesh`: the ``(1, model)`` mesh of the sharded
   serving engine, axes ``("data", "model")``.
 * :func:`make_smoke_mesh`: a small ``(data, model)`` mesh over the ranks
-  there are.
+  there are (the training mesh: FSDP over ``data``, TP and experts over
+  ``model``);
+* :func:`make_mesh`: ranks laid out row-major on any named axes (the
+  pipeline's ``("pp",)``);
 * :func:`data_axes`: the batch axes of a mesh.
 
-``make_production_mesh`` (the dry run's 256- and 512-chip meshes) is the
-training half's (ROADMAP A10).
+``make_production_mesh`` (the dry run's 256- and 512-chip meshes) is left
+for later (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,8 +39,11 @@ import torch.distributed as dist
 
 @dataclass
 class Mesh:
-    """Ranks laid out on named axes; only a ``(1, S)`` layout is built
-    here, so the ``model`` axis is the whole process group."""
+    """Ranks laid out row-major on named axes: rank r's coordinates are
+    r's digits in the axes' sizes, the last axis fastest.  An axis of more
+    than one rank has one process group per line of ranks along it (the
+    ranks that agree on every other coordinate); this rank's is in
+    ``groups``."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
@@ -74,15 +80,50 @@ def _world() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def _mesh(data: int, model: int) -> Mesh:
+def make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...]) -> Mesh:
+    """A mesh of ``shape`` over the whole process group (its size the
+    product of ``shape``; one process needs no group), as
+    ``jax.make_mesh`` lays devices out.  Every rank must call it, and every
+    rank creates every line's group in the same order, as
+    ``torch.distributed.new_group`` asks; an axis that spans the whole
+    group uses it as it is."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    n = 1
+    for s in shape:
+        n *= s
+    world = _world()
+    if n != world:
+        raise ValueError(f"make_mesh: a {shape} mesh needs {n} ranks, the "
+                         f"process group has {world}")
     rank = dist.get_rank() if dist.is_initialized() else 0
+    coords, rest = {}, rank
+    for name, size in reversed(list(zip(axis_names, shape))):
+        coords[name] = rest % size
+        rest //= size
     groups = {}
-    if model > 1:
-        groups["model"] = dist.group.WORLD
-    return Mesh(axis_names=("data", "model"),
-                shape={"data": data, "model": model},
-                coords={"data": 0, "model": rank % model},
+    for k, (name, size) in enumerate(zip(axis_names, shape)):
+        if size == 1:
+            continue
+        if size == world:
+            groups[name] = dist.group.WORLD
+            continue
+        stride = 1
+        for s in shape[k + 1:]:
+            stride *= s
+        for start in range(world):
+            if (start // stride) % size:
+                continue                    # not the first of its line
+            line = [start + i * stride for i in range(size)]
+            group = dist.new_group(line)
+            if rank in line:
+                groups[name] = group
+    return Mesh(axis_names=axis_names, shape=dict(zip(axis_names, shape)),
+                coords={a: coords[a] for a in axis_names},
                 device=_current_device(), groups=groups)
+
+
+def _mesh(data: int, model: int) -> Mesh:
+    return make_mesh((data, model), ("data", "model"))
 
 
 def make_serving_mesh(model: int = 0) -> Mesh:
@@ -108,19 +149,17 @@ def make_serving_mesh(model: int = 0) -> Mesh:
 
 
 def make_smoke_mesh(data: int = 1, model: int = 1) -> Mesh:
-    """A tiny mesh over the ranks there are (one, without a process
-    group): ``data`` and ``model`` clamped as the reference clamps them to
-    its devices.  Only ``data == 1`` meshes span ranks here."""
+    """A tiny ``(data, model)`` mesh over the ranks there are (one,
+    without a process group): ``data`` and ``model`` clamped as the
+    reference clamps them to its devices.  The clamped mesh must cover the
+    process group: the port has no idle ranks."""
     n = _world()
     data = min(data, n)
     model = min(model, n // data)
-    if data > 1:
-        raise ValueError("make_smoke_mesh: the port lays ranks on the model "
-                         "axis only (data must be 1)")
-    if model != n:
-        raise ValueError(f"make_smoke_mesh: {model} model ranks in a group "
-                         f"of {n}")
-    return _mesh(1, model)
+    if data * model != n:
+        raise ValueError(f"make_smoke_mesh: a ({data}, {model}) mesh in a "
+                         f"process group of {n}")
+    return _mesh(data, model)
 
 
 def sub_mesh(n: int) -> Mesh:

@@ -4,9 +4,11 @@ loop on one device: AdamW with a cosine warm-up, synthetic token batches
 through the prefetching pipeline, the trainer with its straggler
 watchdog and, with ``--ckpt-dir``, async checkpoints (``--resume``
 restores the latest).  The flags are the reference's
-(``repro.launch.train``) plus ``--device``; the reference's one-device
-mesh and sharding rules have no counterpart until multi-GPU (ROADMAP
-A10).
+(``repro.launch.train``) plus ``--device``.  As in the reference the step
+is ``jit_train_step`` on ``make_smoke_mesh()`` with ``ShardingRules(mesh,
+head_dim=)``: one rank here, whose step is the one-device step (a mesh of
+ranks is built by ``launch.mesh.run_ranks`` callers, as the tests and
+``chip_smoke.py`` phase 48 do).
 
 Weights are random, from a seeded generator on the device.  Pass
 ``--device cpu`` (with ``--reduced`` for a tiny model) to run the plain
@@ -18,12 +20,17 @@ import argparse
 import dataclasses
 import time
 
+import torch
+
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import get_config
 from repro_torch.data.pipeline import DataPipeline, SyntheticLMDataset
+from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw, cosine_warmup
-from repro_torch.training.train_step import init_state, make_train_step
+from repro_torch.training.train_step import (
+    abstract_state, init_state, jit_train_step)
 from repro_torch.training.trainer import Trainer
 
 
@@ -49,11 +56,17 @@ def main(argv=None) -> dict:
     else:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     model = build_model(cfg, device=args.device)
+    mesh = make_smoke_mesh()
+    attn = getattr(cfg, "attention", None)
+    rules = ShardingRules(mesh, head_dim=attn.head_dim if attn else None)
     opt = adamw()
     lr_fn = cosine_warmup(args.lr, max(args.steps // 10, 1), args.steps)
 
     state = init_state(model, 0, opt)
-    step = make_train_step(model, opt, lr_fn)
+    batch_shape = {"tokens": torch.empty((args.batch, args.seq),
+                                         dtype=torch.int32, device="meta")}
+    step = jit_train_step(model, opt, lr_fn, mesh, rules,
+                          abstract_state(model, opt), batch_shape)
 
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch)
     pipe = DataPipeline(ds)

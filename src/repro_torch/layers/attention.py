@@ -171,6 +171,60 @@ def encode_kv(params, enc, a: AttentionConfig):
             v.reshape(B, S, a.num_kv_heads, a.head_dim))
 
 
+def attention_block_tp(params, x, positions, a: AttentionConfig, tp, *,
+                       causal=None, chunk: int = 512) -> torch.Tensor:
+    """:func:`attention_block` (its output only) with Megatron's split over
+    ``tp``'s axis, for training on a mesh: x (B, S, D) whole on every
+    rank; ``wq`` (and ``wk``/``wv`` where the rules split them: whole kv
+    heads a rank) column-parallel, so each rank attends with its block of
+    whole query heads, and ``wo`` row-parallel over the same heads, its
+    partial products summed in float32.  A whole ``wk``/``wv`` gives every
+    kv head on every rank, and each rank keeps those its query heads read.
+    Whole tensors that feed the split part (x, a whole k/v, the biases and
+    q/k norms) go through ``tp.enter``, so their gradients come back
+    whole.  With ``wq`` whole the block runs whole on every rank."""
+    if not tp.split("layers", "attn", "wq"):
+        return attention_block(params, x, positions, a, causal=causal,
+                               chunk=chunk)[0]
+    causal = a.causal if causal is None else causal
+    B, S, _ = x.shape
+    hd, H, KV = a.head_dim, a.num_heads, a.num_kv_heads
+    split_kv = tp.split("layers", "attn", "wk")
+    xin = tp.enter(x)
+    xkv = xin if split_kv else x
+    q = torch.matmul(xin, params["wq"])
+    k = torch.matmul(xkv, params["wk"])
+    v = torch.matmul(xkv, params["wv"])
+    qlo, qhi = tp.bounds(H)
+    if "bq" in params:
+        q = q + tp.enter(params["bq"])[qlo * hd:qhi * hd]
+        kb, vb = params["bk"], params["bv"]
+        if split_kv:
+            klo, khi = tp.bounds(KV)
+            kb = tp.enter(kb)[klo * hd:khi * hd]
+            vb = tp.enter(vb)[klo * hd:khi * hd]
+        k, v = k + kb, v + vb
+    q = q.reshape(B, S, qhi - qlo, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    if "q_norm" in params:
+        q = rmsnorm(tp.enter(params["q_norm"]), q)
+        k = rmsnorm(tp.enter(params["k_norm"]) if split_kv
+                    else params["k_norm"], k)
+    q = apply_rope(q, positions, a.rope_theta)
+    k = apply_rope(k, positions, a.rope_theta)
+    if not split_kv:             # every kv head here: keep this rank's
+        G = H // KV
+        k, v = tp.enter(k), tp.enter(v)
+        if (qhi - qlo) % G == 0:
+            k, v = k[:, :, qlo // G:qhi // G], v[:, :, qlo // G:qhi // G]
+        else:                    # a query block inside one group: a kv
+            idx = torch.arange(qlo, qhi, device=x.device) // G  # head each
+            k, v = k[:, :, idx], v[:, :, idx]
+    ctx = chunked_attention(q, k, v, causal=causal, chunk=chunk)
+    return tp.psum(torch.matmul(ctx.reshape(B, S, -1), params["wo"]))
+
+
 def out_proj_tp(ctx: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:
     """``ctx @ wo`` with ``wo`` row-parallel (this rank's whole heads of
     its input rows): the rank's heads of the whole ``ctx`` times its rows,

@@ -67,10 +67,14 @@ def mlp_apply_tp(params, x: torch.Tensor, act: str, tp) -> torch.Tensor:
     units, and ``w_down`` (``w_out``) row-parallel over the same block,
     its partial products summed over the axis in float32 (``tp``: a
     ``TensorParallel``).  The biases are whole on every rank: ``b_in``'s
-    block is added before the activation, ``b_out`` after the sum."""
+    block is added before the activation, ``b_out`` after the sum.  x
+    (whole on every rank) and ``b_in`` enter the split through
+    ``tp.enter``, so the gradients that flow back to them are whole."""
+    x = tp.enter(x)
     if act == "gelu":
         lo, hi = tp.bounds(params["b_in"].shape[-1])
-        h = torch.matmul(x, params["w_in"]) + params["b_in"][..., lo:hi]
+        h = (torch.matmul(x, params["w_in"])
+             + tp.enter(params["b_in"])[..., lo:hi])
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
         return tp.psum(torch.matmul(h, params["w_out"])) + params["b_out"]
     g = torch.matmul(x, params["w_gate"])

@@ -25,13 +25,16 @@ def build_model(cfg, *, device="cuda", **kw):
     its family as the reference does: ``ssm`` -> RWKV6LM, ``hybrid`` ->
     Zamba2LM, ``audio`` -> WhisperEncDec, the rest (dense, MoE, VLM) ->
     TransformerLM; a DLRMConfig -> DLRM.  ``kw`` goes to the model
-    (``remat``, ``q_chunk``; ``use_batched`` for DLRM)."""
+    (``remat``, ``q_chunk``, ``shard_moe``, ``moe_groups``; ``use_batched``
+    for DLRM), RWKV6LM dropping ``q_chunk`` and ``moe_groups`` as the
+    reference does."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     if isinstance(cfg, DLRMConfig):
         return DLRM(cfg, device=device, **kw)
     if cfg.family == "ssm":
         kw.pop("q_chunk", None)  # attention-free
+        kw.pop("moe_groups", None)
         return RWKV6LM(cfg, device=device, **kw)
     if cfg.family == "hybrid":
         return Zamba2LM(cfg, device=device, **kw)

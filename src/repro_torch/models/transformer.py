@@ -25,6 +25,19 @@ from the kernel (its ``(m, l)`` statistics beside the output) and
 log-sum-exp-combines them over the axis; ``wo`` and ``w_down`` are
 row-parallel (a float32 SUM), the embedding and the head
 vocabulary-parallel.  A weight the rules leave whole is applied whole.
+A MoE layer runs expert-parallel there (``layers.moe``, at full
+capacity: each rank its experts over every lane, one float32 SUM).
+
+Training on a ``(data, model)`` mesh (:meth:`TransformerLM.loss` and
+:meth:`TransformerLM.forward` with ``mesh=``): params are this rank's
+shards, the batch its shard of the batch.  Each layer gathers the leaves
+the data axis splits (FSDP; their gradients reduce-scattered back), runs
+attention and the SwiGLU with Megatron's split over ``model``, the MoE
+with its experts split over ``model`` (``shard_moe``, ``moe_groups`` as
+the reference's), the embedding and the head vocabulary-parallel, and the
+loss is the global mean: the rank's sum over the global token count,
+summed over the data axes.  Every collective there has its conjugate
+backward (``distributed.collectives``).
 
 Parameters are a dict with the JAX pytree's names and layouts: ``embed``,
 ``layers`` (``ln1``, ``ln2``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``},
@@ -41,11 +54,11 @@ differentiable end to end; with grad enabled each layer of ``forward``
 runs under the ``remat`` policy (``repro_torch.training.remat``: True or
 ``"full"``, ``"dots"``, False or ``"none"``).  Left out: ``scan_layers``
 and ``unroll_attn`` (JAX compile notions: the layers are a Python loop
-here); ``shard_moe`` and ``moe_groups`` (expert sharding, the training half of
-A10), so a MoE config does not run on a mesh here.
+here).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -53,23 +66,27 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.config import ModelConfig
 from repro_torch.core import attention_api, paged_kv
+from repro_torch.distributed.act_sharding import constrain_batch
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.embedding import (
     embed, embed_vocab_parallel, embedding_init, unembed,
-    unembed_vocab_parallel)
+    unembed_vocab_parallel, vocab_parallel_cross_entropy)
 from repro_torch.layers.mlp import mlp_apply, mlp_apply_tp, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norm import rmsnorm, rmsnorm_init
 from repro_torch.models import stacking
 from repro_torch.training import remat as remat_lib
-from repro_torch.training.losses import next_token_loss
+from repro_torch.training.losses import next_token_loss, softmax_cross_entropy
 
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 q_chunk: int = 512, remat=True):
+                 q_chunk: int = 512, remat=True, shard_moe: bool = False,
+                 moe_groups: int = 1):
         self.cfg = cfg
         self.q_chunk = q_chunk          # forward's attention query chunk
+        self.shard_moe = shard_moe      # the reference's EP layout hint
+        self.moe_groups = moe_groups    # MoE dispatch groups
         self.remat = remat_lib.resolve(remat)
         self.device = device_lib.resolve(device)
         self.dtype = stacking.DTYPES[cfg.dtype]
@@ -168,10 +185,6 @@ class TransformerLM:
         cache = self.__dict__.setdefault("_tp_cache", {})
         key = (id(mesh), axis)
         if key not in cache:
-            if self.cfg.moe is not None:
-                raise NotImplementedError(
-                    f"{self.cfg.name} on a mesh: expert parallelism is the "
-                    "training half's (ROADMAP A10)")
             specs = self.sharding_rules(mesh, axis).params_tree(
                 self.init_abstract())
             cache[key] = TensorParallel(mesh, specs, axis)
@@ -188,6 +201,21 @@ class TransformerLM:
             return unembed_vocab_parallel(params[name], x, tp)
         return unembed(params[name], x)
 
+    def _ffn_tp(self, lp, h, tp, *, full_capacity: bool):
+        """The layer's feed-forward on h (B, S, D) on a mesh: the SwiGLU
+        split where the rules split it, or the MoE expert-parallel.
+        Returns (out, aux)."""
+        cfg = self.cfg
+        if cfg.moe is not None:
+            return moe_apply(lp["moe"], h, cfg.moe, shard=self.shard_moe,
+                             full_capacity=full_capacity,
+                             groups=self.moe_groups, tp=tp)
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        if tp.split("layers", "mlp", ("w_in" if cfg.act == "gelu"
+                                      else "w_gate")):
+            return mlp_apply_tp(lp["mlp"], h, cfg.act, tp), zero
+        return mlp_apply(lp["mlp"], h, cfg.act), zero
+
     def _layer_tail_tp(self, lp, x, ctx, tp):
         """x + wo(ctx), then + the FFN, each split where the rules split
         it."""
@@ -198,11 +226,41 @@ class TransformerLM:
         else:
             x = x + torch.matmul(ctx, lp["attn"]["wo"])
         h = rmsnorm(lp["ln2"], x[:, None], cfg.norm_eps)
-        mlp_split = tp.split("layers", "mlp", ("w_in" if cfg.act == "gelu"
-                                                else "w_gate"))
-        if mlp_split:
-            return x + mlp_apply_tp(lp["mlp"], h, cfg.act, tp)[:, 0]
-        return x + mlp_apply(lp["mlp"], h, cfg.act)[:, 0]
+        return x + self._ffn_tp(lp, h, tp, full_capacity=True)[0][:, 0]
+
+    def _block_mesh(self, lp, x, positions, tp):
+        """A layer on a training mesh: ``lp`` this rank's shards of it."""
+        cfg = self.cfg
+        lp = tp.gather_params(lp, "layers")
+        x = constrain_batch(x)
+        x = x + attn_lib.attention_block_tp(
+            lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
+            cfg.attention, tp, chunk=self.q_chunk)
+        h, aux = self._ffn_tp(lp, rmsnorm(lp["ln2"], x, cfg.norm_eps), tp,
+                              full_capacity=False)
+        return x + h, aux
+
+    def _hidden_mesh(self, params, tokens, extra_embeds, mesh):
+        """The training forward on a mesh up to the final norm: (x (B, E +
+        S, D), aux, the top-level params gathered over the data axis,
+        the ``TensorParallel``)."""
+        cfg = self.cfg
+        tp = self.tensor_parallel(mesh)
+        top = tp.gather_params({k: v for k, v in params.items()
+                                if k != "layers"})
+        x = self._embed_tp(top, tokens, tp)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        block = functools.partial(self._block_mesh, tp=tp)
+        if torch.is_grad_enabled():
+            block = remat_lib.wrap(block, self.remat)
+        for lp in stacking.unstack(params["layers"], cfg.num_layers):
+            x, layer_aux = block(lp, x, positions)
+            aux = aux + layer_aux
+        return rmsnorm(top["final_norm"], x, cfg.norm_eps), aux, top, tp
 
     # --------------------------------------------------------------- forward
     def _ffn(self, lp, h, *, full_capacity: bool):
@@ -211,13 +269,15 @@ class TransformerLM:
         Returns (out, aux), aux 0 for a dense layer."""
         cfg = self.cfg
         if cfg.moe is not None:
-            return moe_apply(lp["moe"], h, cfg.moe,
-                             full_capacity=full_capacity)
+            return moe_apply(lp["moe"], h, cfg.moe, shard=self.shard_moe,
+                             full_capacity=full_capacity,
+                             groups=self.moe_groups)
         return (mlp_apply(lp["mlp"], h, cfg.act),
                 torch.zeros((), dtype=torch.float32, device=h.device))
 
     def _block(self, lp, x, positions):
         cfg = self.cfg
+        x = constrain_batch(x)
         h, kv = attn_lib.attention_block(
             lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
             cfg.attention, chunk=self.q_chunk)
@@ -233,13 +293,32 @@ class TransformerLM:
         return x
 
     def forward(self, params, tokens, extra_embeds=None, *,
-                return_kv: bool = False, last_only: bool = False):
+                return_kv: bool = False, last_only: bool = False,
+                mesh=None):
         """tokens (B, S) [+ extra_embeds (B, E, D), prepended] ->
         (logits (B, E + S, V) f32, aux) — and the layers' (k, v), each
         stacked (L, B, E + S, KV, hd), with ``return_kv``.  ``last_only``
         unembeds the last position only.  ``aux`` is the reference's MoE
-        loss summed over the layers, 0 for a dense model."""
+        loss summed over the layers, 0 for a dense model.
+
+        ``mesh``: the training forward on a mesh (module docstring):
+        params this rank's shards, tokens its batch shard; the logits of
+        its batch shard come back whole (gathered over ``model``), aux the
+        global one.  ``return_kv`` is not taken there."""
         cfg = self.cfg
+        if mesh is not None:
+            if return_kv:
+                raise ValueError("forward(mesh=...) returns no K/V")
+            x, aux, top, tp = self._hidden_mesh(params, tokens,
+                                                extra_embeds, mesh)
+            if last_only:
+                x = x[:, -1:]
+            name = "head" if "head" in top else "embed"
+            if not tp.split(name, "table"):
+                return unembed(top[name], x), aux
+            from repro_torch.distributed import collectives
+            logits = unembed(top[name], tp.enter(x))
+            return collectives.gather_replicated(logits, mesh, tp.axis), aux
         x = self._embed_inputs(params, tokens, extra_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -262,16 +341,54 @@ class TransformerLM:
         return logits, aux
 
     # ------------------------------------------------------------------ loss
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, mesh=None):
         """Next-token CE plus 0.01 times the MoE aux loss.  batch: tokens
         (B, S) [+ extra_embeds (B, E, D), loss_mask (B, S)], tensors on
-        the model's device.  The vision positions are not scored."""
+        the model's device.  The vision positions are not scored.
+
+        ``mesh``: params this rank's shards and batch its shard of the
+        batch; the loss is the global one on every rank: the rank's CE sum
+        over the global count (vocabulary-parallel where the head is
+        split, no logits gathered), summed over the data axes."""
         extra = batch.get("extra_embeds")
+        if mesh is not None:
+            return self._loss_mesh(params, batch, mesh)
         logits, aux = self.forward(params, batch["tokens"], extra)
         if extra is not None:
             logits = logits[:, extra.shape[1]:]
         return next_token_loss(logits, batch["tokens"],
                                batch.get("loss_mask")) + 0.01 * aux
+
+    def _loss_mesh(self, params, batch, mesh):
+        from repro_torch.distributed import collectives
+        from repro_torch.launch.mesh import data_axes
+
+        tokens, extra = batch["tokens"], batch.get("extra_embeds")
+        x, aux, top, tp = self._hidden_mesh(params, tokens, extra, mesh)
+        if extra is not None:
+            x = x[:, extra.shape[1]:]
+        name = "head" if "head" in top else "embed"
+        if tp.split(name, "table"):
+            nll = vocab_parallel_cross_entropy(top[name], x[:, :-1],
+                                               tokens[:, 1:], tp)
+        else:
+            nll = softmax_cross_entropy(unembed(top[name], x[:, :-1]),
+                                        tokens[:, 1:])
+        dp = data_axes(mesh)
+        if batch.get("loss_mask") is None:
+            local = nll.sum()
+            count = float(nll.numel())
+            for a in dp:
+                count *= mesh.size(a)
+        else:
+            m = batch["loss_mask"][:, 1:].float()
+            local = torch.sum(nll * m)
+            count = m.sum()
+            for a in dp:
+                collectives.all_reduce(count, mesh, a)
+            count = count.clamp_min(1.0)
+        ce = collectives.reduce_from(local / count, mesh, dp)
+        return ce + 0.01 * aux
 
     # ---------------------------------------------------- contiguous decode
     def init_decode_cache(self, batch: int, max_seq: int):
@@ -298,6 +415,7 @@ class TransformerLM:
         lp_all = params["layers"]
         for i in range(cfg.num_layers):
             lp = stacking.layer(lp_all, i)
+            x = constrain_batch(x)
             h = rmsnorm(lp["ln1"], x[:, None], cfg.norm_eps)
             ctx = decode_attention(lp["attn"], h, cache["k"][i],
                                    cache["v"][i], seq_lens, cfg.attention)

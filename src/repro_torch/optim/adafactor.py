@@ -42,7 +42,7 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
             vc=tree_lib.map(vc_init, params))
 
     def update(grads, state: AdafactorState, params, lr):
-        grads, gnorm = _clip_or_widen(grads, grad_clip)
+        grads, gnorm = _clip_or_widen(grads, grad_clip, None, None)
         step = state.step + 1
         beta2 = 1.0 - step.float() ** -decay_pow
 

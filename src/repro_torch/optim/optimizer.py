@@ -18,11 +18,18 @@ What differs, on purpose:
 
 ``lr`` is a Python float or a 0-d tensor (``schedules``), so nothing here
 reads the card on the host.
+
+On a mesh (``update(..., mesh=, split_axes=)``, the sharded train step)
+the trees hold this rank's shards and ``split_axes`` names, leaf by leaf,
+the mesh axes that split it: the global norm sums each leaf's squares over
+exactly those axes (:func:`global_norm`), so a leaf replicated over an
+axis is counted once, and clipping scales every shard by the same factor.
+The elementwise AdamW update needs nothing else.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,27 +46,44 @@ def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32 (0-d tensor)."""
-    parts = []
-    for x in tree_lib.leaves(tree):
-        flat = x.detach().reshape(-1).float()
-        parts.append(torch.dot(flat, flat))
-    return torch.sqrt(torch.stack(parts).sum())
+def global_norm(tree, mesh=None, split_axes=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32 (0-d tensor).
+
+    ``mesh``, ``split_axes`` (one tuple of axis names per leaf, in the
+    tree's order): ``tree`` holds this rank's shards; the squares of the
+    leaves split by the same axes are summed here and then over those axes
+    (one SUM an axis and a set of axes), and the sets added in a fixed
+    order, so every rank gets the same norm of the whole tree."""
+    sums: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    flat = tree_lib.leaves(tree)
+    axes_of = split_axes if mesh is not None else [()] * len(flat)
+    for x, axes in zip(flat, axes_of):
+        v = x.detach().reshape(-1).float()
+        sums.setdefault(tuple(axes), []).append(torch.dot(v, v))
+    total = []
+    for axes in sorted(sums):
+        part = torch.stack(sums[axes]).sum()
+        if axes:
+            from repro_torch.distributed import collectives
+            for a in axes:
+                collectives.all_reduce(part, mesh, a)
+        total.append(part)
+    return torch.sqrt(torch.stack(total).sum())
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(every leaf in float32 times min(1, max_norm / norm), norm)."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, mesh=None, split_axes=None):
+    """(every leaf in float32 times min(1, max_norm / norm), norm); the
+    norm over a sharded tree with ``mesh`` and ``split_axes``."""
+    norm = global_norm(tree, mesh, split_axes)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     return tree_lib.map(lambda g: g.float() * scale, tree), norm
 
 
-def _clip_or_widen(grads, grad_clip: Optional[float]):
+def _clip_or_widen(grads, grad_clip: Optional[float], mesh, split_axes):
     if grad_clip is not None:
-        return clip_by_global_norm(grads, grad_clip)
+        return clip_by_global_norm(grads, grad_clip, mesh, split_axes)
     grads = tree_lib.map(lambda g: g.float(), grads)
-    return grads, global_norm(grads)
+    return grads, global_norm(grads, mesh, split_axes)
 
 
 @dataclass(frozen=True)
@@ -77,8 +101,9 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return AdamWState(step=step, m=tree_lib.map(_f32_zeros, params),
                           v=tree_lib.map(_f32_zeros, params))
 
-    def update(grads, state: AdamWState, params, lr):
-        grads, gnorm = _clip_or_widen(grads, grad_clip)
+    def update(grads, state: AdamWState, params, lr, *, mesh=None,
+               split_axes=None):
+        grads, gnorm = _clip_or_widen(grads, grad_clip, mesh, split_axes)
         step = state.step + 1
         bc1 = 1.0 - torch.pow(b1, step.float())
         bc2 = 1.0 - torch.pow(b2, step.float())
@@ -114,8 +139,9 @@ def sgd_momentum(momentum: float = 0.9, grad_clip: Optional[float] = None
                                          device=_device(params)),
                         mom=tree_lib.map(_f32_zeros, params))
 
-    def update(grads, state: SGDState, params, lr):
-        grads, gnorm = _clip_or_widen(grads, grad_clip)
+    def update(grads, state: SGDState, params, lr, *, mesh=None,
+               split_axes=None):
+        grads, gnorm = _clip_or_widen(grads, grad_clip, mesh, split_axes)
         flat_p, structure = tree_lib.flatten(params)
         updates = []
         for p, g, b in zip(flat_p, tree_lib.leaves(grads),

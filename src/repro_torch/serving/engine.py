@@ -68,10 +68,10 @@ seeded generator over the same combined logits, so the ranks' streams
 agree, and greedy streams are the single-device engine's.  A
 copy-on-write pair across ranks moves its block over the axis
 (``paged_kv.copy_pool_blocks_sharded``).  ``metrics()`` reports
-``backend == "sharded"``, ``devices`` and ``mesh_shape``.  Refused with a
-mesh, as the reference refuses it: the host tier (``ValueError``); and in
-the port, a MoE config (``NotImplementedError``: expert parallelism is the
-training half's).
+``backend == "sharded"``, ``devices`` and ``mesh_shape``.  A MoE config
+runs its experts split over the ranks (each rank its experts over every
+lane at full capacity, one float32 SUM: ``layers.moe``).  Refused with a
+mesh, as the reference refuses it: the host tier (``ValueError``).
 """
 from __future__ import annotations
 
@@ -199,7 +199,6 @@ class ServingEngine:
             cfg.num_layers, nb // S, bs, a.num_kv_heads, a.head_dim,
             model.dtype, self.device)}
         if mesh is not None:
-            model.tensor_parallel(mesh, self.mesh_axis)  # refuses MoE
             params = model.shard_params(params, mesh, self.mesh_axis)
         self.params = params
         self.B = serve.max_batch

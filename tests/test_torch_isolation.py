@@ -91,7 +91,9 @@ import repro_torch.bench.energy, repro_torch.launch.dryrun
 import repro_torch.roofline.model_flops, repro_torch.configs
 import repro_torch.distributed.collectives, repro_torch.distributed.sharding
 import repro_torch.launch.mesh, repro_torch.bench.collectives
-import repro_torch.bench.sharded
+import repro_torch.bench.sharded, repro_torch.bench.sharded_train
+import repro_torch.distributed.act_sharding
+import repro_torch.distributed.pipeline, repro_torch.distributed.compression
 assert not any(m.split(".")[0] in ("jax", "repro", "benchmarks")
                for m in sys.modules)
 print("ok")
@@ -116,6 +118,33 @@ def test_mesh_modules_import_with_jax_blocked():
     files = [PORT / "launch" / "mesh.py", PORT / "bench" / "collectives.py",
              PORT / "bench" / "sharded.py",
              *sorted((PORT / "distributed").glob("*.py"))]
+    assert all(f.exists() for f in files)
+    assert [(f.name, n) for f in files for n in _imports(f)
+            if n.split(".")[0] in ("jax", "jaxlib", "repro",
+                                   "benchmarks")] == []
+
+
+_TRAIN_MESH_BLOCKER = _BLOCKER.split("import repro_torch.serving.engine")[0] + """
+import repro_torch.distributed.act_sharding, repro_torch.distributed.pipeline
+import repro_torch.distributed.compression, repro_torch.bench.sharded_train
+import repro_torch.training.train_step, repro_torch.launch.train
+import repro_torch.layers.moe, repro_torch.models.dlrm
+import repro_torch.core.embedding_api, repro_torch.optim.optimizer
+assert not any(m.split(".")[0] in ("jax", "repro", "benchmarks")
+               for m in sys.modules)
+print("ok")
+"""
+
+
+def test_training_mesh_modules_import_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _TRAIN_MESH_BLOCKER],
+                       capture_output=True, text=True, timeout=120, env=env)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    files = [PORT / "bench" / "sharded_train.py",
+             PORT / "training" / "train_step.py",
+             *[PORT / "distributed" / f"{n}.py"
+               for n in ("act_sharding", "pipeline", "compression")]]
     assert all(f.exists() for f in files)
     assert [(f.name, n) for f in files for n in _imports(f)
             if n.split(".")[0] in ("jax", "jaxlib", "repro",

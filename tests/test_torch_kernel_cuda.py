@@ -41,7 +41,9 @@ two calls give the same bits (the splits combine in split order, not in
 arrival order), and the ops add no host sync.  With ``with_stats`` the
 three paged kernels' ``(m, l)`` lie within 2e-5 of max(1, |value|) of the
 plain partials and their output keeps its bits; B4's row window gives its
-plain version's bits, and a table's windows sum to the whole lookup.
+plain version's bits, and a table's windows sum to the whole lookup; the
+backward's row window meets its plain version at atol 1e-5 (float atomics)
+and the windows' gradients are the rows of the whole gradient.
 """
 import os
 import shutil
@@ -639,6 +641,36 @@ def test_embedding_backward_kernel_matches_plain_version(card, case):
     gids = (idx + offs[None, :, None]).reshape(-1)
     want = emb_api.batched_table_backward(ct, gids, R)
     torch.testing.assert_close(t.grad, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", EMB_BWD_CASES)
+def test_embedding_backward_window_kernel_matches_plain_version(card, case):
+    """The backward's row window through the window's autograd Function
+    against its plain version (atol 1e-5 / rtol 1e-5, float atomics), one
+    launch a backward; the four windows' gradients are the rows of the
+    whole gradient; ids below the window and past it add nothing."""
+    tbl, offs, idx = _emb_inputs(card, *case, torch.float32, seed=6)
+    R = tbl.shape[0]
+    if idx.shape[2] > 2:
+        idx[:, :, 2] = idx[:, :, 0]
+    gen = torch.Generator(device=card)
+    gen.manual_seed(7)
+    ct = torch.randn((*idx.shape[:2], tbl.shape[1]), generator=gen,
+                     device=card)
+    gids = (idx + offs[None, :, None]).reshape(-1)
+    whole = emb_api.batched_table_backward(ct, gids, R)
+    q = R // 4
+    for lo in range(0, R, q):
+        hi = min(lo + q, R)
+        t = tbl[lo:hi].clone().requires_grad_(True)
+        before = emb_api.embedding_bag_backward_window.launches
+        emb_api.embedding_bag_window(t, offs, idx, lo, hi).backward(ct)
+        torch.cuda.synchronize()
+        assert emb_api.embedding_bag_backward_window.launches == before + 1
+        want = emb_api.batched_table_backward_window(ct, gids, lo, hi)
+        torch.testing.assert_close(t.grad, want, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(t.grad, whole[lo:hi], atol=1e-5,
+                                   rtol=1e-5)
 
 
 def test_embedding_backward_refuses_bad_inputs(card):
