@@ -421,13 +421,47 @@ Phases, each of which raises on failure (the script catches none):
    gradient tree on 4 ranks: the int32 sums exact (an int64 SUM and a
    gathered sample), each leaf within half the int8 scale of the f32 mean,
    the wire bytes against f32's.
+49. the last of the mesh, gloo ranks sharing the card, float32 with TF32
+   off unless said: (a) ``serving.steps.jit_prefill_step`` /
+   ``jit_serve_step`` on a (1, 2) mesh (``bench.sharded_steps.serve_job``:
+   the contiguous cache sequence-sharded, each rank its 40 of 80
+   positions) for llama31-8b, rwkv6-1.6b, zamba2-2.7b and whisper-tiny at
+   full width (``STEPS_DEPTH`` layers each, printed), phase 40's 8
+   prompts cut to their first 64 tokens going in through decode steps,
+   then 16 greedy steps: the prefill's and every step's logits within
+   1e-4 of the largest logit of one device's ``make_prefill_step`` /
+   ``make_serve_step`` on the same weights, the greedy streams identical,
+   each leaf of each rank's cache shard within 1e-5 of max(1, its largest
+   |value|) of one device's cache cut by ``cache_spec``; then llama31-8b in bf16, its streams held by phase 30's
+   rule; each run's step ms p50 and collectives a step ("gloo, 2 ranks on
+   one card"); (b) rwkv6-1.6b, zamba2-2.7b and whisper-tiny (its stub
+   frames as ``extra_embeds``) at full width (``TRAIN49_DEPTH``, printed;
+   the three meshes in one spawn of 4 ranks), 3 steps
+   of ``jit_train_step`` on (data 2, model 2) against one device at phase
+   48a's limits (whisper's cross-attention key bias, whose exact gradient
+   is 0, within Adam's bound of its init on both sides; on rwkv6's
+   ``embed/table`` alone, whose rows behind ``ln0`` move by ~1e-4 under a
+   re-association alone, an element past 1e-4 within twice one device's
+   own spread at that element, from a control run in the same call whose
+   gradients are the mean of two half-batches', and at most 1e-6 of the
+   shard's elements so); (c) the dry run, started before (a) so that it runs beside
+   (a) and (b),
+   on the production meshes on the host (meta device): the reference
+   integration test's four cells at their real sizes, rank 0 of 16x16 /
+   2x16x16, each ``ok`` with collective bytes, its ``hlo_flops / chips``
+   beside the one-card count of the same cell and the seconds each took.
+
+Phases 47-49's rank jobs run on kept rank processes
+(``repro_torch.launch.mesh.rank_pools``: a pool of gloo ranks a rank
+count, started on first use and closed at the end), so each phase pays
+for its jobs, not for a spawn.
 
 Each path (phases 5, 10, 15, 16, 22, 23, 25, 26, 27a, 27b, 28a-c, 29, 30,
-34b-d, 37, 38, 40, 41, 42a-b, 43, 45, 46 and, on every rank, 47a-c and
-48b-c) runs
+34b-d, 37, 38, 40, 41, 42a-b, 43, 45, 46 and, on every rank, 47a-c,
+48a-c and 49a-b; 49c on the host) runs
 with every kernel's launch count set to 0 just before it and read just
-after.  The card's peaks come
-from ``repro_torch.roofline.analysis.HW``.
+after; phases 48a and 49 launch none, and fail if one is counted.  The
+card's peaks come from ``repro_torch.roofline.analysis.HW``.
 
 The ragged and chunked kernels run bf16 prefill owners (two or more lanes)
 on the tensor-core tile and everything else on the SIMT tile; their JSON
@@ -435,11 +469,12 @@ records say so in ``tile`` and carry the mixed and decode steps' times,
 steps and launches (at llama31-8b's width too, under ``llama31_8b``).
 Phases 28-30's readings are one JSON line with the card's name and power
 limit, phases 31-34's another, phases 35-38's a third, phases
-39-41's a fourth, phases 42-46's a fifth, phase 47's a sixth and phase
-48's a seventh.  The line before the last is the kernels' JSON record (the
-seven kernels, B4's backward and the backward's row window); the last line
-is
-``{"ok": true, "device": {...}}``.  Without a card the script exits
+39-41's a fourth, phases 42-46's a fifth, phase 47's a sixth, phase
+48's a seventh and phase 49's an eighth; each phase prints its seconds,
+and the script its total before the kernels' line.  The line before the
+last is the kernels' JSON record (the seven kernels, B4's backward and
+the backward's row window); the last line is ``{"ok": true, "device":
+{...}}``.  Without a card the script exits
 nonzero before printing either.
 """
 from __future__ import annotations
@@ -557,6 +592,9 @@ FLASH_CHECK_SHAPES = FLASH_SHAPES + (
     ("G 3 S 65", 2, 65, 6, 2, 128, "bfloat16", True),
     ("G 8 S 65", 2, 65, 8, 1, 16, "bfloat16", True),
     ("G 8 S 1000", 2, 1000, 16, 2, 32, "bfloat16", True))
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -1381,11 +1419,7 @@ def main() -> int:
     from repro_torch.serving import engine as engine_mod
 
     # the launch counts, held here: a Capture replaces a module attribute
-    counted = (api.paged_attention_ragged_op, api.paged_attention_chunked_op,
-               api.paged_attention_op, emb_api.embedding_bag,
-               emb_api.embedding_bag_backward,
-               emb_api.embedding_bag_backward_window, *stream_ops.OPS,
-               *gs_ops.OPS, flash_attention)
+    counted = kernel_ops()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1993,6 +2027,35 @@ def main() -> int:
     log(json.dumps({"train_mesh": mesh48, "card": card}, default=str))
     win48 = mesh48["rm2"]
 
+    # 49. the last of the mesh: serve steps, the families, the dry run ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t49 = time.perf_counter()
+    for op in counted:          # 49c counts on the host beside 49a-b
+        op.launches = 0
+    dry49 = start_dryrun_production(roof["cells"])
+    log(f"== 49a. jit_prefill_step / jit_serve_step on a {STEPS_MESH} "
+        "(data, model) mesh: llama31-8b, rwkv6-1.6b, zamba2-2.7b, "
+        "whisper-tiny at full width, f32, then llama31-8b bf16, against "
+        "one device")
+    mesh49 = {"serve_steps": serve_steps_phase(torch, np, cfg_mod, counted,
+                                               card)}
+    log(f"  phase 49a: {time.perf_counter() - t49:.1f} s")
+    log(f"== 49b. rwkv6-1.6b, zamba2-2.7b, whisper-tiny f32 at full width, "
+        f"{MESH_STEPS} steps of jit_train_step on a {TRAIN_MESH} (data, "
+        "model) mesh against one device")
+    t49b = time.perf_counter()
+    mesh49["train"] = families_mesh_training(torch, np, cfg_mod, card)
+    log(f"  phase 49b: {time.perf_counter() - t49b:.1f} s")
+    log("== 49c. the dry run on the production meshes (16x16, 2x16x16), "
+        "rank 0 counted on the host's meta device (started with 49a)")
+    t49c = time.perf_counter()
+    mesh49["dryrun"] = dryrun_production_phase(card, dry49)
+    check_no_launches(launches_of(counted), "49")
+    log(f"  phase 49c: {time.perf_counter() - t49c:.1f} s after 49b; phase "
+        f"49: {time.perf_counter() - t49:.1f} s")
+    log(json.dumps({"mesh_steps": mesh49, "card": card}, default=str))
+
     def sharded_of(key):
         """A paged kernel's phase-47b record: each rank's launches and its
         captured call's statistics check."""
@@ -2007,6 +2070,7 @@ def main() -> int:
         [s["max_abs_err"] for s in chunked_steps.values()] + [chunked_err]))
     for top in (ragged_top, chunked_top):
         del top["steps"], top["launches"]
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     log(json.dumps({"kernels": [{
         "name": KERNEL, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{KERNEL}.cu",
@@ -5929,6 +5993,13 @@ def collectives_phase(card):
 TRAIN_MESH = (2, 2)             # 48a / 48b's (data, model) mesh of 4 ranks
 MESH_STEPS = 3
 MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_PARAM_ATOL = 1e-5, 1e-4, 1e-4
+# the leaves where one device's own spread (a control run whose gradients
+# are the mean of two half-batches') may excuse an element past
+# MESH_PARAM_ATOL, element by element: rwkv6's embedding rows behind ln0,
+# which moved by 1.2e-4 under such a re-association alone; at most
+# CONTROL_CAP of a shard's elements (at least 1) pass so
+CONTROL_LEAVES = {"rwkv6-1.6b": ("embed/table",)}
+CONTROL_CAP = 1e-6
 EP_GROUPS = 4                   # 48b's all-to-all check: 2 groups a data row
 EP_OUT_ATOL, EP_AUX_RTOL, EP_GRAD_RTOL = 1e-5, 1e-6, 1e-5
 PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 8, 2
@@ -5964,86 +6035,182 @@ def granite_mesh_config(cfg_mod):
     return cfg_mod.get_config("granite-moe-1b-a400m")
 
 
+def mesh_train_spec(arch, model_kw=(), overrides=(), frames=None):
+    """48a / 48b / 49b's run: MESH_STEPS of phase 37's 8 x 256 batches
+    (``frames`` whisper's ``extra_embeds``, the same each step), full
+    width, seed 0's weights."""
+    from repro_torch.bench import sharded_train as st
+    from repro_torch.config import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+
+    ds = SyntheticLMDataset(get_config(arch).vocab_size, LM_SEQ, LM_BATCH)
+    batches = tuple(ds.batch_at(i) for i in range(MESH_STEPS))
+    if frames is not None:
+        batches = tuple(dict(b, extra_embeds=frames) for b in batches)
+    return st.TrainSpec(arch, batches, reduced=False, model_kw=model_kw,
+                        overrides=overrides)
+
+
+def one_device_training(torch, spec, what, tmp, zero_grad=()):
+    """``make_train_step`` on one device (its params saved under
+    ``tmp``): (result, seconds, the ``zero_grad`` leaves as drawn)."""
+    from repro_torch.bench import sharded_train as st
+
+    t0 = time.perf_counter()
+    single, launches = no_kernel_job(st.train_job, spec, None, "cuda", tmp)
+    check_no_launches(launches, f"{what} one device")
+    t_single = time.perf_counter() - t0
+    init = {}
+    if zero_grad:               # seed 0's draw on the card, these leaves
+        _, model = st.build(spec, "cuda")
+        drawn = dict(_paths(model.init(spec.seed)))
+        init = {p: drawn[p].float().cpu().numpy() for p in zero_grad}
+        del model, drawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return single, t_single, init
+
+
 def mesh_training(torch, arch, model_kw, card, what, overrides=()):
     """48a / 48b's training half: MESH_STEPS steps of ``jit_train_step``
     on TRAIN_MESH (each rank drawing its shards of seed 0's weights,
     ``init(shard=)``) against ``make_train_step`` on one device from the
-    same weights and batches (phase 37's 8 x 256): each step's loss and
-    grad_norm on every rank, and each rank's shards after the last step
-    against the same slices of the one-device params: the loss and
-    grad_norm at MESH_LOSS_RTOL / MESH_NORM_RTOL, the shards within
-    MESH_PARAM_ATOL (the elements past it counted and printed)."""
+    same weights and batches (:func:`mesh_train_spec`), held by
+    :func:`check_mesh_training`."""
+    from repro_torch.bench import sharded_train as st
+    from repro_torch.launch.mesh import run_ranks
+
+    spec = mesh_train_spec(arch, model_kw, overrides)
+    n = TRAIN_MESH[0] * TRAIN_MESH[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_48_") as tmp:
+        single, t_single, init = one_device_training(torch, spec, what, tmp)
+        t1 = time.perf_counter()
+        ranks = run_ranks(no_kernel_job, n, (st.train_job, spec, TRAIN_MESH,
+                                             "cuda", tmp), device="cuda",
+                          timeout=900.0)
+        return check_mesh_training(torch, spec, single, ranks, t_single,
+                                   time.perf_counter() - t1, tmp, what,
+                                   card)
+
+
+def check_mesh_training(torch, spec, single, ranks, t_single, t_mesh, tmp,
+                        what, card, zero_grad=(), init=None, control=()):
+    """Each rank's ``(train_job result, launches)`` against one device's:
+    each step's loss and grad_norm at MESH_LOSS_RTOL / MESH_NORM_RTOL,
+    the shards after the last step against the same slices of the
+    one-device params within MESH_PARAM_ATOL (the elements past it counted
+    and printed), no kernel launched.  ``zero_grad``: leaves whose exact
+    gradient is 0, each side held within Adam's bound (the steps' summed
+    learning rates) of its draw (``init``) instead.  ``control``: the
+    leaves (CONTROL_LEAVES) where an element past MESH_PARAM_ATOL passes
+    if it lies within twice one device's own spread AT THAT ELEMENT, and
+    at most CONTROL_CAP of the shard's elements pass so; the control run
+    once (its gradients as the mean of two half-batches': the same
+    function, the sums in another order; an element whose Adam moment
+    nearly cancels across steps moves by ~1e-4 either way).  Every other
+    leaf is held to MESH_PARAM_ATOL alone."""
     import numpy as np
 
     from repro_torch.bench import sharded_train as st
-    from repro_torch.config import get_config
-    from repro_torch.data.pipeline import SyntheticLMDataset
-    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.distributed.sharding import shard_leaf
 
-    vocab = get_config(arch).vocab_size
-    ds = SyntheticLMDataset(vocab, LM_SEQ, LM_BATCH)
-    spec = st.TrainSpec(arch, tuple(ds.batch_at(i) for i in range(MESH_STEPS)),
-                        reduced=False, model_kw=model_kw,
-                        overrides=overrides)
-    n = TRAIN_MESH[0] * TRAIN_MESH[1]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_48_") as tmp:
-        t0 = time.perf_counter()
-        single = f32_job(st.train_job, spec, None, "cuda", tmp)
-        t_single = time.perf_counter() - t0
-        gc.collect()
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        ranks = run_ranks(f32_job, n, (st.train_job, spec, TRAIN_MESH,
-                                       "cuda", tmp), device="cuda",
-                          timeout=900.0)
-        t_mesh = time.perf_counter() - t1
-        full = torch.load(single["shards"], map_location="cpu")
-        _, model = st.build(spec, "cpu")
-        out = dict(one_device=single["metrics"], seconds_one=t_single,
-                   seconds_mesh=t_mesh, ranks=[])
-        for rk in ranks:
-            got = dict(_paths(torch.load(rk["shards"], map_location="cpu")))
-            exp = dict(_paths(st.expected_shard(model, full, rk["coords"],
-                                                TRAIN_MESH)))
-            dense, beyond, nel, far = 0.0, 0, 0, {}
-            for path, a in got.items():
-                b = exp[path]
-                if tuple(a.shape) != tuple(b.shape):
-                    raise AssertionError(f"{what} rank {rk['coords']} "
-                                         f"{path}: shard {tuple(a.shape)} "
-                                         f"!= {b.shape}")
-                d = np.abs(a.float().numpy() - b)
-                beyond += int((d > 1e-5).sum())
-                nel += d.size
-                if d.max() > MESH_PARAM_ATOL:
-                    far[path] = (float(d.max()),
-                                 int((d > MESH_PARAM_ATOL).sum()))
-                dense = max(dense, float(d.max()))
-            for i, (g, w) in enumerate(zip(rk["metrics"], single["metrics"])):
-                if (abs(g["loss"] - w["loss"]) > MESH_LOSS_RTOL * abs(w["loss"])
-                        or abs(g["grad_norm"] - w["grad_norm"])
-                        > MESH_NORM_RTOL * abs(w["grad_norm"])):
-                    raise AssertionError(f"{what} rank {rk['coords']} step "
-                                         f"{i + 1}: {g} against one "
-                                         f"device's {w}")
-            if dense > MESH_PARAM_ATOL:
-                raise AssertionError(f"{what} rank {rk['coords']}: params "
-                                     f"{dense:.2e} from one device's; past "
-                                     f"{MESH_PARAM_ATOL}: {far}")
-            out["ranks"].append(dict(coords=rk["coords"],
-                                     metrics=rk["metrics"],
-                                     param_max_abs_diff=dense,
-                                     params_beyond_1e5=beyond,
-                                     shard_elements=nel, leaves_past=far))
-            log(f"  {what} rank {rk['coords']}: losses "
-                + ", ".join(f"{m['loss']:.6f}" for m in rk["metrics"])
-                + " grad_norm "
-                + ", ".join(f"{m['grad_norm']:.6f}" for m in rk["metrics"])
-                + f"; shards after step {MESH_STEPS} within {dense:.2e} of "
-                f"one device's ({beyond} of {nel} elements past 1e-5; past "
-                f"{MESH_PARAM_ATOL}: {far}); step s "
-                + ", ".join(f"{m['step_s']:.2f}" for m in rk["metrics"])
-                + f"  [{card}]")
+    for _, launches in ranks:
+        check_no_launches(launches, f"{what} rank")
+    ranks = [rk for rk, _ in ranks]
+    init = init or {}
+    full = torch.load(single["shards"], map_location="cpu")
+    _, model = st.build(spec, "cpu")
+    lr_sum = sum(m["lr"] for m in single["metrics"])
+    controlled = {}
+    out = dict(one_device=single["metrics"], seconds_one=t_single,
+               seconds_mesh=t_mesh, ranks=[])
+    for rk in ranks:
+        got = dict(_paths(torch.load(rk["shards"], map_location="cpu")))
+        exp = dict(_paths(st.expected_shard(model, full, rk["coords"],
+                                            TRAIN_MESH)))
+        at = st.at_coords(rk["coords"], TRAIN_MESH)
+        x0 = {p: shard_leaf(torch.from_numpy(v), model.sharding_rules(
+            at).param_spec(tuple(p.split("/")), v.shape), at).numpy()
+            for p, v in init.items()}
+        dense, beyond, nel, far, past = 0.0, 0, 0, {}, {}
+        for path in zero_grad:
+            a = got.pop(path).float().numpy()
+            moved = max(float(np.abs(a - x0[path]).max()),
+                        float(np.abs(exp[path] - x0[path]).max()))
+            if moved > lr_sum * (1 + 1e-6):
+                raise AssertionError(f"{what} rank {rk['coords']} "
+                                     f"{path}: moved {moved:.3e} from "
+                                     f"its init, Adam's bound "
+                                     f"{lr_sum:.3e}")
+            far[path] = ("zero gradient: moved", moved)
+        for path, a in got.items():
+            b = exp[path]
+            if tuple(a.shape) != tuple(b.shape):
+                raise AssertionError(f"{what} rank {rk['coords']} "
+                                     f"{path}: shard {tuple(a.shape)} "
+                                     f"!= {b.shape}")
+            d = np.abs(a.float().numpy() - b)
+            beyond += int((d > 1e-5).sum())
+            nel += d.size
+            if d.max() > MESH_PARAM_ATOL:
+                far[path] = (float(d.max()),
+                             int((d > MESH_PARAM_ATOL).sum()))
+                if path in control:
+                    past[path] = d
+            dense = max(dense, float(d.max()))
+        for i, (g, w) in enumerate(zip(rk["metrics"], single["metrics"])):
+            if (abs(g["loss"] - w["loss"]) > MESH_LOSS_RTOL * abs(w["loss"])
+                    or abs(g["grad_norm"] - w["grad_norm"])
+                    > MESH_NORM_RTOL * abs(w["grad_norm"])):
+                raise AssertionError(f"{what} rank {rk['coords']} step "
+                                     f"{i + 1}: {g} against one "
+                                     f"device's {w}")
+        if past:
+            # one device's own spread on these leaves (the control: its
+            # gradients as two half-batches'), run once a call, element
+            # by element
+            if not controlled:
+                ctrl, launches = no_kernel_job(st.train_job, spec, None,
+                                               "cuda", tmp, True)
+                check_no_launches(launches, f"{what} control")
+                controlled["full"] = torch.load(ctrl["shards"],
+                                                map_location="cpu")
+                out["control"] = ctrl["metrics"]
+            spread = dict(_paths(st.expected_shard(
+                model, controlled["full"], rk["coords"], TRAIN_MESH)))
+            for path, d in past.items():
+                at_past = d > MESH_PARAM_ATOL
+                own = np.abs(spread[path] - exp[path])[at_past]
+                ratio = float((d[at_past] / np.maximum(own, 1e-30)).max())
+                cap = max(1, int(CONTROL_CAP * d.size))
+                log(f"  {what} rank {rk['coords']} {path}: "
+                    f"{int(at_past.sum())} elements past {MESH_PARAM_ATOL} "
+                    f"(cap {cap}), the largest ratio to one device's own "
+                    f"spread at the element {ratio:.3f} (limit 2)")
+                if ratio <= 2 and int(at_past.sum()) <= cap:
+                    far[path] = far[path] + ("control: d / own spread at "
+                                             "the element", ratio)
+        worst = max([0.0] + [v[0] for v in far.values()
+                             if not isinstance(v[0], str)
+                             and len(v) == 2])
+        if worst > MESH_PARAM_ATOL:
+            raise AssertionError(f"{what} rank {rk['coords']}: params "
+                                 f"{dense:.2e} from one device's; past "
+                                 f"{MESH_PARAM_ATOL}: {far}")
+        out["ranks"].append(dict(coords=rk["coords"],
+                                 metrics=rk["metrics"],
+                                 param_max_abs_diff=dense,
+                                 params_beyond_1e5=beyond,
+                                 shard_elements=nel, leaves_past=far))
+        log(f"  {what} rank {rk['coords']}: losses "
+            + ", ".join(f"{m['loss']:.6f}" for m in rk["metrics"])
+            + " grad_norm "
+            + ", ".join(f"{m['grad_norm']:.6f}" for m in rk["metrics"])
+            + f"; shards after step {MESH_STEPS} within {dense:.2e} of "
+            f"one device's ({beyond} of {nel} elements past 1e-5; past "
+            f"{MESH_PARAM_ATOL}: {far}); step s "
+            + ", ".join(f"{m['step_s']:.2f}" for m in rk["metrics"])
+            + f"  [{card}]")
     log(f"  {what} one device: losses "
         + ", ".join(f"{m['loss']:.6f}" for m in single["metrics"])
         + " grad_norm "
@@ -6675,6 +6842,340 @@ def compression_phase(card):
     return ranks
 
 
+# ---------------------------------------------------------------- phase 49
+STEPS_MESH = (1, 2)             # 49a: the serve steps on 2 model ranks
+STEPS_PROMPT, STEPS_NEW = 64, 16  # phase 40's prompts cut to 64 tokens
+STEPS_MAX_SEQ = STEPS_PROMPT + STEPS_NEW    # 40 positions a rank
+STEPS_LOGIT_RTOL = 1e-4         # of the largest logit
+STEPS_CACHE_ATOL = 1e-5         # of max(1, a leaf's largest |value|)
+# the depths phase 49 runs at full width: every gloo collective of a step
+# is staged through host memory (1-5 ms a call, 47d), so a step's time is
+# its layers' collectives; printed with each run
+STEPS_DEPTH = {"llama31-8b": LLAMA_LAYERS, "rwkv6-1.6b": 4,
+               "zamba2-2.7b": 6, "whisper-tiny": 2}
+TRAIN49_DEPTH = {"rwkv6-1.6b": 6, "zamba2-2.7b": 6, "whisper-tiny": 4}
+# whisper's cross-attention key bias: its exact gradient is 0 (q . bk is
+# the same on every key, and the softmax drops it), so Adam moves it by
+# the sign of rounding noise; held within Adam's bound instead
+ZERO_GRAD_LEAVES = {"whisper-tiny": ("dec_layers/cross_attn/bk",)}
+DRY49_CELLS = (("smollm-360m", "train_4k", "16x16"),
+               ("smollm-360m", "train_4k", "2x16x16"),
+               ("granite-moe-1b-a400m", "decode_32k", "2x16x16"),
+               ("rwkv6-1.6b", "prefill_32k", "16x16"))
+
+
+def kernel_ops():
+    """Every kernel wrapper whose ``launches`` the script counts."""
+    from repro_torch.core import attention_api as api
+    from repro_torch.core import embedding_api as emb_api
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.gather_scatter import ops as gs_ops
+    from repro_torch.kernels.stream import ops as stream_ops
+
+    return (api.paged_attention_ragged_op, api.paged_attention_chunked_op,
+            api.paged_attention_op, emb_api.embedding_bag,
+            emb_api.embedding_bag_backward,
+            emb_api.embedding_bag_backward_window, *stream_ops.OPS,
+            *gs_ops.OPS, flash_attention)
+
+
+def launches_of(ops) -> dict:
+    return {getattr(op, "name", "") or type(op).__name__.lstrip("_"):
+            op.launches for op in ops}
+
+
+def no_kernel_job(fn, *args):
+    """``fn(*args)`` on a rank with TF32 off and every kernel's launch
+    count set to 0 just before and read just after: ``(result,
+    launches)``.  Phase 49's paths launch no kernel of the port."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops = kernel_ops()
+    for op in ops:
+        op.launches = 0
+    out = fn(*args)
+    return out, launches_of(ops)
+
+
+def check_no_launches(launches, what):
+    if any(launches.values()):
+        raise AssertionError(f"{what}: kernels launched on a path that "
+                             f"has none: {launches}")
+
+
+def steps_spec(np, cfg_mod, arch, dtype="float32"):
+    """49a's run of ``arch``: phase 40's 8 prompts cut to their first
+    STEPS_PROMPT tokens (and whisper's frames), STEPS_DEPTH layers at full
+    width, seed 0's weights."""
+    from repro_torch.bench import sharded_steps as ss
+
+    tokens, extra = family_inputs(np, cfg_mod.get_config(arch), FAM_BATCH,
+                                  FAM_PROMPT, seed=40)
+    return ss.ServeSpec(arch, np.ascontiguousarray(tokens[:, :STEPS_PROMPT]),
+                        STEPS_NEW, STEPS_MAX_SEQ, reduced=False,
+                        overrides=(("num_layers", STEPS_DEPTH[arch]),),
+                        dtype=dtype, frames=extra)
+
+
+def top2_gaps(logits, prompt):
+    """{(request, token j): its top-2 logits} of a run's greedy tokens
+    (``logits`` (steps, B, V) a tensor; decode step ``prompt - 1 + j``
+    gives token j)."""
+    top = logits[prompt - 1:].topk(2, dim=-1).values
+    return {(b, j): top[j, b] for j in range(top.shape[0])
+            for b in range(top.shape[1])}
+
+
+def serve_steps_phase(torch, np, cfg_mod, counted, card):
+    """49a: ``jit_prefill_step`` / ``jit_serve_step`` on STEPS_MESH for
+    llama31-8b, rwkv6-1.6b, zamba2-2.7b and whisper-tiny in float32 (TF32
+    off), then llama31-8b in bf16, against ``make_prefill_step`` /
+    ``make_serve_step`` on one device on the same weights: the prefill's
+    and every step's logits within STEPS_LOGIT_RTOL of the largest logit,
+    the greedy streams identical (bf16: phase 30's rule), each leaf of
+    each rank's cache shard within STEPS_CACHE_ATOL of max(1, its largest
+    |value|) of one device's cache cut by ``cache_spec``; step ms p50 and
+    the collectives a step."""
+    from repro_torch.bench import sharded_steps as ss
+    from repro_torch.launch.mesh import run_ranks
+
+    runs = {a: steps_spec(np, cfg_mod, a) for a in STEPS_DEPTH}
+    runs["llama31-8b bf16"] = steps_spec(np, cfg_mod, "llama31-8b",
+                                         "bfloat16")
+    for name, spec in runs.items():
+        log(f"  49a {name}: {STEPS_DEPTH[spec.arch]} of "
+            f"{cfg_mod.get_config(spec.arch).num_layers} layers at full "
+            f"width (depth cut for time), {spec.dtype}, 8 prompts x "
+            f"{STEPS_PROMPT} tokens + {STEPS_NEW} greedy")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_49a_") as tmp:
+        one = {}
+        for name, spec in runs.items():
+            d = os.path.join(tmp, name.replace(" ", "_") + "_one")
+            os.makedirs(d)
+            for op in counted:
+                op.launches = 0
+            t0 = time.perf_counter()
+            res, launches = no_kernel_job(ss.serve_job, spec, None, "cuda",
+                                          d)
+            check_no_launches(launches, f"49a {name} one device")
+            res["wall"] = time.perf_counter() - t0
+            one[name] = res
+            log(f"  49a {name} one device: {res['wall']:.1f} s ("
+                + ", ".join(f"{k} {v:.1f}" for k, v in res["seconds"].items())
+                + ")")
+            gc.collect()
+            torch.cuda.empty_cache()
+        calls = []
+        for name, spec in runs.items():
+            d = os.path.join(tmp, name.replace(" ", "_") + "_mesh")
+            os.makedirs(d)
+            calls.append((no_kernel_job, (ss.serve_job, spec, STEPS_MESH,
+                                          "cuda", d)))
+        t1 = time.perf_counter()
+        ranks = run_ranks(ss.many, STEPS_MESH[0] * STEPS_MESH[1], (calls,),
+                          device="cuda", timeout=900.0)
+        t_mesh = time.perf_counter() - t1
+        log(f"  49a the mesh: {t_mesh:.1f} s for the {len(runs)} runs on "
+            f"{STEPS_MESH[0] * STEPS_MESH[1]} ranks, the spawn included")
+        for i, (name, spec) in enumerate(runs.items()):
+            t2 = time.perf_counter()
+            _, model = ss.build(spec, "meta")
+            want = torch.load(one[name]["arrays"], weights_only=True,
+                              mmap=True)
+            want_cache = {k: v.numpy() for k, v in want["cache"].items()}
+            scale = float(want["logits"].abs().max())
+            rec = dict(layers=STEPS_DEPTH[spec.arch], dtype=spec.dtype,
+                       one_device_step_ms_p50=1e3 * float(np.median(
+                           one[name]["step_s"])), ranks=[])
+            for rk in ranks:
+                res, launches = rk[i]
+                check_no_launches(launches, f"49a {name} rank")
+                got = torch.load(res["arrays"], weights_only=True,
+                                 mmap=True)
+                r = res["coords"]["model"]
+                what = f"49a {name} rank {r}"
+                p_err = float((got["prefill"] - want["prefill"]).abs().max())
+                l_err = float((got["logits"] - want["logits"]).abs().max())
+                exp = ss.expected_cache_shard(model, want_cache,
+                                              res["coords"], STEPS_MESH)
+                got["cache"] = {k: v.numpy() for k, v in got["cache"].items()}
+                # each leaf within STEPS_CACHE_ATOL of max(1, its largest
+                # |value|): the K/V absolutely, a recurrent state (RWKV's
+                # S sums 80 steps of outer products) relatively
+                leaf_err = {k: (float(np.abs(got["cache"][k] - exp[k]).max()),
+                                max(1.0, float(np.abs(exp[k]).max())))
+                            for k in exp}
+                c_err = max(e / m for e, m in leaf_err.values())
+                if spec.dtype == "float32":
+                    if not (p_err <= STEPS_LOGIT_RTOL * scale
+                            and l_err <= STEPS_LOGIT_RTOL * scale):
+                        raise AssertionError(
+                            f"{what}: logits {l_err:.3e}, prefill "
+                            f"{p_err:.3e} against one device (largest "
+                            f"logit {scale:.3f})")
+                    if not np.array_equal(res["streams"],
+                                          one[name]["streams"]):
+                        raise AssertionError(f"{what}: greedy streams "
+                                             "differ from one device's")
+                    if c_err > STEPS_CACHE_ATOL:
+                        raise AssertionError(f"{what}: cache shard "
+                                             f"{c_err:.3e} of max(1, |v|) "
+                                             f"from one device's: {leaf_err}")
+                    parity = "identical"
+                else:               # a parted stream parts the rest too
+                    parity = bf16_parity(
+                        {b: list(s) for b, s in enumerate(res["streams"])},
+                        {b: list(s) for b, s in
+                         enumerate(one[name]["streams"])},
+                        top2_gaps(want["logits"], STEPS_PROMPT),
+                        what, "one device")
+                ms = 1e3 * float(np.median(res["step_s"]))
+                coll = {k: v for k, v in res["collectives"].items() if v}
+                rec["ranks"].append(dict(
+                    rank=r, logit_max_abs_diff=l_err,
+                    prefill_max_abs_diff=p_err, cache_rel_diff=c_err,
+                    cache_leaves=leaf_err,
+                    largest_logit=scale, streams=parity, step_ms_p50=ms,
+                    collectives_a_step=coll, launches=launches))
+                log(f"  {what}: " + ("" if spec.dtype == "float32" else
+                                     "(bf16: the streams by phase 30's rule; "
+                                     "logits and cache part where they part) ")
+                    + f"logits {l_err:.3e} / prefill {p_err:.3e} "
+                    f"of largest {scale:.3f}; cache shard {c_err:.3e} of "
+                    "max(1, |v|) ("
+                    + ", ".join(f"{k} {e:.2e} of {m:.3g}"
+                                for k, (e, m) in leaf_err.items())
+                    + "); "
+                    f"streams {parity if isinstance(parity, str) else parity}"
+                    f"; step ms p50 {ms:.1f} (one device "
+                    f"{rec['one_device_step_ms_p50']:.1f}; gloo, 2 ranks on "
+                    f"one card), collectives a step {coll}; seconds "
+                    + ", ".join(f"{k} {v:.1f}"
+                                for k, v in res["seconds"].items())
+                    + f"  [{card}]")
+            rec["check_s"] = time.perf_counter() - t2
+            out[name] = rec
+    out["seconds_mesh"] = t_mesh
+    return out
+
+
+def families_mesh_training(torch, np, cfg_mod, card):
+    """49b: rwkv6-1.6b, zamba2-2.7b and whisper-tiny (its stub frames as
+    ``extra_embeds``) at full width and TRAIN49_DEPTH, MESH_STEPS steps of
+    ``jit_train_step`` on TRAIN_MESH against one device, at phase 48a's
+    limits (:func:`check_mesh_training`, with the control): the three
+    one-device runs first, then the three meshes in one spawn of the
+    ranks."""
+    from repro_torch.bench import sharded_steps as ss
+    from repro_torch.bench import sharded_train as st
+    from repro_torch.launch.mesh import run_ranks
+
+    n = TRAIN_MESH[0] * TRAIN_MESH[1]
+    out, runs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_49b_") as tmp:
+        for arch, depth in TRAIN49_DEPTH.items():
+            cfg = cfg_mod.get_config(arch)
+            log(f"  49b {arch}: {depth} of {cfg.num_layers} layers at full "
+                "width (depth cut for time), f32")
+            frames = (family_inputs(np, cfg, LM_BATCH, 1, seed=49)[1]
+                      if cfg.family == "audio" else None)
+            spec = mesh_train_spec(arch, (), (("num_layers", depth),),
+                                   frames)
+            d = os.path.join(tmp, arch)
+            os.makedirs(d)
+            zero = ZERO_GRAD_LEAVES.get(arch, ())
+            runs[arch] = (spec, d, zero) + one_device_training(
+                torch, spec, f"49b {arch}", d, zero)
+        t1 = time.perf_counter()
+        ranks = run_ranks(ss.many, n, ([
+            (no_kernel_job, (st.train_job, spec, TRAIN_MESH, "cuda", d))
+            for spec, d, *_ in runs.values()],), device="cuda",
+            timeout=900.0)
+        t_mesh = time.perf_counter() - t1
+        log(f"  49b the meshes: {t_mesh:.1f} s for the {len(runs)} models "
+            f"on {n} ranks, the spawn included")
+        for i, (arch, run) in enumerate(runs.items()):
+            spec, d, zero, single, t_single, init = run
+            out[arch] = check_mesh_training(
+                torch, spec, single, [rk[i] for rk in ranks], t_single,
+                t_mesh, d, f"49b {arch}", card, zero_grad=zero, init=init,
+                control=CONTROL_LEAVES.get(arch, ()))
+            out[arch]["layers"] = TRAIN49_DEPTH[arch]
+    return out
+
+
+def _dry_cell(arch, shape, mesh):
+    import repro_torch.launch.dryrun as dr
+
+    t0 = time.perf_counter()
+    multi = mesh == "2x16x16"
+    rec = dr.run_cell(arch, shape, multi_pod=multi,
+                      mesh=None if multi else mesh, verbose=False)
+    return rec, time.perf_counter() - t0
+
+
+def start_dryrun_production(one_card=None):
+    """49c's counts, started: one process a cell (host only, meta device),
+    so they run beside 49a-b's ranks.  Returns what
+    :func:`dryrun_production_phase` finishes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    cells = list(DRY49_CELLS)
+    if one_card is None:
+        cells += sorted({(a, s, "1") for a, s, _ in DRY49_CELLS})
+    pool = ProcessPoolExecutor(max_workers=len(cells),
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    return pool, {c: pool.submit(_dry_cell, *c) for c in cells}, one_card
+
+
+def dryrun_production_phase(card, started=None):
+    """49c: the reference integration test's four cells at their real
+    sizes, counted for rank 0 of the production meshes on the meta device
+    (host only, :func:`start_dryrun_production`), beside the one-card
+    count of each: phase 45's (its cells, ``"arch x shape"`` ->
+    {"flops", "count_s"}), or counted here too."""
+    pool, futures, one_card = started or start_dryrun_production()
+    with pool:
+        recs = {c: f.result() for c, f in futures.items()}
+    if one_card is None:
+        one_card = {f"{a} x {s}": {"flops": r["roofline"]["hlo_flops"],
+                                   "count_s": t}
+                    for (a, s, m), (r, t) in recs.items() if m == "1"}
+    out = []
+    for arch, shape, mesh in DRY49_CELLS:
+        rec, secs = recs[(arch, shape, mesh)]
+        one = one_card[f"{arch} x {shape}"]
+        if rec["status"] != "ok":
+            raise AssertionError(f"49c {arch} {shape} {mesh}: {rec}")
+        rl = rec["roofline"]
+        if not rl["collective_bytes"] > 0 or rl["mesh"] != mesh:
+            raise AssertionError(f"49c {arch} {shape} {mesh}: {rl}")
+        row = dict(arch=arch, shape=shape, mesh=mesh, chips=rl["chips"],
+                   flops_per_chip=rl["hlo_flops"] / rl["chips"],
+                   one_card_flops=one["flops"],
+                   collective_bytes_per_chip=rl["collective_bytes"]
+                   / rl["chips"],
+                   collectives=rec["full"]["collectives"],
+                   peak_gib_per_chip=rl["memory_per_device"] / 2 ** 30,
+                   bottleneck=rl["bottleneck"], seconds=secs,
+                   one_card_seconds=one["count_s"])
+        out.append(row)
+        log(f"  49c {arch} x {shape} x {mesh} ({rl['chips']} chips, rank "
+            f"0): hlo_flops / chips {row['flops_per_chip']:.4g} beside one "
+            f"card's {row['one_card_flops']:.4g}; collective bytes a chip "
+            f"{row['collective_bytes_per_chip']:.4g} "
+            f"{rec['full']['collectives']}; peak "
+            f"{row['peak_gib_per_chip']:.2f} GiB; bottleneck "
+            f"{rl['bottleneck']}; counted in {secs:.1f} s (one card "
+            f"{one['count_s']:.1f} s), on the host's meta device  [{card}]")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6684,4 +7185,9 @@ def _leaves(tree):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from repro_torch.launch.mesh import rank_pools
+
+    # phases 47-49's rank jobs run on kept rank processes, a pool a rank
+    # count, closed however the script ends
+    with rank_pools():
+        sys.exit(main())

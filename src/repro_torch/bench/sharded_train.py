@@ -89,12 +89,42 @@ def _state(spec: TrainSpec, model, opt, mesh):
                       torch.zeros((), dtype=torch.int32, device=model.device))
 
 
+def halves_step(model, opt, lr_fn):
+    """``make_train_step`` with each batch's gradient taken as the mean of
+    its two halves' (the same function, the sums in another order): one
+    device's own spread under a re-association, the control a mesh's
+    distance from one device is read against."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.optim.optimizer import apply_updates
+    from repro_torch.training.train_step import TrainState, loss_and_grads
+
+    def step(state, batch):
+        n = next(iter(batch.values())).shape[0] // 2
+        out = [loss_and_grads(model.loss, state.params,
+                              {k: v[i * n:(i + 1) * n]
+                               for k, v in batch.items()})
+               for i in range(2)]
+        (ga, structure), (gb, _) = (tree_lib.flatten(g) for _, g in out)
+        grads = tree_lib.unflatten(structure, [0.5 * (a + b)
+                                               for a, b in zip(ga, gb)])
+        lr = lr_fn(state.step)
+        updates, opt_state, gnorm = opt.update(grads, state.opt,
+                                               state.params, lr)
+        params = apply_updates(state.params, updates)
+        return TrainState(params, opt_state, state.step + 1), {
+            "loss": 0.5 * (out[0][0] + out[1][0]), "grad_norm": gnorm,
+            "lr": lr}
+
+    return step
+
+
 def train_job(spec: TrainSpec, mesh_shape: Optional[Sequence[int]],
-              device: str = "cpu", out_dir: Optional[str] = None) -> Dict:
+              device: str = "cpu", out_dir: Optional[str] = None,
+              halves: bool = False) -> Dict:
     """AdamW steps of ``jit_train_step`` (a batch each) on this rank's
     ``(data, model)`` mesh (``mesh_shape``), or of ``make_train_step`` on
-    one device (None): ``{"metrics": [{"loss", "grad_norm", "lr",
-    "step_s"}, ...],
+    one device (None; :func:`halves_step` with ``halves``):
+    ``{"metrics": [{"loss", "grad_norm", "lr", "step_s"}, ...],
     "coords", "shards"}``, the params after the last step (numpy; with
     ``out_dir`` a ``torch.save`` file there instead, its path)."""
     from repro_torch.distributed.sharding import ShardingRules
@@ -109,7 +139,8 @@ def train_job(spec: TrainSpec, mesh_shape: Optional[Sequence[int]],
     mesh = _mesh(mesh_shape) if mesh_shape is not None else None
     state = _state(spec, model, opt, mesh)
     if mesh is None:
-        step = make_train_step(model, opt, lr_fn)
+        step = (halves_step if halves else make_train_step)(model, opt,
+                                                             lr_fn)
     else:
         attn = getattr(cfg, "attention", None)
         rules = ShardingRules(mesh, head_dim=attn.head_dim if attn else None)
@@ -128,21 +159,19 @@ def train_job(spec: TrainSpec, mesh_shape: Optional[Sequence[int]],
     if out_dir is None:
         out["shards"] = _to_numpy(state.params)
     else:
-        rank = torch.distributed.get_rank() if mesh is not None else "single"
+        rank = (torch.distributed.get_rank() if mesh is not None
+                else "halves" if halves else "single")
         path = os.path.join(out_dir, f"params_{rank}.pt")
         torch.save({k: v for k, v in state.params.items()}, path)
         out["shards"] = path
     return out
 
 
-def expected_shard(model, full: Dict, mesh_coords: Dict, mesh_shape
-                   ) -> Dict:
-    """The slices of a whole params tree (numpy or tensors) that the rank
-    at ``mesh_coords`` of a ``(data, model)`` mesh of ``mesh_shape``
-    holds: the rules' specs cut as ``shard_leaf`` cuts them."""
-    from repro_torch.distributed.sharding import map_with_path
+def at_coords(mesh_coords: Dict, mesh_shape):
+    """The coordinates of one rank of a ``(data, model)`` mesh of
+    ``mesh_shape``, as the rules and ``shard_leaf`` read a mesh."""
 
-    class _At:                      # the coordinates of one rank
+    class _At:
         axis_names = ("data", "model")
         shape = dict(zip(("data", "model"), mesh_shape))
         coords = mesh_coords
@@ -153,7 +182,17 @@ def expected_shard(model, full: Dict, mesh_coords: Dict, mesh_shape
         def axis_index(self, a):
             return int(self.coords.get(a, 0))
 
-    at = _At()
+    return _At()
+
+
+def expected_shard(model, full: Dict, mesh_coords: Dict, mesh_shape
+                   ) -> Dict:
+    """The slices of a whole params tree (numpy or tensors) that the rank
+    at ``mesh_coords`` of a ``(data, model)`` mesh of ``mesh_shape``
+    holds: the rules' specs cut as ``shard_leaf`` cuts them."""
+    from repro_torch.distributed.sharding import map_with_path
+
+    at = at_coords(mesh_coords, mesh_shape)
     rules = model.sharding_rules(at)
 
     def cut(path, x):

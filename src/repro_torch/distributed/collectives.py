@@ -47,10 +47,23 @@ The process group's backend is whatever the caller initialised (gloo on
 the CPU and for ranks that share a card, NCCL for ranks on separate
 cards); this module asks which only where gloo cannot carry a CUDA
 tensor (:func:`shift`), and for reports (:func:`backend_name`).
+
+On an ABSTRACT mesh (``repro_torch.launch.mesh.make_production_mesh``:
+one rank's coordinates on the dry run's 256- or 512-chip meshes, no
+process group) nothing is sent: a collective over an axis of more than one
+rank takes meta tensors only (a real tensor raises), returns its result's
+shape (a gather multiplies the dim by the axis size, a reduce-scatter
+divides it, the rest keep it) and, inside :func:`counting`, adds its
+operand bytes to the tally of its kind: the reference's
+``collective_bytes_from_hlo`` sums the operand bytes of every
+``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all`` and
+``collective-permute`` of a device's program, which is what one rank's
+eager step calls here.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+import contextlib
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -59,12 +72,53 @@ SUM = "sum"
 MAX = "max"
 _OPS = {SUM: dist.ReduceOp.SUM, MAX: dist.ReduceOp.MAX}
 
+# the reference's kinds (repro.roofline.analysis._COLLECTIVES)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+_tally: Optional[Dict[str, float]] = None
+# the collectives this process has sent, by kind: plain integers a caller
+# may read (``bench.sharded_steps`` prints a step's)
+calls: Dict[str, int] = dict.fromkeys(KINDS, 0)
+
 
 Axes = Union[str, Tuple[str, ...]]
 
 
 def _group(mesh, axis: str):
     return mesh.group(axis)
+
+
+@contextlib.contextmanager
+def counting() -> Iterator[Dict[str, float]]:
+    """A tally, by kind and ``"total"``, of the operand bytes of the
+    collectives called over an abstract mesh inside the block (module
+    docstring); nested blocks each keep their own."""
+    global _tally
+    prev = _tally
+    _tally = dict.fromkeys(KINDS + ("total",), 0.0)
+    try:
+        yield _tally
+    finally:
+        _tally = prev
+
+
+def _counted(mesh, axis: str, x: torch.Tensor, kind: str) -> bool:
+    """True where the mesh is abstract: the collective is counted (its
+    operand ``x``'s bytes, over an axis of more than one rank) and not
+    run.  A real tensor there raises: an abstract axis is never taken for
+    one rank."""
+    if not getattr(mesh, "abstract", False):
+        return False
+    if x.device.type != "meta":
+        raise RuntimeError(
+            f"{kind} over axis {axis!r} of an abstract mesh on a "
+            f"{x.device.type} tensor: an abstract mesh only counts, on "
+            "meta tensors")
+    if mesh.size(axis) > 1 and _tally is not None:
+        nbytes = float(x.numel() * x.element_size())
+        _tally[kind] += nbytes
+        _tally["total"] += nbytes
+    return True
 
 
 def _axes(axis: Axes) -> Tuple[str, ...]:
@@ -77,8 +131,11 @@ def all_reduce(x: torch.Tensor, mesh, axis: str = "model",
     returns ``x``."""
     if op not in _OPS:
         raise ValueError(f"all_reduce op {op!r}: expected {sorted(_OPS)}")
+    if _counted(mesh, axis, x, "all-reduce"):
+        return x
     group = _group(mesh, axis)
     if group is not None:
+        calls["all-reduce"] += 1
         dist.all_reduce(x, op=_OPS[op], group=group)
     return x
 
@@ -87,7 +144,7 @@ def all_reduce_f32(x: torch.Tensor, mesh,
                    axis: str = "model") -> torch.Tensor:
     """SUM over the axis taken in float32, returned in ``x``'s dtype (a new
     tensor unless ``x`` is float32 and the axis has one rank)."""
-    if _group(mesh, axis) is None:
+    if mesh.size(axis) == 1:
         return x
     acc = x.float() if x.dtype != torch.float32 else x.clone()
     all_reduce(acc, mesh, axis)
@@ -98,12 +155,17 @@ def all_gather(x: torch.Tensor, mesh, axis: str = "model",
                dim: int = -1) -> torch.Tensor:
     """The axis's tensors (equal shapes) concatenated along ``dim`` in rank
     order."""
+    if _counted(mesh, axis, x, "all-gather"):
+        shape = list(x.shape)
+        shape[dim] *= mesh.size(axis)
+        return x.new_empty(shape)
     group = _group(mesh, axis)
     if group is None:
         return x
     x = x.contiguous()
     parts: List[torch.Tensor] = [torch.empty_like(x)
                                  for _ in range(mesh.size(axis))]
+    calls["all-gather"] += 1
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -112,6 +174,8 @@ def broadcast(x: torch.Tensor, src: int, mesh,
               axis: str = "model") -> torch.Tensor:
     """Rank ``src`` (its index on the axis)'s ``x`` on every rank, in
     place; returns ``x``."""
+    if _counted(mesh, axis, x, "collective-permute"):
+        return x
     group = _group(mesh, axis)
     if group is not None:
         dist.broadcast(x, src=dist.get_global_rank(group, src)
@@ -124,11 +188,15 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str = "model"
                    ) -> torch.Tensor:
     """SUM over the axis of ``x`` (its first dim a multiple of the axis
     size), this rank's block of the first dim."""
+    if _counted(mesh, axis, x, "reduce-scatter"):
+        return x.new_empty((x.shape[0] // mesh.size(axis),)
+                           + tuple(x.shape[1:]))
     group = _group(mesh, axis)
     if group is None:
         return x
     out = torch.empty((x.shape[0] // mesh.size(axis),) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
+    calls["reduce-scatter"] += 1
     dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
     return out
 
@@ -136,10 +204,13 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str = "model"
 def all_to_all(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """Block r of ``x``'s first dim to rank r; returns the blocks the ranks
     sent this one, in rank order."""
+    if _counted(mesh, axis, x, "all-to-all"):
+        return x.new_empty(x.shape)
     group = _group(mesh, axis)
     if group is None:
         return x
     out = torch.empty_like(x)
+    calls["all-to-all"] += 1
     dist.all_to_all_single(out, x.contiguous(), group=group)
     return out
 
@@ -148,6 +219,8 @@ def reduce(x: torch.Tensor, dst: int, mesh, axis: str = "model",
            op: str = SUM) -> torch.Tensor:
     """``op`` over the axis into rank ``dst``'s ``x``, in place (the other
     ranks' ``x`` is left undefined); returns ``x``."""
+    if _counted(mesh, axis, x, "all-reduce"):
+        return x
     group = _group(mesh, axis)
     if group is not None:
         dist.reduce(x, dst=dist.get_global_rank(group, dst)
@@ -162,13 +235,18 @@ def barrier(mesh=None, axis: Optional[str] = "model") -> None:
     if mesh is None:
         dist.barrier()
         return
+    if getattr(mesh, "abstract", False):
+        return
     group = _group(mesh, axis)
     if group is not None:
         dist.barrier(group=group)
 
 
 def backend_name(mesh, axis: str = "model") -> str:
-    """The axis's process-group backend, for reports ("none": one rank)."""
+    """The axis's process-group backend, for reports ("none": one rank;
+    "abstract": an abstract mesh)."""
+    if getattr(mesh, "abstract", False):
+        return "abstract"
     group = _group(mesh, axis)
     return "none" if group is None else str(dist.get_backend(group))
 
@@ -176,17 +254,19 @@ def backend_name(mesh, axis: str = "model") -> str:
 # ------------------------------------------------- differentiable collectives
 class _GatherShards(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mesh, axis, dims, *shards):
+    def forward(ctx, mesh, axis, dims, replicated, *shards):
         ctx.mesh, ctx.axis, ctx.dims = mesh, axis, dims
+        ctx.replicated = replicated
         ctx.shapes = [tuple(t.shape) for t in shards]
         n = mesh.size(axis)
         split = [i for i, d in enumerate(dims) if d is not None]
         out = list(shards)
-        if split:
-            flat = torch.cat([shards[i].reshape(-1) for i in split])
+        for dtype in dict.fromkeys(shards[i].dtype for i in split):
+            same = [i for i in split if shards[i].dtype == dtype]
+            flat = torch.cat([shards[i].reshape(-1) for i in same])
             parts = all_gather(flat, mesh, axis, dim=0).view(n, -1)
             at = 0
-            for i in split:
+            for i in same:
                 size = shards[i].numel()
                 blocks = parts[:, at:at + size].reshape(
                     (n,) + ctx.shapes[i])
@@ -201,6 +281,12 @@ class _GatherShards(torch.autograd.Function):
         out = list(grads)
         split = [i for i, d in enumerate(dims) if d is not None]
         whole = [i for i, d in enumerate(dims) if d is None]
+        if ctx.replicated:          # every rank's gradient is the whole one
+            lo = mesh.axis_index(axis)
+            for i in split:
+                size = ctx.shapes[i][dims[i]]
+                out[i] = grads[i].narrow(dims[i], lo * size, size)
+            return (None, None, None, None, *out)
         if split:
             # rank r's row: every split leaf's block r, flattened
             rows = torch.cat([torch.stack(grads[i].float().chunk(
@@ -221,7 +307,7 @@ class _GatherShards(torch.autograd.Function):
                 out[i] = flat[at:at + size].view(ctx.shapes[i]).to(
                     grads[i].dtype)
                 at += size
-        return (None, None, None, *out)
+        return (None, None, None, None, *out)
 
 
 def _numel(shape) -> int:
@@ -233,18 +319,27 @@ def _numel(shape) -> int:
 
 def gather_shards(shards: Sequence[torch.Tensor],
                   dims: Sequence[Optional[int]], mesh,
-                  axis: str = "data") -> List[torch.Tensor]:
+                  axis: str = "data", *,
+                  replicated: bool = False) -> List[torch.Tensor]:
     """FSDP's gather over ``axis``: each ``shards[i]`` with ``dims[i]`` set
     is this rank's block of a leaf split on that dim, and comes back whole
-    (the ranks' blocks in rank order), all of them in ONE all-gather; a
-    leaf with ``dims[i]`` None is whole already and comes back as it is.
+    (the ranks' blocks in rank order), all of them in ONE all-gather a
+    dtype (a float32 router beside bfloat16 experts keeps its own: one
+    buffer would widen every leaf to float32); a leaf with ``dims[i]``
+    None is whole already and comes back as it is.
     Backward: the split leaves' gradients reduce-scattered (SUM) in one
     collective, the whole leaves' all-reduced (SUM) in one, in float32,
     each returned in its leaf's dtype: the data-parallel SUM of the
-    ranks' gradients.  An axis of one rank is the identity both ways."""
+    ranks' gradients.  An axis of one rank is the identity both ways.
+
+    ``replicated``: the whole leaves feed a computation that every rank of
+    the axis runs alike, so each rank's gradient is already the whole one:
+    backward keeps this rank's block of a split leaf's gradient and passes
+    a whole leaf's on as it is (no collective)."""
     if mesh.size(axis) == 1:
         return list(shards)
-    return list(_GatherShards.apply(mesh, axis, tuple(dims), *shards))
+    return list(_GatherShards.apply(mesh, axis, tuple(dims), replicated,
+                                    *shards))
 
 
 class _CopyTo(torch.autograd.Function):
@@ -348,6 +443,8 @@ def shift(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     (``batch_isend_irecv``).  gloo sends and receives host tensors only,
     so a CUDA tensor is staged through pinned host memory on a gloo group
     (a copy each way, timed by ``chip_smoke.py`` phase 48d)."""
+    if _counted(mesh, axis, x, "collective-permute"):
+        return torch.zeros_like(x)
     group = _group(mesh, axis)
     if group is None:
         return torch.zeros_like(x)

@@ -17,7 +17,9 @@ family:
 * a dim the axis does not divide stays replicated.
 
 :func:`shard_leaf` cuts this rank's block out of a full tensor (the model's
-``shard_params`` and ``shard_fn`` apply it leaf by leaf);
+``shard_params`` and ``shard_fn`` apply it leaf by leaf), and
+:func:`shard_shape` gives the block's shape without a tensor (a rank's
+cache shard is allocated at that shape: ``init_decode_cache(mesh=)``);
 :class:`TensorParallel` is what the sharded forward reads of the specs.
 """
 from __future__ import annotations
@@ -171,6 +173,12 @@ class ShardingRules:
             return (None, None, dp_if(shape[2]), m_if(shape[3]), None, None)
         return (None,) * nd
 
+    def cache_tree(self, cache) -> Dict:
+        """Spec tree matching a decode cache (tensors or meta tensors; the
+        reference's walk over a cache)."""
+        return map_with_path(lambda path, leaf: self.cache_spec(
+            path, tuple(leaf.shape)), cache)
+
 
 def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """Rank ``mesh``'s block of the full tensor ``x`` under ``spec``: each
@@ -181,11 +189,7 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     for d, axis in enumerate(spec):
         if axis is None:
             continue
-        names = axis if isinstance(axis, (tuple, list)) else (axis,)
-        n, idx = 1, 0
-        for a in names:                    # row-major over the named axes
-            idx = idx * mesh.size(a) + mesh.axis_index(a)
-            n *= mesh.size(a)
+        n, idx = _index(axis, mesh)        # row-major over the named axes
         if x.shape[d] % n:
             raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
                              f"into {n} shards")
@@ -193,6 +197,32 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
         x = x.narrow(d, idx * step, step)
         split = True
     return x.clone(memory_format=torch.contiguous_format) if split else x
+
+
+def _index(spec_entry, mesh) -> Tuple[int, int]:
+    """(pieces, this rank's piece) of a dim split over ``spec_entry`` (an
+    axis name or a tuple of them, row-major)."""
+    names = (spec_entry if isinstance(spec_entry, (tuple, list))
+             else (spec_entry,))
+    n, idx = 1, 0
+    for a in names:
+        idx = idx * mesh.size(a) + mesh.axis_index(a)
+        n *= mesh.size(a)
+    return n, idx
+
+
+def shard_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of this rank's block of a tensor of ``shape`` under
+    ``spec`` (what :func:`shard_leaf` would return)."""
+    out = list(shape)
+    for d, axis in enumerate(spec):
+        if axis is not None:
+            n, _ = _index(axis, mesh)
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"into {n} shards")
+            out[d] //= n
+    return tuple(out)
 
 
 def spec_leaves(specs) -> list:
@@ -286,6 +316,20 @@ class TensorParallel:
         axis."""
         if self.data_axis is None:
             return tree
+        return self._gather_tree(tree, path, self.data_axis, False)
+
+    def whole(self, tree, *path):
+        """``tree`` (params at ``path``, gathered over the data axis) with
+        every leaf this axis splits gathered whole over it, in one
+        collective, for a computation that every rank of the axis runs
+        whole (backward keeps this rank's block of each gradient): the
+        path of a layer whose cuts do not line up with any split of its
+        computation.  ``tree`` itself when the axis has one rank."""
+        if self.size == 1:
+            return tree
+        return self._gather_tree(tree, path, self.axis, True)
+
+    def _gather_tree(self, tree, path, axis, replicated):
         leaves, dims = [], []
 
         def walk(node, spec):
@@ -297,7 +341,7 @@ class TensorParallel:
                     walk(v, sp)
             elif node is not None:
                 leaves.append(node)
-                dims.append(_split_dim(spec, node.dim(), self.data_axis)
+                dims.append(_split_dim(spec, node.dim(), axis)
                             if node.is_floating_point() else None)
 
         walk(tree, self._spec(*path))
@@ -305,7 +349,8 @@ class TensorParallel:
         floats = [i for i, t in enumerate(leaves) if t.is_floating_point()]
         whole = collectives.gather_shards([leaves[i] for i in floats],
                                           [dims[i] for i in floats],
-                                          self.mesh, self.data_axis)
+                                          self.mesh, axis,
+                                          replicated=replicated)
         for i, t in zip(floats, whole):
             leaves[i] = t
         it = iter(leaves)
@@ -318,6 +363,24 @@ class TensorParallel:
             return None if node is None else next(it)
 
         return build(tree)
+
+    def gather_split(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of an activation split over the axis, whole,
+        for a consumer that is itself split over the axis (each rank reads
+        its own part of the whole: a norm over the whole width before a
+        row-parallel product, a cut that does not line up with the next
+        one): backward SUMs the ranks' partial gradients and keeps this
+        rank's block (a reduce-scatter)."""
+        from repro_torch.distributed import collectives
+        return collectives.gather_shards([x], [dim % x.dim()], self.mesh,
+                                         self.axis)[0]
+
+    def gather_whole(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of an activation split over the axis, whole,
+        for a consumer replicated over the axis (the residual stream):
+        backward keeps this rank's block of the whole gradient."""
+        from repro_torch.distributed import collectives
+        return collectives.gather_replicated(x, self.mesh, self.axis, dim)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         from repro_torch.distributed import collectives

@@ -44,18 +44,19 @@ def attention_init(gen: torch.Generator, d_model: int, a: AttentionConfig,
 
 
 def project_qkv(params, x: torch.Tensor, a: AttentionConfig,
-                positions: torch.Tensor, tp=None):
+                positions: torch.Tensor, tp=None, path=("layers", "attn")):
     """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd), rope applied.
 
     ``tp`` (a ``TensorParallel``): each of ``wq``/``wk``/``wv`` that the
     rules split holds this rank's whole heads, and the products of those
     are gathered over the axis in one collective (every rank needs every
     head: the KV pool is sharded by sequence, not by head); one left whole
-    is applied as it is."""
+    is applied as it is.  ``path``: the params' place in the tree, where
+    ``tp`` reads their specs."""
     B, S, _ = x.shape
     qkv = {name: torch.matmul(x, params[name]) for name in ("wq", "wk", "wv")}
     if tp is not None:
-        split = [n for n in qkv if tp.split("layers", "attn", n)]
+        split = [n for n in qkv if tp.split(*path, n)]
         if split:
             qkv.update(zip(split, tp.gather_last([qkv[n] for n in split])))
     q, k, v = qkv["wq"], qkv["wk"], qkv["wv"]
@@ -172,7 +173,8 @@ def encode_kv(params, enc, a: AttentionConfig):
 
 
 def attention_block_tp(params, x, positions, a: AttentionConfig, tp, *,
-                       causal=None, chunk: int = 512) -> torch.Tensor:
+                       causal=None, chunk: int = 512,
+                       path=("layers", "attn")) -> torch.Tensor:
     """:func:`attention_block` (its output only) with Megatron's split over
     ``tp``'s axis, for training on a mesh: x (B, S, D) whole on every
     rank; ``wq`` (and ``wk``/``wv`` where the rules split them: whole kv
@@ -182,19 +184,46 @@ def attention_block_tp(params, x, positions, a: AttentionConfig, tp, *,
     kv head on every rank, and each rank keeps those its query heads read.
     Whole tensors that feed the split part (x, a whole k/v, the biases and
     q/k norms) go through ``tp.enter``, so their gradients come back
-    whole.  With ``wq`` whole the block runs whole on every rank."""
-    if not tp.split("layers", "attn", "wq"):
+    whole.  With ``wq`` whole the block runs whole on every rank.
+    ``path``: the params' place in the tree, where ``tp`` reads their
+    specs."""
+    if not tp.split(*path, "wq"):
         return attention_block(params, x, positions, a, causal=causal,
                                chunk=chunk)[0]
     causal = a.causal if causal is None else causal
-    B, S, _ = x.shape
+    q, k, v = _heads_tp(params, x, x, a, tp, path, positions)
+    ctx = chunked_attention(q, k, v, causal=causal, chunk=chunk)
+    return _out_tp(params, ctx, tp)
+
+
+def _out_tp(params, ctx, tp):
+    """``ctx`` (B, S, H', hd) of this rank's query heads times ``wo``,
+    row-parallel (the rules split ``wo`` where they split ``wq``: its rows
+    are the same heads), summed in float32."""
+    B, S = ctx.shape[:2]
+    return tp.psum(torch.matmul(ctx.reshape(B, S, -1), params["wo"]))
+
+
+def _heads_tp(params, xq, xkv, a: AttentionConfig, tp, path,
+              positions=None):
+    """q (B, Sq, H', hd) of this rank's block of whole query heads (``wq``
+    split), and k, v (B, Sk, H' / G or H', hd) of the kv heads those read,
+    from xq and xkv (whole on every rank); RoPE at ``positions`` (None:
+    none, cross-attention).  A whole ``wk``/``wv`` gives every kv head, of
+    which the rank keeps its own.  Whole tensors that feed the split part
+    go through ``tp.enter``."""
+    B, Sq, _ = xq.shape
+    Sk = xkv.shape[1]
     hd, H, KV = a.head_dim, a.num_heads, a.num_kv_heads
-    split_kv = tp.split("layers", "attn", "wk")
-    xin = tp.enter(x)
-    xkv = xin if split_kv else x
+    split_kv = tp.split(*path, "wk")
+    xin = tp.enter(xq)
+    if not split_kv:            # whole k/v: entered after, as they are cut
+        xk = xkv
+    else:
+        xk = xin if xkv is xq else tp.enter(xkv)
     q = torch.matmul(xin, params["wq"])
-    k = torch.matmul(xkv, params["wk"])
-    v = torch.matmul(xkv, params["wv"])
+    k = torch.matmul(xk, params["wk"])
+    v = torch.matmul(xk, params["wv"])
     qlo, qhi = tp.bounds(H)
     if "bq" in params:
         q = q + tp.enter(params["bq"])[qlo * hd:qhi * hd]
@@ -204,25 +233,37 @@ def attention_block_tp(params, x, positions, a: AttentionConfig, tp, *,
             kb = tp.enter(kb)[klo * hd:khi * hd]
             vb = tp.enter(vb)[klo * hd:khi * hd]
         k, v = k + kb, v + vb
-    q = q.reshape(B, S, qhi - qlo, hd)
-    k = k.reshape(B, S, -1, hd)
-    v = v.reshape(B, S, -1, hd)
+    q = q.reshape(B, Sq, qhi - qlo, hd)
+    k = k.reshape(B, Sk, -1, hd)
+    v = v.reshape(B, Sk, -1, hd)
     if "q_norm" in params:
         q = rmsnorm(tp.enter(params["q_norm"]), q)
         k = rmsnorm(tp.enter(params["k_norm"]) if split_kv
                     else params["k_norm"], k)
-    q = apply_rope(q, positions, a.rope_theta)
-    k = apply_rope(k, positions, a.rope_theta)
+    if positions is not None:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
     if not split_kv:             # every kv head here: keep this rank's
         G = H // KV
         k, v = tp.enter(k), tp.enter(v)
         if (qhi - qlo) % G == 0:
             k, v = k[:, :, qlo // G:qhi // G], v[:, :, qlo // G:qhi // G]
         else:                    # a query block inside one group: a kv
-            idx = torch.arange(qlo, qhi, device=x.device) // G  # head each
+            idx = torch.arange(qlo, qhi, device=xq.device) // G  # head each
             k, v = k[:, :, idx], v[:, :, idx]
-    ctx = chunked_attention(q, k, v, causal=causal, chunk=chunk)
-    return tp.psum(torch.matmul(ctx.reshape(B, S, -1), params["wo"]))
+    return q, k, v
+
+
+def cross_attention_block_tp(params, x, enc, a: AttentionConfig, tp,
+                             path) -> torch.Tensor:
+    """:func:`cross_attention_block` over the encoder output ``enc``
+    (B, Se, D), whole on every rank, with Megatron's split where the rules
+    split ``wq``: each rank its query heads and their kv heads, ``wo``
+    row-parallel; whole on every rank otherwise.  For training."""
+    if not tp.split(*path, "wq"):
+        return cross_attention_block(params, x, encode_kv(params, enc, a), a)
+    q, k, v = _heads_tp(params, x, enc, a, tp, path)
+    return _out_tp(params, full_attention(q, k, v, causal=False), tp)
 
 
 def out_proj_tp(ctx: torch.Tensor, wo: torch.Tensor, tp) -> torch.Tensor:

@@ -81,3 +81,12 @@ def mlp_apply_tp(params, x: torch.Tensor, act: str, tp) -> torch.Tensor:
     u = torch.matmul(x, params["w_up"])
     h = F.silu(g.float()).to(x.dtype) * u
     return tp.psum(torch.matmul(h, params["w_down"]))
+
+
+def mlp_apply_mesh(params, x: torch.Tensor, act: str, tp, path
+                   ) -> torch.Tensor:
+    """:func:`mlp_apply_tp` where the rules split the MLP (its params at
+    ``path`` in the tree ``tp`` reads), else :func:`mlp_apply` whole."""
+    if tp.split(*path, "w_in" if act == "gelu" else "w_gate"):
+        return mlp_apply_tp(params, x, act, tp)
+    return mlp_apply(params, x, act)

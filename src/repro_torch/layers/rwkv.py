@@ -83,17 +83,20 @@ def _decay(params, xw):
     return -torch.exp(torch.clamp(params["w0"] + lora, -20.0, 8.0))
 
 
-def time_mix_chunked(params, x, r_cfg: RWKVConfig):
-    """Training / prefill form. x (B,S,D) -> (B,S,D)."""
-    B, S, D = x.shape
-    N = r_cfg.head_size
-    H = D // N
-    x_sh = _token_shift(x)
+def _projections(params, x, x_sh):
+    """r, k, v (B,S,D') and the log decay (B,S,D') from the lerped
+    inputs (D' the width of the params' columns)."""
     rr = _lerp(x, x_sh, params["mix_r"]) @ params["wr"]
     kk = _lerp(x, x_sh, params["mix_k"]) @ params["wk"]
     vv = _lerp(x, x_sh, params["mix_v"]) @ params["wv"]
-    lw = _decay(params, _lerp(x, x_sh, params["mix_w"]))  # (B,S,D) log-decay
+    return rr, kk, vv, _decay(params, _lerp(x, x_sh, params["mix_w"]))
 
+
+def _wkv_chunked(rr, kk, vv, lw, u, N: int):
+    """The chunked recurrence over heads of width N: rr/kk/vv (B,S,H*N),
+    lw (B,S,H*N) f32, u (H,N) -> y (B,S,H*N) f32."""
+    B, S, D = rr.shape
+    H = D // N
     Lc = min(CHUNK, S)
     assert S % Lc == 0, (S, Lc)
     nc = S // Lc
@@ -104,7 +107,7 @@ def time_mix_chunked(params, x, r_cfg: RWKVConfig):
     r, k, v, lw = rs(rr), rs(kk), rs(vv), rs(lw)
     la_incl = torch.cumsum(lw, dim=2)                     # (B,nc,Lc,H,N)
     la_excl = la_incl - lw
-    idx = torch.arange(Lc, device=x.device)
+    idx = torch.arange(Lc, device=rr.device)
     mask_lt = idx[:, None] > idx[None, :]                 # j < i
 
     rf, kf, vf = r.float(), k.float(), v.float()
@@ -113,16 +116,16 @@ def time_mix_chunked(params, x, r_cfg: RWKVConfig):
     ddiff = la_excl[:, :, :, None] - la_incl[:, :, None]  # (B,nc,i,j,H,N)
     ddiff = torch.where(mask_lt[:, :, None, None], ddiff, -torch.inf)
     A = torch.einsum("bcihn,bcjhn,bcijhn->bcijh", rf, kf, torch.exp(ddiff))
-    diag = torch.einsum("bcihn,hn,bcihn->bcih", rf, params["u"], kf)
+    diag = torch.einsum("bcihn,hn,bcihn->bcih", rf, u, kf)
     A = A + diag[:, :, :, None, :] * torch.eye(
-        Lc, device=x.device)[None, None, :, :, None]
+        Lc, device=rr.device)[None, None, :, :, None]
     y_intra = torch.einsum("bcijh,bcjhn->bcihn", A, vf)
 
     # inter-chunk state loop: h maps the k dim to the v dim, (B,H,N,N)
     dec_to_end = torch.exp(la_incl[:, :, -1:] - la_incl)  # (B,nc,Lc,H,N)
     chunk_state = torch.einsum("bcjhn,bcjhm->bchnm", kf * dec_to_end, vf)
     chunk_decay = torch.exp(la_incl[:, :, -1])            # (B,nc,H,N)
-    h = torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
+    h = torch.zeros((B, H, N, N), dtype=torch.float32, device=rr.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
@@ -131,27 +134,35 @@ def time_mix_chunked(params, x, r_cfg: RWKVConfig):
 
     y_inter = torch.einsum("bcihn,bchnm->bcihm", rf * torch.exp(la_excl),
                            h_prevs)
-    y = (y_intra + y_inter).reshape(B, S, D).to(x.dtype)
-    y = layernorm(params["ln_out"], y)
+    return (y_intra + y_inter).reshape(B, S, D)
+
+
+def _wkv_step(rr, kk, vv, lw, u, S_prev, N: int):
+    """One step of the recurrence: rr/kk/vv (B,1,H*N), lw f32, u (H,N),
+    S_prev (B,H,N,N) -> (out (B,H*N) f32, S_new)."""
+    B, _, D = rr.shape
+    H = D // N
+    rf, kf, vf = (t.reshape(B, H, N).float() for t in (rr, kk, vv))
+    kv = torch.einsum("bhn,bhm->bhnm", kf, vf)
+    out = torch.einsum("bhn,bhnm->bhm", rf, S_prev + u[..., None] * kv)
+    S_new = torch.exp(lw.reshape(B, H, N))[..., None] * S_prev + kv
+    return out.reshape(B, D), S_new
+
+
+def time_mix_chunked(params, x, r_cfg: RWKVConfig):
+    """Training / prefill form. x (B,S,D) -> (B,S,D)."""
+    rr, kk, vv, lw = _projections(params, x, _token_shift(x))
+    y = _wkv_chunked(rr, kk, vv, lw, params["u"], r_cfg.head_size)
+    y = layernorm(params["ln_out"], y.to(x.dtype))
     return y @ params["wo"]
 
 
 def time_mix_step(params, x, state, r_cfg: RWKVConfig):
     """Decode step. x (B,1,D); state {"shift": (B,D), "S": (B,H,N,N)}."""
     B, _, D = x.shape
-    N = r_cfg.head_size
-    H = D // N
-    x_sh = state["shift"][:, None]
-    rr = (_lerp(x, x_sh, params["mix_r"]) @ params["wr"]).reshape(B, H, N)
-    kk = (_lerp(x, x_sh, params["mix_k"]) @ params["wk"]).reshape(B, H, N)
-    vv = (_lerp(x, x_sh, params["mix_v"]) @ params["wv"]).reshape(B, H, N)
-    lw = _decay(params, _lerp(x, x_sh, params["mix_w"])).reshape(B, H, N)
-    rf, kf, vf = rr.float(), kk.float(), vv.float()
-    S_prev = state["S"]
-    kv = torch.einsum("bhn,bhm->bhnm", kf, vf)
-    out = torch.einsum("bhn,bhnm->bhm", rf,
-                       S_prev + params["u"][..., None] * kv)
-    S_new = torch.exp(lw)[..., None] * S_prev + kv
+    rr, kk, vv, lw = _projections(params, x, state["shift"][:, None])
+    out, S_new = _wkv_step(rr, kk, vv, lw, params["u"], state["S"],
+                           r_cfg.head_size)
     y = layernorm(params["ln_out"], out.reshape(B, 1, D).to(x.dtype))
     return y @ params["wo"], {"shift": x[:, 0], "S": S_new}
 
@@ -164,6 +175,102 @@ def channel_mix(params, x, prev=None):
     r = torch.sigmoid((_lerp(x, x_sh, params["mix_r"])
                        @ params["wr"]).float())
     return (k @ params["wv"]) * r.to(x.dtype), x[:, -1]
+
+
+# ---------------------------------------------------------------- on a mesh
+def time_mix_aligned(tp, d: int, r_cfg: RWKVConfig,
+                     path=("layers", "tm")) -> bool:
+    """Whether the rules' cuts give each rank whole heads of the time mix:
+    ``wr``/``wk``/``wv`` split on their output, ``wo`` on its input, and
+    the heads dividing over the axis (the state's rule)."""
+    H = d // r_cfg.head_size
+    return (all(tp.split(*path, n) for n in ("wr", "wk", "wv", "wo"))
+            and H % tp.size == 0)
+
+
+def _tm_inputs_tp(params, x, x_sh, tp, path, N: int):
+    """This rank's heads' r, k, v, log decay (B,S,D') and u (H',N) from x
+    and x_sh (whole; already through ``tp.enter``).  The decay's LoRA is a
+    Megatron pair over its rank (``w1`` column, ``w2`` row) where the
+    rules split it, its sum then entering the rank's slice of D; ``u``,
+    which the rules cut on N, is gathered."""
+    lo, hi = tp.bounds(x.shape[-1])
+    mix = {n: tp.enter(params[n]) for n in ("mix_r", "mix_k", "mix_v",
+                                            "mix_w")}
+    rr = _lerp(x, x_sh, mix["mix_r"]) @ params["wr"]
+    kk = _lerp(x, x_sh, mix["mix_k"]) @ params["wk"]
+    vv = _lerp(x, x_sh, mix["mix_v"]) @ params["wv"]
+    xw = _lerp(x, x_sh, mix["mix_w"]).float()
+    if tp.split(*path, "w1"):
+        lora = tp.enter(tp.psum(torch.tanh(xw @ params["w1"])
+                                @ params["w2"]))
+    else:
+        lora = (torch.tanh(xw @ tp.enter(params["w1"]))
+                @ tp.enter(params["w2"]))
+    lw = -torch.exp(torch.clamp(tp.enter(params["w0"])[lo:hi]
+                                + lora[..., lo:hi], -20.0, 8.0))
+    u = params["u"]
+    u = tp.gather_split(u, -1) if tp.split(*path, "u") else tp.enter(u)
+    return rr, kk, vv, lw, u[lo // N:hi // N]
+
+
+def _tm_out_tp(params, y, tp):
+    """The rank's heads' y (B,S,D') through ``ln_out`` (a LayerNorm over
+    the whole width: y gathered for it) and ``wo`` row-parallel."""
+    lo, hi = tp.bounds(y.shape[-1] * tp.size)
+    ln = {k: tp.enter(v) for k, v in params["ln_out"].items()}
+    y = layernorm(ln, tp.gather_split(y, -1))[..., lo:hi]
+    return tp.psum(y @ params["wo"])
+
+
+def time_mix_chunked_tp(params, x, r_cfg: RWKVConfig, tp,
+                        path=("layers", "tm")):
+    """:func:`time_mix_chunked` on a mesh: x (B,S,D) whole on every rank;
+    each rank its heads (:func:`time_mix_aligned`), or the whole mix on
+    every rank with the split leaves gathered where the cuts do not line
+    up."""
+    if not time_mix_aligned(tp, x.shape[-1], r_cfg, path):
+        return time_mix_chunked(tp.whole(params, *path), x, r_cfg)
+    xin = tp.enter(x)
+    rr, kk, vv, lw, u = _tm_inputs_tp(params, xin, _token_shift(xin), tp,
+                                      path, r_cfg.head_size)
+    y = _wkv_chunked(rr, kk, vv, lw, u, r_cfg.head_size)
+    return _tm_out_tp(params, y.to(x.dtype), tp)
+
+
+def time_mix_step_tp(params, x, shift, S_prev, r_cfg: RWKVConfig, tp,
+                     path=("layers", "tm")):
+    """:func:`time_mix_step` on a mesh (no gradient): x (B,1,D) whole,
+    ``shift`` (B,D) the previous input whole, S_prev this rank's heads'
+    state (all of them where the cuts do not line up).  Returns (out
+    (B,1,D), S_new)."""
+    if not time_mix_aligned(tp, x.shape[-1], r_cfg, path):
+        out, st = time_mix_step(tp.whole(params, *path), x,
+                                {"shift": shift, "S": S_prev}, r_cfg)
+        return out, st["S"]
+    N = r_cfg.head_size
+    rr, kk, vv, lw, u = _tm_inputs_tp(params, x, shift[:, None], tp, path, N)
+    out, S_new = _wkv_step(rr, kk, vv, lw, u, S_prev, N)
+    return _tm_out_tp(params, out[:, None].to(x.dtype), tp), S_new
+
+
+def channel_mix_tp(params, x, tp, prev=None, path=("layers", "cm")):
+    """:func:`channel_mix` on a mesh: x (B,S,D) whole on every rank.  The
+    rules split ``wk`` on F but ``wv`` (a _COL name) on its output D, and
+    ``wr`` on D: each rank's relu^2 block of F is gathered whole for its
+    block of ``wv``'s columns, its output block gated by its block of r
+    and gathered whole.  Where those cuts are not all there, the whole mix
+    runs on every rank with the split leaves gathered."""
+    if not all(tp.split(*path, n) for n in ("wk", "wv", "wr")):
+        return channel_mix(tp.whole(params, *path), x, prev)
+    xin = tp.enter(x)
+    x_sh = _token_shift(xin, prev)
+    k = _lerp(xin, x_sh, tp.enter(params["mix_k"])) @ params["wk"]
+    k = tp.gather_split(torch.square(F.relu(k.float())).to(x.dtype), -1)
+    r = torch.sigmoid((_lerp(xin, x_sh, tp.enter(params["mix_r"]))
+                       @ params["wr"]).float())
+    y = (k @ params["wv"]) * r.to(x.dtype)
+    return tp.gather_whole(y, -1), x[:, -1]
 
 
 def rwkv_init_state(batch: int, d: int, r: RWKVConfig, dtype=torch.float32,

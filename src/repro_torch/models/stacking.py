@@ -28,13 +28,19 @@ def generator(seed: int, device: torch.device) -> Optional[torch.Generator]:
     return gen
 
 
-def init_abstract(model):
-    """The tree ``model.init()`` returns, with the same keys, shapes and
-    dtypes, as meta tensors: ``init`` run on a copy of the model whose
-    device is ``meta``, so nothing is drawn and nothing is allocated."""
+def on_meta(model):
+    """A copy of ``model`` whose device is ``meta``: what it makes has the
+    shapes and dtypes of the real thing, and nothing is drawn or
+    allocated."""
     meta = copy.copy(model)
     meta.device = torch.device("meta")
-    return meta.init()
+    return meta
+
+
+def init_abstract(model):
+    """The tree ``model.init()`` returns, with the same keys, shapes and
+    dtypes, as meta tensors (``init`` of :func:`on_meta`)."""
+    return on_meta(model).init()
 
 
 def init_stacked(n: int, make):

@@ -6,7 +6,9 @@
   embeddings (``extra_embeds``) prepended;
 * :meth:`TransformerLM.decode_step`: one token per request over a
   contiguous K/V cache (:meth:`TransformerLM.init_decode_cache`), plain
-  PyTorch, as the reference's pjit decode path;
+  PyTorch, as the reference's pjit decode path; on a mesh (``mesh=``) the
+  cache is this rank's shard, its sequence split over ``model``
+  (:func:`decode_attention`: each rank's partial, combined);
 * :meth:`TransformerLM.decode_tokens_paged`: the serving engine's fused
   chunked-prefill + decode step over the fused KV pool, through the ragged
   or the chunked paged-attention kernel;
@@ -68,18 +70,17 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import attention_api, paged_kv
 from repro_torch.distributed.act_sharding import constrain_batch
 from repro_torch.layers import attention as attn_lib
-from repro_torch.layers.embedding import (
-    embed, embed_vocab_parallel, embedding_init, unembed,
-    unembed_vocab_parallel, vocab_parallel_cross_entropy)
-from repro_torch.layers.mlp import mlp_apply, mlp_apply_tp, mlp_init
+from repro_torch.layers.embedding import embed, embedding_init, unembed
+from repro_torch.layers.mlp import mlp_apply, mlp_apply_mesh, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norm import rmsnorm, rmsnorm_init
 from repro_torch.models import stacking
+from repro_torch.models.mesh_lm import MeshLM, alloc_cache, seq_split
 from repro_torch.training import remat as remat_lib
-from repro_torch.training.losses import next_token_loss, softmax_cross_entropy
+from repro_torch.training.losses import next_token_loss
 
 
-class TransformerLM:
+class TransformerLM(MeshLM):
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  q_chunk: int = 512, remat=True, shard_moe: bool = False,
                  moe_groups: int = 1):
@@ -140,67 +141,6 @@ class TransformerLM:
         return stacking.init_abstract(self)
 
     # ------------------------------------------------------------------ mesh
-    def sharding_rules(self, mesh, axis: str = "model"):
-        """The reference's rules for this model's params on ``mesh``
-        (attention projections split on whole heads only)."""
-        from repro_torch.distributed.sharding import ShardingRules
-        return ShardingRules(mesh, model_axis=axis,
-                             head_dim=self.cfg.attention.head_dim)
-
-    def shard_fn(self, mesh, axis: str = "model"):
-        """``fn(path, leaf)``: this rank's shard of a full leaf at ``path``
-        (for :meth:`init`'s ``shard``)."""
-        from repro_torch.distributed.sharding import shard_leaf
-        rules = self.sharding_rules(mesh, axis)
-        return lambda path, t: shard_leaf(
-            t, rules.param_spec(tuple(path), tuple(t.shape)), mesh)
-
-    def shard_params(self, params, mesh, axis: str = "model") -> Dict:
-        """This rank's shard of params (:meth:`sharding_rules`): a full
-        leaf is cut, a leaf already of its shard's shape (from
-        ``init(shard=...)``) is kept; any other shape raises."""
-        from repro_torch.distributed.sharding import shard_leaf
-        rules = self.sharding_rules(mesh, axis)
-        full = self.init_abstract()
-
-        def walk(path, p, f):
-            if isinstance(p, dict):
-                return {k: walk(path + (k,), p[k], f[k]) for k in p}
-            spec = rules.param_spec(path, tuple(f.shape))
-            if tuple(p.shape) == tuple(f.shape):
-                return shard_leaf(p, spec, mesh)
-            want = tuple(shard_leaf(f, spec, mesh).shape)
-            if tuple(p.shape) != want:
-                raise ValueError(f"{'/'.join(path)}: shape {tuple(p.shape)} "
-                                 f"is neither the full {tuple(f.shape)} nor "
-                                 f"this rank's shard {want}")
-            return p
-
-        return walk((), params, full)
-
-    def tensor_parallel(self, mesh, axis: str = "model"):
-        """The ``TensorParallel`` the sharded paths read (which leaves are
-        split, from the specs of :meth:`init_abstract`'s tree)."""
-        from repro_torch.distributed.sharding import TensorParallel
-        cache = self.__dict__.setdefault("_tp_cache", {})
-        key = (id(mesh), axis)
-        if key not in cache:
-            specs = self.sharding_rules(mesh, axis).params_tree(
-                self.init_abstract())
-            cache[key] = TensorParallel(mesh, specs, axis)
-        return cache[key]
-
-    def _embed_tp(self, params, tokens, tp):
-        if tp.split("embed", "table"):
-            return embed_vocab_parallel(params["embed"], tokens, tp)
-        return embed(params["embed"], tokens)
-
-    def _unembed_tp(self, params, x, tp):
-        name = "head" if "head" in params else "embed"
-        if tp.split(name, "table"):
-            return unembed_vocab_parallel(params[name], x, tp)
-        return unembed(params[name], x)
-
     def _ffn_tp(self, lp, h, tp, *, full_capacity: bool):
         """The layer's feed-forward on h (B, S, D) on a mesh: the SwiGLU
         split where the rules split it, or the MoE expert-parallel.
@@ -210,11 +150,8 @@ class TransformerLM:
             return moe_apply(lp["moe"], h, cfg.moe, shard=self.shard_moe,
                              full_capacity=full_capacity,
                              groups=self.moe_groups, tp=tp)
-        zero = torch.zeros((), dtype=torch.float32, device=h.device)
-        if tp.split("layers", "mlp", ("w_in" if cfg.act == "gelu"
-                                      else "w_gate")):
-            return mlp_apply_tp(lp["mlp"], h, cfg.act, tp), zero
-        return mlp_apply(lp["mlp"], h, cfg.act), zero
+        return (mlp_apply_mesh(lp["mlp"], h, cfg.act, tp, ("layers", "mlp")),
+                torch.zeros((), dtype=torch.float32, device=h.device))
 
     def _layer_tail_tp(self, lp, x, ctx, tp):
         """x + wo(ctx), then + the FFN, each split where the rules split
@@ -313,12 +250,7 @@ class TransformerLM:
                                                 extra_embeds, mesh)
             if last_only:
                 x = x[:, -1:]
-            name = "head" if "head" in top else "embed"
-            if not tp.split(name, "table"):
-                return unembed(top[name], x), aux
-            from repro_torch.distributed import collectives
-            logits = unembed(top[name], tp.enter(x))
-            return collectives.gather_replicated(logits, mesh, tp.axis), aux
+            return self._logits_mesh(top, x, tp), aux
         x = self._embed_inputs(params, tokens, extra_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -360,55 +292,45 @@ class TransformerLM:
                                batch.get("loss_mask")) + 0.01 * aux
 
     def _loss_mesh(self, params, batch, mesh):
-        from repro_torch.distributed import collectives
-        from repro_torch.launch.mesh import data_axes
-
         tokens, extra = batch["tokens"], batch.get("extra_embeds")
         x, aux, top, tp = self._hidden_mesh(params, tokens, extra, mesh)
         if extra is not None:
             x = x[:, extra.shape[1]:]
-        name = "head" if "head" in top else "embed"
-        if tp.split(name, "table"):
-            nll = vocab_parallel_cross_entropy(top[name], x[:, :-1],
-                                               tokens[:, 1:], tp)
-        else:
-            nll = softmax_cross_entropy(unembed(top[name], x[:, :-1]),
-                                        tokens[:, 1:])
-        dp = data_axes(mesh)
-        if batch.get("loss_mask") is None:
-            local = nll.sum()
-            count = float(nll.numel())
-            for a in dp:
-                count *= mesh.size(a)
-        else:
-            m = batch["loss_mask"][:, 1:].float()
-            local = torch.sum(nll * m)
-            count = m.sum()
-            for a in dp:
-                collectives.all_reduce(count, mesh, a)
-            count = count.clamp_min(1.0)
-        ce = collectives.reduce_from(local / count, mesh, dp)
-        return ce + 0.01 * aux
+        return (self._ce_mesh(top, x, tokens, batch.get("loss_mask"), tp)
+                + 0.01 * aux)
 
     # ---------------------------------------------------- contiguous decode
-    def init_decode_cache(self, batch: int, max_seq: int):
-        """Zeroed K/V (L, batch, max_seq, KV, hd) and seq_lens (batch,)."""
+    def init_decode_cache(self, batch: int, max_seq: int, *, mesh=None):
+        """Zeroed K/V (L, batch, max_seq, KV, hd) and seq_lens (batch,);
+        with ``mesh``, this rank's shard of them only (``cache_spec``: B
+        over the data axes, the sequence over ``model``)."""
         cfg = self.cfg
         a = cfg.attention
         shape = (cfg.num_layers, batch, max_seq, a.num_kv_heads, a.head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "seq_lens": torch.zeros((batch,), dtype=torch.int32,
-                                    device=self.device),
-        }
+        return alloc_cache(
+            {"k": (shape, self.dtype), "v": (shape, self.dtype),
+             "seq_lens": ((batch,), torch.int32)}, self.device,
+            self.sharding_rules(mesh) if mesh is not None else None, mesh)
 
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, *, mesh=None,
+                    max_seq: Optional[int] = None):
         """tokens (B,) -> (logits (B, V) f32, cache): each layer writes the
         token's K/V at position ``seq_lens`` of its cache layer and attends
         over positions ``<= seq_lens`` (:func:`decode_attention`).  The
         cache is updated IN PLACE (the reference returns a new one) and
-        returned; its ``seq_lens`` grow by one."""
+        returned; its ``seq_lens`` grow by one.
+
+        ``mesh``: the reference's sharded decode step on this rank: params
+        its shards (FSDP leaves gathered a layer at a time), tokens and the
+        cache its shard of them (``init_decode_cache(mesh=)``; the
+        sequence split over ``model`` where ``max_seq``, the whole cache's
+        length, divides), the attention sequence-sharded
+        (:func:`decode_attention`), ``wo`` and the FFN split as the rules
+        split them, the MoE expert-parallel at full capacity; the logits
+        of its batch shard come back whole."""
+        if mesh is not None:
+            return self._decode_step_mesh(params, cache, tokens, mesh,
+                                          max_seq)
         cfg = self.cfg
         seq_lens = cache["seq_lens"]
         x = embed(params["embed"], tokens)                  # (B, D)
@@ -424,6 +346,27 @@ class TransformerLM:
             x = x + self._ffn(lp, h, full_capacity=True)[0][:, 0]
         x = rmsnorm(params["final_norm"], x[:, None], cfg.norm_eps)
         logits = unembed(params.get("head", params["embed"]), x)[:, 0]
+        seq_lens.add_(1)
+        return logits, cache
+
+    def _decode_step_mesh(self, params, cache, tokens, mesh, max_seq):
+        cfg = self.cfg
+        tp = self.tensor_parallel(mesh)
+        split = seq_split(tp, max_seq)
+        top = tp.gather_params({k: v for k, v in params.items()
+                                if k != "layers"})
+        seq_lens = cache["seq_lens"]
+        x = self._embed_tp(top, tokens, tp)                 # (B, D)
+        for i in range(cfg.num_layers):
+            lp = tp.gather_params(stacking.layer(params["layers"], i),
+                                  "layers")
+            h = rmsnorm(lp["ln1"], x[:, None], cfg.norm_eps)
+            ctx = decode_attention(lp["attn"], h, cache["k"][i],
+                                   cache["v"][i], seq_lens, cfg.attention,
+                                   tp=tp, seq_split=split)
+            x = self._layer_tail_tp(lp, x, ctx, tp)
+        x = rmsnorm(top["final_norm"], x[:, None], cfg.norm_eps)
+        logits = self._unembed_tp(top, x, tp)[:, 0]
         seq_lens.add_(1)
         return logits, cache
 
@@ -645,24 +588,64 @@ class TransformerLM:
 
 
 
-def decode_attention(params, h, k_cache, v_cache, seq_lens, a):
+def decode_attention(params, h, k_cache, v_cache, seq_lens, a, *, tp=None,
+                     path=("layers", "attn"), seq_split: bool = False):
     """One decode token against a contiguous cache layer: h (B, 1, D) the
     normed input, k_cache / v_cache (B, S, KV, hd) written IN PLACE at
     position ``seq_lens`` (B,), then attended over positions <= seq_lens
     (the new token included; the rest masked with NEG_INF, -1e30, as the
-    reference).  Returns ctx (B, H * hd)."""
+    reference).  Returns ctx (B, H * hd).
+
+    ``tp`` (a ``TensorParallel``; ``path`` its params' place in the
+    tree): the projections a rank holds split are gathered over the axis
+    in one collective (``project_qkv``).  With ``seq_split`` the cache
+    layer is this rank's block of the sequence, positions ``[r S, (r + 1)
+    S)``: only the rank that holds position ``seq_lens[b]`` writes row b's
+    K/V, each rank takes the partial output of its keys with its ``(m,
+    l)`` (a row with no valid key here weighs nothing) and
+    :func:`attention_api.combine_partials` joins them (one MAX, one SUM).
+    Without it the rank attends over its whole cache, as one device."""
     B = h.shape[0]
-    q, k_new, v_new = attn_lib.project_qkv(params, h, a, seq_lens[:, None])
+    q, k_new, v_new = attn_lib.project_qkv(params, h, a, seq_lens[:, None],
+                                           tp, path=path)
     rows = torch.arange(B, device=h.device)
-    pos = seq_lens.long()
-    k_cache[rows, pos] = k_new[:, 0]
-    v_cache[rows, pos] = v_new[:, 0]
+    S = k_cache.shape[1]
+    lo = tp.rank * S if seq_split else 0
+    pos = seq_lens.long() - lo
+    if seq_split:
+        own = ((pos >= 0) & (pos < S))[:, None, None]
+        pos = pos.clamp(0, S - 1)
+        k_cache[rows, pos] = torch.where(own, k_new[:, 0], k_cache[rows, pos])
+        v_cache[rows, pos] = torch.where(own, v_new[:, 0], v_cache[rows, pos])
+    else:
+        k_cache[rows, pos] = k_new[:, 0]
+        v_cache[rows, pos] = v_new[:, 0]
     KV = a.num_kv_heads
     qg = q[:, 0].reshape(B, KV, a.num_heads // KV, a.head_dim)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float()
     scores = scores * a.head_dim ** -0.5
-    mask = (torch.arange(k_cache.shape[1], device=h.device)[None]
-            <= seq_lens[:, None])
-    scores = torch.where(mask[:, None, None], scores, attn_lib.NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    return torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(B, -1)
+    mask = (lo + torch.arange(S, device=h.device)[None]
+            <= seq_lens[:, None])[:, None, None]
+    scores = torch.where(mask, scores, attn_lib.NEG_INF)
+    if not seq_split:
+        w = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+        return torch.einsum("bkgs,bskd->bkgd", w, v_cache).reshape(B, -1)
+    return attend_partial(scores, mask, v_cache, tp).reshape(B, -1).to(
+        h.dtype)
+
+
+def attend_partial(scores, valid, v, tp):
+    """Softmax attention over a rank's block of the keys, joined over
+    ``tp``'s axis: scores (B, KV, G, S) float32, masked with NEG_INF where
+    ``valid`` is False; v (B, S, KV, hd).  Returns (B, H, hd) float32, the
+    attention over every rank's keys."""
+    from repro_torch.core.attention_api import combine_partials
+
+    B, KV, G, _ = scores.shape
+    m = scores.amax(dim=-1)                               # (B, KV, G)
+    p = torch.where(valid, torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype), v).float()
+    out = o / torch.clamp_min(l, 1e-30)[..., None]
+    return combine_partials(out.reshape(B, KV * G, -1), m, l, tp.mesh,
+                            tp.axis)

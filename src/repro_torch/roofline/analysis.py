@@ -16,7 +16,11 @@ collectives at the NVLink rate.  :func:`step_costs` takes the place of
 and counts what it does (see its docstring), on the meta device as well as
 on a real one.  Not ported: ``collective_bytes_from_hlo`` and
 ``bf16_convert_penalty``, which parse XLA's HLO text; an eager PyTorch
-step has no counterpart of that text, and one card runs no collective.
+step has no counterpart of that text.  Its collectives are counted where
+they are called: a step of one rank of an abstract mesh
+(``repro_torch.launch.mesh.make_production_mesh``) tallies the operand
+bytes of each, by the reference's kinds
+(``repro_torch.distributed.collectives.counting``).
 """
 from __future__ import annotations
 
@@ -208,7 +212,9 @@ def step_costs(fn: Callable, *args) -> Dict[str, object]:
       ``TorchDispatchMode`` sees them; ops whose results all lie on an
       input's storage (views) move nothing.  That is what an eager step
       moves, where no op is fused; it is not XLA's post-fusion count;
-    * ``collectives``: ``{"total": 0.0}``, one card;
+    * ``collectives``: the operand bytes of the collectives the step calls
+      over an abstract mesh, by kind (the kinds it called) and
+      ``"total"``: ``{"total": 0.0}`` for a step of one card;
     * ``peak_memory``: the storages of ``args`` plus the peak of the live
       storages the ops make: a storage counts from the op that makes it
       until it is freed (a finalizer on it), once however many views it
@@ -228,6 +234,8 @@ def step_costs(fn: Callable, *args) -> Dict[str, object]:
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+    from repro_torch.distributed import collectives
+
     counter = FlopCounterMode(display=False)
     mode = _CostMode(inputs)
     # the collector off: a storage held in a reference cycle is freed at
@@ -235,7 +243,7 @@ def step_costs(fn: Callable, *args) -> Dict[str, object]:
     gc.collect()
     gc.disable()
     try:
-        with counter, mode:
+        with collectives.counting() as tally, counter, mode:
             out = fn(*args)
         del out
     finally:
@@ -243,7 +251,8 @@ def step_costs(fn: Callable, *args) -> Dict[str, object]:
     costs: Dict[str, object] = {
         "flops": float(counter.get_total_flops()),
         "bytes": float(mode.bytes),
-        "collectives": {"total": 0.0},
+        "collectives": {k: v for k, v in tally.items()
+                        if v or k == "total"},
         "peak_memory": float(mode.peak),
     }
     if on_card:

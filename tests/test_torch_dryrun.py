@@ -2,8 +2,9 @@
 every cell of reduced configs, with ``SHAPES`` cut small as the reference's
 own integration test cuts them, counts ``ok`` with a bottleneck among the
 three terms and depth probes that extrapolate exactly; smollm-360m's train
-step has a useful-FLOPs ratio in (0.5, 1.2]; ``--multi-pod`` is refused
-and ``SKIP`` is the reference's."""
+step has a useful-FLOPs ratio in (0.5, 1.2]; ``--multi-pod`` writes
+``ok`` records for rank 0 of the 2x16x16 mesh beside the one-card
+default; ``SKIP`` is the reference's."""
 import ast
 import json
 from pathlib import Path
@@ -51,16 +52,25 @@ def test_dense_train_useful_flops_ratio(small):
     assert 0.5 < rec["roofline"]["useful_flops_ratio"] <= 1.2
 
 
-def test_multi_pod_is_refused(small, tmp_path):
-    with pytest.raises(SystemExit, match="multi-card"):
-        dr.main(["--all", "--multi-pod", "--out", str(tmp_path)])
-    with pytest.raises(ValueError, match="multi-card"):
-        dr.run_cell("smollm-360m", "train_4k", multi_pod=True)
+def test_multi_pod_writes_ok_records(small, tmp_path):
+    # rank 0 of the 2x16x16 production mesh, counted on the meta device;
+    # the one-card count stays the default
+    assert dr.main(["--arch", "smollm-360m", "--shape", "train_4k",
+                    "--multi-pod", "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "smollm-360m__train_4k__2x16x16.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["mesh"] == "2x16x16"
+    assert rec["roofline"]["chips"] == 512
+    assert rec["roofline"]["collective_bytes"] > 0
+    one = dr.run_cell("smollm-360m", "train_4k", multi_pod=True,
+                      verbose=False)
+    assert one["roofline"]["hlo_flops"] == rec["roofline"]["hlo_flops"]
     assert dr.main(["--arch", "smollm-360m", "--shape", "decode_32k",
                     "--out", str(tmp_path)]) == 0
     rec = json.loads((tmp_path / "smollm-360m__decode_32k__1.json")
                      .read_text())
     assert rec["status"] == "ok" and rec["roofline"]["mesh"] == "1"
+    assert rec["roofline"]["collective_bytes"] == 0
 
 
 def test_skip_is_the_reference():

@@ -94,6 +94,7 @@ import repro_torch.launch.mesh, repro_torch.bench.collectives
 import repro_torch.bench.sharded, repro_torch.bench.sharded_train
 import repro_torch.distributed.act_sharding
 import repro_torch.distributed.pipeline, repro_torch.distributed.compression
+import repro_torch.models.mesh_lm, repro_torch.bench.sharded_steps
 assert not any(m.split(".")[0] in ("jax", "repro", "benchmarks")
                for m in sys.modules)
 print("ok")
@@ -145,6 +146,48 @@ def test_training_mesh_modules_import_with_jax_blocked():
              PORT / "training" / "train_step.py",
              *[PORT / "distributed" / f"{n}.py"
                for n in ("act_sharding", "pipeline", "compression")]]
+    assert all(f.exists() for f in files)
+    assert [(f.name, n) for f in files for n in _imports(f)
+            if n.split(".")[0] in ("jax", "jaxlib", "repro",
+                                   "benchmarks")] == []
+
+
+_SERVE_MESH_BLOCKER = (_BLOCKER.split("import repro_torch.serving.engine")[0]
+                       + """
+import repro_torch.models.mesh_lm, repro_torch.bench.sharded_steps
+import repro_torch.serving.steps, repro_torch.launch.dryrun
+import repro_torch.launch.mesh, repro_torch.roofline.analysis
+import repro_torch.distributed.collectives, repro_torch.distributed.sharding
+import repro_torch.models.transformer, repro_torch.models.rwkv6
+import repro_torch.models.zamba2, repro_torch.models.whisper
+import repro_torch.layers.attention, repro_torch.layers.mlp
+import repro_torch.layers.rwkv, repro_torch.layers.ssm
+import repro_torch.bench.sharded_train
+assert not any(m.split(".")[0] in ("jax", "repro", "benchmarks")
+               for m in sys.modules)
+print("ok")
+""")
+
+
+def test_serving_mesh_and_dry_run_modules_import_with_jax_blocked():
+    # the sharded serving steps, the families on a mesh and the dry run's
+    # production meshes: every module new or changed for them
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _SERVE_MESH_BLOCKER],
+                       capture_output=True, text=True, timeout=120, env=env)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    files = [PORT / "models" / "mesh_lm.py",
+             PORT / "bench" / "sharded_steps.py",
+             PORT / "serving" / "steps.py", PORT / "launch" / "dryrun.py",
+             PORT / "launch" / "mesh.py",
+             PORT / "roofline" / "analysis.py",
+             *[PORT / "models" / f"{n}.py"
+               for n in ("transformer", "rwkv6", "zamba2", "whisper")],
+             *[PORT / "layers" / f"{n}.py"
+               for n in ("attention", "mlp", "rwkv", "ssm")],
+             *[PORT / "distributed" / f"{n}.py"
+               for n in ("collectives", "sharding")],
+             PORT / "bench" / "sharded_train.py"]
     assert all(f.exists() for f in files)
     assert [(f.name, n) for f in files for n in _imports(f)
             if n.split(".")[0] in ("jax", "jaxlib", "repro",
