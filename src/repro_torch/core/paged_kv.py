@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import sanitize as sanitize_lib
+from repro_torch.perf import spans
 
 
 class OutOfBlocksError(RuntimeError):
@@ -179,10 +180,16 @@ class BlockAllocator:
 
     def _pop_block(self) -> int:
         """Take a block: plain free list first, then evict a cached-free
-        block chosen by the registered eviction policy."""
+        block chosen by the registered eviction policy (with spans on, its
+        time is ``kv.evict`` and the candidates it chose from
+        ``kv.cached_free_at_evict``)."""
         if self._free:
             blk = self._free.pop()
         elif self._cached_free:
+            log = spans.active()
+            if log is not None:
+                spans.count("kv.cached_free_at_evict", len(self._cached_free))
+                t0 = log.clock()
             pol = self._eviction()
             blk = int(pol.select(tuple(self._cached_free), self._stats))
             if blk not in self._cached_free:
@@ -200,6 +207,8 @@ class BlockAllocator:
                     self.pending_tier_ops.append(("demote", entry, blk))
             pol.on_evict(blk, self._stats)
             self.cache_evictions += 1
+            if log is not None:
+                spans.add_ns("kv.evict", log.clock() - t0)
         else:
             raise OutOfBlocksError("pool exhausted")
         self.blocks_allocated += 1

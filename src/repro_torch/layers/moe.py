@@ -58,6 +58,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import MoEConfig
 from repro_torch.layers.mlp import mlp_apply_tp, swiglu, swiglu_init
+from repro_torch.perf import spans
 
 # expert-parallel calls by layout (module docstring), plain integers a
 # caller may reset and read, as a kernel wrapper's ``launches``
@@ -106,7 +107,15 @@ def moe_apply(params, x: torch.Tensor, m: MoEConfig, *,
     at most ``groups`` that divides the tokens).  ``tp``: expert
     parallelism over ``expert_axis`` on its mesh (module docstring), x this
     rank's batch shard and params its shards; the data axes are those
-    scoped by ``activation_sharding``, else ``data_axes``."""
+    scoped by ``activation_sharding``, else ``data_axes``.  The call is
+    the ``model.moe`` span (:mod:`repro_torch.perf.spans`)."""
+    with spans.span("model.moe"):
+        return _moe_apply(params, x, m, data_axes, expert_axis,
+                          full_capacity, groups, tp)
+
+
+def _moe_apply(params, x, m, data_axes, expert_axis, full_capacity, groups,
+               tp):
     if tp is not None:
         if expert_axis != tp.axis:
             raise ValueError(f"expert axis {expert_axis!r}: the mesh's "

@@ -76,6 +76,7 @@ from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norm import rmsnorm, rmsnorm_init
 from repro_torch.models import stacking
 from repro_torch.models.mesh_lm import MeshLM, alloc_cache, seq_split
+from repro_torch.perf import spans
 from repro_torch.training import remat as remat_lib
 from repro_torch.training.losses import next_token_loss
 
@@ -464,7 +465,8 @@ class TransformerLM(MeshLM):
         (tuned by ``q_chunk`` and ``prefetch_depth``).  ``attn_tunables``
         (the ragged family's keys; None: the defaults) go to the ragged
         kernel, their split and cap to the chunked one.  Greedy outputs are
-        identical either way at an equal split.
+        identical either way at an equal split.  Each layer's op call is
+        the ``model.attention`` span (:mod:`repro_torch.perf.spans`).
 
         lists (as the engine renders them): block_list/block_req/block_pos
         (Tb,), kv_lens (B,), token_req/token_pos (T,),
@@ -514,20 +516,21 @@ class TransformerLM(MeshLM):
             paged_kv.append_to_pool(
                 pool[i], paged_kv.fuse_kv_heads(k_new[:, 0], v_new[:, 0]),
                 lists["slots"], num_lanes)
-            if attn_impl == "ragged":
-                ctx = attention_api.paged_attention_ragged_op(
-                    q[:, 0].contiguous(), pool[i], lists["block_list"],
-                    lists["block_req"], lists["block_pos"],
-                    lists["cu_q_lens"], lists["cu_kv_lens"],
-                    lists["seq_slot"], **tun)
-            else:
-                pk, pv = paged_kv.fused_kv_views(pool[i])
-                ctx = attention_api.paged_attention_chunked_op(
-                    q[:, 0].contiguous(), pk, pv, lists["block_list"],
-                    lists["block_req"], lists["block_pos"],
-                    lists["kv_lens"], lists["token_req"], token_pos,
-                    q_chunk=q_chunk, prefetch_depth=prefetch_depth,
-                    **split_kw)
+            with spans.span("model.attention"):
+                if attn_impl == "ragged":
+                    ctx = attention_api.paged_attention_ragged_op(
+                        q[:, 0].contiguous(), pool[i], lists["block_list"],
+                        lists["block_req"], lists["block_pos"],
+                        lists["cu_q_lens"], lists["cu_kv_lens"],
+                        lists["seq_slot"], **tun)
+                else:
+                    pk, pv = paged_kv.fused_kv_views(pool[i])
+                    ctx = attention_api.paged_attention_chunked_op(
+                        q[:, 0].contiguous(), pk, pv, lists["block_list"],
+                        lists["block_req"], lists["block_pos"],
+                        lists["kv_lens"], lists["token_req"], token_pos,
+                        q_chunk=q_chunk, prefetch_depth=prefetch_depth,
+                        **split_kw)
             x = x + torch.matmul(ctx.reshape(x.shape[0], -1),
                                  lp["attn"]["wo"])
             h = rmsnorm(lp["ln2"], x[:, None], cfg.norm_eps)

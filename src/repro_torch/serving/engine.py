@@ -91,6 +91,7 @@ from repro_torch.core.paged_kv import (
     BlockAllocator, HostPool, copy_pool_blocks, make_fused_pool,
     read_pool_block, write_pool_block)
 from repro_torch.perf import autotune as autotune_lib
+from repro_torch.perf import spans
 from repro_torch.serving import policy as policy_lib
 from repro_torch.serving import sampling as sampling_lib
 from repro_torch.serving import spec as spec_lib
@@ -111,10 +112,10 @@ class _PendingStep:
     ``cancelled``: its action is skipped and its placeholder popped."""
 
     __slots__ = ("actions", "slots", "chain", "nxt_dev", "cancelled",
-                 "phases", "num_tokens", "t_dispatch")
+                 "phases", "num_tokens", "t_dispatch", "step")
 
     def __init__(self, *, actions, slots, chain, nxt_dev, phases,
-                 num_tokens, t_dispatch):
+                 num_tokens, t_dispatch, step):
         self.actions = actions
         self.slots = slots
         self.chain = chain
@@ -123,6 +124,7 @@ class _PendingStep:
         self.phases = phases
         self.num_tokens = num_tokens
         self.t_dispatch = t_dispatch
+        self.step = step                # the span step id (None: off)
 
     def cancel(self, req: Request) -> None:
         rid = req.req_id
@@ -277,6 +279,7 @@ class ServingEngine:
                 f"request {req.req_id} can never fit: needs up to {worst} "
                 f"blocks, pool has {self.alloc.num_blocks}")
         self.scheduler.submit(req)
+        spans.mark(req.req_id, "submit")
 
     @property
     def waiting(self) -> List[Request]:
@@ -421,6 +424,12 @@ class ServingEngine:
         if spec_step:
             lists["logit_lanes"] = logit_lanes
         spec = (draft_tokens, draft_lens) if spec_step else None
+        if spans.active() is not None:
+            # a request's first prefill lanes: the first after its first
+            # admission (none for one admitted before the recording)
+            for req, _, _ in committed:
+                if req.state is RequestState.PREFILLING:
+                    spans.mark(req.req_id, "first_lanes", after="admit")
         return (lists, tokens, tok_src, (temps, top_ks, top_ps), spec,
                 committed)
 
@@ -483,7 +492,35 @@ class ServingEngine:
         """One engine iteration: [propose] + schedule + ONE fused forward
         (with verify on a drafted step) + the host-side commit.  Returns the
         number of lanes run.  With overlap on, this step is dispatched
-        before the previous one is resolved."""
+        before the previous one is resolved.
+
+        With spans on (:mod:`repro_torch.perf.spans`) the step is the
+        ``engine.step`` span, around ``engine.propose``,
+        ``engine.schedule``, ``engine.render``, ``engine.pool_sync``,
+        ``engine.dispatch``, ``engine.wait`` and ``engine.commit`` (the
+        last two carry the id of the step they resolve), and the
+        allocator's and scheduler's counters are read before and after."""
+        spans.follow_profiler()
+        self._read_counters()
+        with spans.span("engine.step", step=spans.next_step()):
+            n = self._step()
+        self._read_counters()
+        return n
+
+    def _read_counters(self) -> None:
+        if spans.active() is None:
+            return
+        alloc = self.alloc
+        for name, value in (
+                ("alloc.cache_evictions", alloc.cache_evictions),
+                ("prefix_hits", alloc.prefix_hits),
+                ("prefix_misses", alloc.prefix_misses),
+                ("cow_copies", alloc.cow_copies),
+                ("scheduler.num_preemptions",
+                 self.scheduler.num_preemptions)):
+            spans.gauge(name, value)
+
+    def _step(self) -> int:
         t0 = time.perf_counter()
         if self.proposer is not None and self._pending is not None:
             # proposers read the tail of req.output: resolve its
@@ -492,9 +529,11 @@ class ServingEngine:
             self._resolve(pend, None)
             if not self.scheduler.has_work():
                 return 0                # that resolve finished the last ones
-        drafts = self._propose() if self.proposer is not None else {}
+        with spans.span("engine.propose"):
+            drafts = self._propose() if self.proposer is not None else {}
         t1 = time.perf_counter()
-        plan = self.scheduler.schedule(spec_drafts=drafts)
+        with spans.span("engine.schedule"):
+            plan = self.scheduler.schedule(spec_drafts=drafts)
         if plan.num_tokens == 0:
             if self._pending is not None:      # drain the in-flight step
                 pend, self._pending = self._pending, None
@@ -566,8 +605,9 @@ class ServingEngine:
         """Flush allocator-queued device-pool traffic: tier ops, then CoW.
         Public because the disaggregation frontend flushes the decode pool
         before it writes handed-off KV into freshly reserved slots."""
-        self._drain_tier()
-        self._drain_cow()
+        with spans.span("engine.pool_sync"):
+            self._drain_tier()
+            self._drain_cow()
 
     def _rank_lists(self, lists_np, num_lanes: int):
         """This rank's view of rendered lists: its row of the sharded
@@ -610,20 +650,23 @@ class ServingEngine:
         render, the pool traffic and the dispatch to that when
         sanitizing)."""
         with self._sanitize_scope("overlap-build"):
-            lists_np, tokens_np, tok_src_np, sample_np, spec, committed = (
-                self._render(plan))
+            with spans.span("engine.render"):
+                (lists_np, tokens_np, tok_src_np, sample_np, spec,
+                 committed) = self._render(plan)
             assert spec is None, "drafted plans go through _step_sync"
             self.sync_pools()
             t2 = time.perf_counter()
-            tokens = self._upload(tokens_np)
-            if (tok_src_np >= 0).any():     # chain from the step in flight
-                nxt_prev = self._pending.nxt_dev
-                tok_src = self._upload(tok_src_np)
-                live = tok_src.clamp(0, nxt_prev.shape[0] - 1).long()
-                tokens = torch.where(tok_src >= 0, nxt_prev[live], tokens)
-            logits = self._forward(plan, lists_np, tokens)
-            nxt_dev = sampling_lib.sample_batched(
-                self._gen, logits, *self._uploads(sample_np))
+            with spans.span("engine.dispatch"):
+                tokens = self._upload(tokens_np)
+                if (tok_src_np >= 0).any():  # chain from the step in flight
+                    nxt_prev = self._pending.nxt_dev
+                    tok_src = self._upload(tok_src_np)
+                    live = tok_src.clamp(0, nxt_prev.shape[0] - 1).long()
+                    tokens = torch.where(tok_src >= 0, nxt_prev[live],
+                                         tokens)
+                logits = self._forward(plan, lists_np, tokens)
+                nxt_dev = sampling_lib.sample_batched(
+                    self._gen, logits, *self._uploads(sample_np))
         actions = []
         chain: Dict[int, int] = {}
         for req, n, pos0 in committed:
@@ -658,7 +701,8 @@ class ServingEngine:
             slots={req.req_id: req.slot for req, _, _ in committed},
             chain=chain, nxt_dev=nxt_dev,
             phases={"propose": t1 - t0, "schedule_render": t2 - t1},
-            num_tokens=plan.num_tokens, t_dispatch=t2)
+            num_tokens=plan.num_tokens, t_dispatch=t2,
+            step=spans.current_step())
 
     def _resolve(self, pend: _PendingStep,
                  next_pending: Optional[_PendingStep]) -> None:
@@ -666,8 +710,22 @@ class ServingEngine:
         placeholders become tokens, EOS / max_new_tokens finishes fire
         (cancelling the request's action in ``next_pending``), a request
         preempted mid-flight keeps its token for the recompute, and the
-        step's metrics are recorded (device phase: dispatch -> tokens)."""
-        nxt = pend.nxt_dev.cpu().numpy()        # waits for the step
+        step's metrics are recorded.  Its ``device`` phase (the
+        reference's key) is the host's time from the dispatch's start to
+        the tokens in host memory: the enqueue of the forward and the
+        sampling, then the wait for the card (the ``engine.dispatch`` and
+        ``engine.wait`` spans), not device time."""
+        with spans.span("engine.wait", step=pend.step):
+            nxt = pend.nxt_dev.cpu().numpy()    # waits for the step
+        with spans.span("engine.commit", step=pend.step):
+            self._reconcile(pend, next_pending, nxt)
+        # after the reconciliation: commits, finishes and preemption frees
+        # have all landed in the allocator
+        self._check_allocator()
+
+    def _reconcile(self, pend: _PendingStep,
+                   next_pending: Optional[_PendingStep],
+                   nxt: np.ndarray) -> None:
         t_done = time.perf_counter()
         if self._chain is pend.chain:           # nothing newer in flight
             self._chain = {}
@@ -693,9 +751,6 @@ class ServingEngine:
             num_tokens=pend.num_tokens, emitted_tokens=emitted,
             phases={**pend.phases, "device": t_done - pend.t_dispatch,
                     "commit": time.perf_counter() - t_done})
-        # after the reconciliation: commits, finishes and preemption frees
-        # have all landed in the allocator
-        self._check_allocator()
 
     def _filter_finished(self, plan: StepPlan) -> None:
         """Drop plan entries whose request finished at a resolve that ran
@@ -711,17 +766,31 @@ class ServingEngine:
         """The drafted step, synchronous: one forward with a logit row per
         lane, ``verify_batched``, the accepted prefix committed and the
         rejected tail's blocks rolled back."""
-        lists_np, tokens_np, _, sample_np, spec, committed = (
-            self._render(plan))
+        with spans.span("engine.render"):
+            lists_np, tokens_np, _, sample_np, spec, committed = (
+                self._render(plan))
         assert spec is not None
         self.sync_pools()
         t2 = time.perf_counter()
-        logits = self._forward(plan, lists_np, self._upload(tokens_np),
-                               "spec")
-        out, acc = spec_lib.verify_batched(
-            self._gen, logits, *self._uploads(spec),
-            *self._uploads(sample_np))
-        out, acc = out.cpu().numpy(), acc.cpu().numpy()
+        with spans.span("engine.dispatch"):
+            logits = self._forward(plan, lists_np, self._upload(tokens_np),
+                                   "spec")
+            out, acc = spec_lib.verify_batched(
+                self._gen, logits, *self._uploads(spec),
+                *self._uploads(sample_np))
+        with spans.span("engine.wait"):
+            out, acc = out.cpu().numpy(), acc.cpu().numpy()
+        with spans.span("engine.commit"):
+            self._commit_verified(plan, committed, out, acc, t0, t1, t2)
+        self._check_allocator()
+        return plan.num_tokens
+
+    def _commit_verified(self, plan: StepPlan, committed, out: np.ndarray,
+                         acc: np.ndarray, t0: float, t1: float,
+                         t2: float) -> None:
+        """A drafted step's commit: the accepted prefix of each decode
+        lane, the rejected tail's blocks rolled back, prefill chunks
+        advanced, and the step's metrics recorded."""
         nxt = out[:, 0]
         t3 = time.perf_counter()
         now = time.time()
@@ -778,8 +847,6 @@ class ServingEngine:
             num_tokens=plan.num_tokens, emitted_tokens=emitted,
             phases={"propose": t1 - t0, "schedule_render": t2 - t1,
                     "device": t3 - t2, "commit": t4 - t3})
-        self._check_allocator()
-        return plan.num_tokens
 
     def _register_generated(self, req: Request, pos0: int,
                             accepted: Optional[np.ndarray] = None,

@@ -21,6 +21,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.paged_kv import BlockAllocator, OutOfBlocksError
+from repro_torch.perf import spans
 from repro_torch.serving import policy as policy_lib
 from repro_torch.serving.request import Request, RequestState
 
@@ -108,6 +109,8 @@ class Scheduler:
             req.begin_prefill(slot, cached, active_prompt=active)
             self.running[req.req_id] = req
             self.admission.on_admit(req, now)
+            if req.num_preemptions == 0:        # its first admission
+                spans.mark(req.req_id, "admit")
 
     def _blocks_needed(self, plan: StepPlan) -> int:
         """Exact pool demand of the plan: new blocks + copy-on-write copies."""
