@@ -180,9 +180,10 @@ class BlockAllocator:
 
     def _pop_block(self) -> int:
         """Take a block: plain free list first, then evict a cached-free
-        block chosen by the registered eviction policy (with spans on, its
-        time is ``kv.evict`` and the candidates it chose from
-        ``kv.cached_free_at_evict``)."""
+        block chosen by the registered eviction policy, which is handed the
+        live keys view of the cached-free list (oldest freed first; no copy,
+        so ``lru`` picks in O(1)).  With spans on, its time is ``kv.evict``
+        and the candidates it was offered ``kv.cached_free_at_evict``."""
         if self._free:
             blk = self._free.pop()
         elif self._cached_free:
@@ -191,7 +192,7 @@ class BlockAllocator:
                 spans.count("kv.cached_free_at_evict", len(self._cached_free))
                 t0 = log.clock()
             pol = self._eviction()
-            blk = int(pol.select(tuple(self._cached_free), self._stats))
+            blk = int(pol.select(self._cached_free.keys(), self._stats))
             if blk not in self._cached_free:
                 raise RuntimeError(
                     f"eviction policy {getattr(pol, 'name', pol)!r} selected "

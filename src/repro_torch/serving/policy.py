@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
-                    Sequence, Tuple, Type, Union)
+from typing import (Callable, Dict, Iterator, KeysView, List, Mapping,
+                    Optional, Sequence, Tuple, Type, Union)
 
 from repro_torch.core.paged_kv import BlockAllocator, BlockStats
 from repro_torch.serving.request import Request, RequestState
@@ -92,11 +92,18 @@ class PreemptionPolicy(Policy):
 
 
 class EvictionPolicy(Policy):
-    """Scores cached-free blocks (candidates arrive oldest-freed-first)."""
+    """Scores cached-free blocks.
+
+    :meth:`select` is handed the allocator's live, read-only keys view of
+    its cached-free list, oldest freed first, valid only for the duration
+    of the call.  A policy must not mutate the allocator while it runs, and
+    copies the view only if it must: an eviction then costs what the policy
+    reads (``lru`` one element), not the size of the cached-free list.
+    """
 
     axis = EVICTION
 
-    def select(self, candidates: Sequence[int],
+    def select(self, candidates: KeysView[int],
                stats: Mapping[int, BlockStats]) -> int:
         raise NotImplementedError
 
@@ -309,7 +316,7 @@ class MostBlocksPreemption(PreemptionPolicy):
 class LruEviction(EvictionPolicy):
     """Drop the oldest-freed block."""
 
-    def select(self, candidates: Sequence[int],
+    def select(self, candidates: KeysView[int],
                stats: Mapping[int, BlockStats]) -> int:
         return next(iter(candidates))
 
@@ -318,7 +325,7 @@ class LruEviction(EvictionPolicy):
 class HitRateEviction(EvictionPolicy):
     """Drop the block with the fewest lifetime hits (tie: LRU)."""
 
-    def select(self, candidates: Sequence[int],
+    def select(self, candidates: KeysView[int],
                stats: Mapping[int, BlockStats]) -> int:
         return min(enumerate(candidates),
                    key=lambda iv: (stats[iv[1]].hits, iv[0]))[1]
@@ -328,7 +335,7 @@ class HitRateEviction(EvictionPolicy):
 class RefcountAwareEviction(EvictionPolicy):
     """Drop never-shared blocks first (peak refcount 1), then fewest hits."""
 
-    def select(self, candidates: Sequence[int],
+    def select(self, candidates: KeysView[int],
                stats: Mapping[int, BlockStats]) -> int:
         return min(enumerate(candidates),
                    key=lambda iv: (stats[iv[1]].peak_ref, stats[iv[1]].hits,
@@ -339,7 +346,7 @@ class RefcountAwareEviction(EvictionPolicy):
 class TieredEviction(EvictionPolicy):
     """Evict the coldest block; demote only blocks with shown reuse."""
 
-    def select(self, candidates: Sequence[int],
+    def select(self, candidates: KeysView[int],
                stats: Mapping[int, BlockStats]) -> int:
         return min(enumerate(candidates),
                    key=lambda iv: (stats[iv[1]].hits, stats[iv[1]].peak_ref,
@@ -397,7 +404,7 @@ class AutoEviction(EvictionPolicy, _AutoDelegate):
         super().__init__()
         self._impl = self._resolve_delegate()
 
-    def select(self, candidates: Sequence[int],
+    def select(self, candidates: KeysView[int],
                stats: Mapping[int, BlockStats]) -> int:
         return self._impl.select(candidates, stats)
 
