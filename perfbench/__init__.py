@@ -6,7 +6,10 @@ one JSON line.  Everything that belongs to one configuration, traffic mix
 or metric sits in a file of its own, found by its name:
 
 * ``configs/<config>.json``: the model's sizes, the serving knobs, the KV
-  pool and the limits that decide ``correct``;
+  pool and the limits that decide ``correct``; optionally the ``model``
+  module that builds it and the ``counts`` module of its arithmetic, each
+  a path under ``perfbench/`` (without them ``harness/model.py``, the
+  port's ``TransformerLM``, and ``counts/transformer.py``);
 * ``traffic/<mix>.json``: a mix's parameters, read by the generator named
   by its ``kind`` (``traffic/<kind>.py``);
 * ``metrics/<metric>.py``: one reader per metric, ``read(window)``;

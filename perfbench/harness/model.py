@@ -1,4 +1,6 @@
-"""A configuration file's sizes, and the weights the benchmark draws for it.
+"""The model of a configuration that names no ``model`` module: its sizes,
+the weights the benchmark draws for it, and the port's ``TransformerLM``
+built to them.
 
 The file keeps the published ``config.json``'s key names.  The weights are
 the benchmark's input, made on the device from the seed in a few large
@@ -7,9 +9,14 @@ calls, in the type they are served in, with the layout the port's
 normal draw scaled by fan-in^-0.5, norms at 1, the router in float32.
 The reference draws the same weights again from the same seed; it never
 reads the tensors handed to the program.
+
+A model module exposes ``dims``, ``draw``, ``num_params``, ``build`` and
+``moe_module``, as here; a configuration of another family names its own
+under ``model`` (a path under ``perfbench/``).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -122,6 +129,40 @@ def draw(d: Dims, seed: int, device) -> Dict:
         if not fan_in:
             _put(out, path, torch.ones(shape, dtype=dtype, device=device))
     return out
+
+
+def port_config(config: dict, d: Dims):
+    """The port's ``ModelConfig`` of ``config["arch"]``, with every size
+    the benchmark's file states."""
+    from repro_torch.config import get_config
+
+    base = get_config(config["arch"])
+    att = dataclasses.replace(base.attention, num_heads=d.heads,
+                              num_kv_heads=d.kv_heads, head_dim=d.head_dim,
+                              rope_theta=d.rope_theta)
+    kw = dict(num_layers=d.layers, d_model=d.d_model, d_ff=d.d_ff,
+              vocab_size=d.vocab, attention=att, norm_eps=d.eps,
+              dtype=d.dtype, tie_embeddings=True)
+    if d.moe:
+        kw["moe"] = dataclasses.replace(base.moe, num_experts=d.experts,
+                                        top_k=d.top_k, d_expert=d.d_ff)
+    return dataclasses.replace(base, **kw)
+
+
+def build(config: dict, d: Dims, device):
+    """``(the port's ModelConfig, the port's model)`` for ``config``."""
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = port_config(config, d)
+    return cfg, TransformerLM(cfg, device=device)
+
+
+def moe_module():
+    """The port's module whose ``moe_apply`` the traced run puts inside
+    the ``moe`` span."""
+    from repro_torch.models import transformer
+
+    return transformer
 
 
 def _numel(shape) -> int:

@@ -1,9 +1,12 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
 A cell names a configuration and a traffic mix; a configuration names its
-``system``; a mix names its generator (``kind``); a metric is the reader
-``metrics/<name>.py``.  Adding a file of one of these kinds, and its entry
-in ``BENCHMARK.json``, is all a new cell, mix or metric needs.
+``system`` and its ``reference``, and may name its ``model`` module and its
+``counts`` module (each a path under ``perfbench/``; without the key,
+``harness/model.py`` and ``counts/transformer.py``); a mix names its
+generator (``kind``); a metric is the reader ``metrics/<name>.py``.
+Adding a file of one of these kinds, and its entry in ``BENCHMARK.json``,
+is all a new cell, configuration, mix or metric needs.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Dict, List, Optional
 
 PACKAGE = Path(__file__).resolve().parents[1]     # perfbench/
 ROOT = PACKAGE.parent                             # the checkout
+MODULE_KEYS = ("reference", "model", "counts")    # paths under perfbench/
 
 
 def load_json(path: Path) -> dict:
@@ -75,8 +79,14 @@ class Benchmark:
                            f"{sorted(self.cells)}") from None
 
     def config(self, cell: dict) -> dict:
+        """The configuration file, with the modules it names resolved
+        under this checkout's ``perfbench/``."""
         entry = self.configs[cell["config"]]
-        return load_json(self.root / entry["file"])
+        config = load_json(self.root / entry["file"])
+        for key in MODULE_KEYS:
+            if key in config:
+                config[key] = str(self.package / config[key])
+        return config
 
     def traffic(self, cell: dict) -> dict:
         return load_json(self.package / "traffic" / f"{cell['traffic']}.json")
@@ -99,6 +109,27 @@ class Benchmark:
     def reader(self, metric: dict) -> ModuleType:
         return load_module(self.package / "metrics" / f"{metric['name']}.py",
                            "metric")
+
+
+def model_module(config: dict) -> ModuleType:
+    """The module that gives a configuration's model: ``dims(config)``,
+    ``draw(d, seed, device)``, ``num_params(d)``, ``build(config, d,
+    device)`` and ``moe_module()``; ``harness/model.py`` unless the file
+    names another under ``model``."""
+    if "model" not in config:
+        from perfbench.harness import model
+        return model
+    return load_module(PACKAGE / config["model"], "model")
+
+
+def counts_module(config: dict) -> ModuleType:
+    """The module of a configuration's counts (``counts/transformer.py``
+    says what it exposes); that one unless the file names another under
+    ``counts``."""
+    if "counts" not in config:
+        from perfbench.counts import transformer
+        return transformer
+    return load_module(PACKAGE / config["counts"], "counts")
 
 
 def read_metrics(bench: Benchmark, cell_name: str, trace: bool,

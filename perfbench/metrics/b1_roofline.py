@@ -1,9 +1,8 @@
 """B1's share of its roofline: the least time of the window's calls of the
-ragged paged-attention kernel (``counts.b1``, from the lanes each request
-ran), over the device time of its kernels (``ragged_attention_kernel``
-and ``entry_lists_kernel``), in percent."""
-from perfbench.counts import b1
-
+ragged paged-attention kernel (the configuration's counts, ``w.counts``;
+by default ``counts.b1`` in every layer, from the lanes each request ran),
+over the device time of its kernels (``ragged_attention_kernel`` and
+``entry_lists_kernel``), in percent."""
 KERNELS = ("ragged_attention_kernel", "entry_lists_kernel")
 
 
@@ -16,7 +15,7 @@ def read(w):
         return None
     bound, by = 0.0, set()
     for s in w.steps:
-        t, b = b1.step_bound_s(w.dims, s.lanes, w.block_size)
+        t, b = w.counts.b1_step_bound_s(w.dims, s.lanes, w.block_size)
         bound += t
         by.add(b)
     w.notes["b1_roofline bound"] = "/".join(sorted(by))

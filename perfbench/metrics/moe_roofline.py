@@ -1,7 +1,7 @@
 """The MoE layers' share of their roofline: the least time of the routed
-work the window's lanes need (``counts.moe``), over the device time of the
-kernels launched inside ``moe_apply``, in percent."""
-from perfbench.counts import moe
+work the window's lanes need (the configuration's counts, ``w.counts``;
+by default ``counts.moe``), over the device time of the kernels launched
+inside ``moe_apply``, in percent."""
 
 
 def read(w):
@@ -12,7 +12,8 @@ def read(w):
         return None
     bound, by = 0.0, set()
     for s in w.steps:
-        t, b = moe.step_bound_s(w.dims, sum(n for n, _ in s.lanes))
+        tokens = sum(n for n, _ in s.lanes)
+        t, b = w.counts.moe_step_bound_s(w.dims, tokens)
         bound += t
         by.add(b)
     w.notes["moe_roofline bound"] = "/".join(sorted(by))

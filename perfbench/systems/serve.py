@@ -1,8 +1,11 @@
 """Serving: the port's ``ServingEngine`` under a closed loop of clients.
 
-Set-up draws the weights from the seed, builds the kernels the engine
-loads (a cache hit in ``build/kernels`` after a checkout's first run),
-builds the engine with the configuration's knobs and KV pool, and ramps:
+The configuration's model module (``spec.model_module``) gives the sizes,
+the weights and the port's model; its counts module (``spec.
+counts_module``) goes to the readers in the window.  Set-up builds the
+kernels the engine loads (a cache hit in ``build/kernels`` after a
+checkout's first run), draws the weights from the seed, builds the model
+and the engine with the configuration's knobs and KV pool, and ramps:
 every client sends at once and the loop runs until each client's first
 request has completed, so every slot has turned over once, and until the
 pool's free blocks are spent and the allocator evicts cached blocks, the
@@ -19,25 +22,27 @@ completed request's client sends its next request at once.
 the engine is gone, a sample of the requests completed in the window
 (drawn from the seed, the one with most output tokens in it) is run
 through the configuration's float32 reference over prompt and served
-tokens.  Each served token's gap is how far its logit lies below the
-reference's best at its position; the widest gap and the mean gap are
-held to the limits the configuration states for them.
+tokens, on the model module's second draw of the weights.  Each served
+token's gap is how far its logit lies below the reference's best at its
+position; the widest gap and the mean gap are held to the limits the
+configuration states for them.
 """
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import gc
 import time
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from perfbench.harness import model as model_lib
+from perfbench.counts import transformer as transformer_counts
 from perfbench.harness import spec
 from perfbench.harness import trace as trace_lib
+from perfbench.harness.model import port_config  # noqa: F401 (its old home)
 
 clock = time.perf_counter
 RAMP_LIMIT_S = 600.0
@@ -66,13 +71,14 @@ class Window:
     t0: float
     t1: float
     setup_s: float
-    dims: model_lib.Dims
+    dims: object                        # the model module's sizes
     block_size: int
     records: List[Record]
     steps: List[Step]
     phase_s: Dict[str, float]
     trace: Optional[trace_lib.TraceSummary] = None
     notes: Dict[str, object] = field(default_factory=dict)
+    counts: ModuleType = transformer_counts
 
     @property
     def seconds(self) -> float:
@@ -91,24 +97,6 @@ class Outcome:
     checks: Dict[str, dict]
     memory_peak_bytes: int
     readings: Dict[str, float] = field(default_factory=dict)
-
-
-def port_config(config: dict, d: model_lib.Dims):
-    """The port's ``ModelConfig`` of ``config["arch"]``, with every size
-    the benchmark's file states."""
-    from repro_torch.config import get_config
-
-    base = get_config(config["arch"])
-    att = dataclasses.replace(base.attention, num_heads=d.heads,
-                              num_kv_heads=d.kv_heads, head_dim=d.head_dim,
-                              rope_theta=d.rope_theta)
-    kw = dict(num_layers=d.layers, d_model=d.d_model, d_ff=d.d_ff,
-              vocab_size=d.vocab, attention=att, norm_eps=d.eps,
-              dtype=d.dtype, tie_embeddings=True)
-    if d.moe:
-        kw["moe"] = dataclasses.replace(base.moe, num_experts=d.experts,
-                                        top_k=d.top_k, d_expert=d.d_ff)
-    return dataclasses.replace(base, **kw)
 
 
 def _kv_len(req) -> int:
@@ -227,14 +215,13 @@ def numbers(g: np.ndarray) -> Dict[str, float]:
 def run(config: dict, traffic: dict, generator, *, seed: int,
         seconds: float, trace: bool, device: str, t_start: float,
         log: Callable[[str], None], control: bool = False) -> Outcome:
-    from repro_torch.models import transformer as transformer_mod
     from repro_torch.serving import sampling as sampling_lib
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.config import ServeConfig
 
+    models, counts = spec.model_module(config), spec.counts_module(config)
     dev = torch.device(device)
-    d = model_lib.dims(config)
-    cfg = port_config(config, d)
+    d = models.dims(config)
     if dev.type == "cuda":
         from repro_torch.kernels import build as kbuild
 
@@ -242,20 +229,20 @@ def run(config: dict, traffic: dict, generator, *, seed: int,
             log(f"kernel build {name}: cache_hit={info['cache_hit']} "
                 f"seconds={info['seconds']:.3f}")
     t = clock()
-    params = model_lib.draw(d, seed, dev)
-    model = transformer_mod.TransformerLM(cfg, device=dev)
+    params = models.draw(d, seed, dev)
+    cfg, model = models.build(config, d, dev)
     serve = ServeConfig(model=cfg.name, **config["serve"])
     engine = ServingEngine(model, params, cfg, serve,
                            num_blocks=config["kv_pool"]["blocks"],
                            seed=seed % (1 << 63), device=dev)
     _sync(dev)
     log(f"weights and engine: {clock() - t:.3f} s, "
-        f"{model_lib.num_params(d)} parameters, "
+        f"{models.num_params(d)} parameters, "
         f"{config['kv_pool']['blocks']} KV blocks")
     summary = trace_lib.TraceSummary() if trace else None
     spans = trace_lib.Spans()
     if trace:
-        spans.wrap(transformer_mod, "moe_apply", "moe")
+        spans.wrap(models.moe_module(), "moe_apply", "moe")
         spans.wrap(engine.scheduler, "schedule", "schedule")
         spans.wrap(engine, "_render", "render")
         spans.wrap(engine, "_forward", "forward")
@@ -296,7 +283,8 @@ def run(config: dict, traffic: dict, generator, *, seed: int,
         log(f"trace: {summary.kinds}, reduced in {summary.seconds:.1f} s")
     window = Window(t0=t0, t1=t1, setup_s=t0 - t_start, dims=d,
                     block_size=serve.kv_block_size, records=loop.records,
-                    steps=loop.steps[n0:], phase_s=phase, trace=summary)
+                    steps=loop.steps[n0:], phase_s=phase, trace=summary,
+                    counts=counts)
     live = [r for r in loop.records if r.sent <= t1
             and (r.done is None or r.done >= t0)]
     finished = [r for r in loop.records if window.inside(r.done)]
@@ -311,7 +299,7 @@ def run(config: dict, traffic: dict, generator, *, seed: int,
     reference = spec.load_module(spec.PACKAGE / config["reference"],
                                  "reference")
     reference.no_tf32()
-    weights = model_lib.draw(d, seed, dev)
+    weights = models.draw(d, seed, dev)
     got, ctl = gaps(reference, weights, d, sample, dev, control=control)
     del weights
     log(f"reference: {len(sample)} requests, {len(got)} served tokens, "

@@ -69,3 +69,68 @@ def test_moe_counts_by_hand():
     assert by == "flops"
     assert t == pytest.approx(24 * moe.layer_counts(GRANITE, 8000)[0]
                               / peaks.BF16_FLOPS)
+
+
+# a window of mixed steps: prefill chunks beside decode lanes, a step of
+# decode lanes alone, a step of one whole prompt
+STEPS = [([(2048, 2048), (1, 300), (1, 4000)], 2),
+         ([(1, 129 + k) for k in range(64)], 64),
+         ([(960, 3000), (1, 1024)], 1)]
+BENCH = spec.Benchmark()
+CELLS = sorted(BENCH.cells)
+
+
+def _mixed_window(d, counts=None):
+    from perfbench.harness import trace
+    from perfbench.systems import serve
+
+    steps = [serve.Step(end=float(k), lanes=lanes, sampled=sampled)
+             for k, (lanes, sampled) in enumerate(STEPS)]
+    summary = trace.TraceSummary(
+        busy_s=2.0, device_s_by_kernel={"ragged_attention_kernel<64>": 0.03,
+                                        "entry_lists_kernel": 0.002,
+                                        "gemm": 1.0},
+        span_device_s={"moe": 0.4})
+    kw = {} if counts is None else {"counts": counts}
+    return serve.Window(t0=0.0, t1=2.5, setup_s=1.0, dims=d, block_size=128,
+                        records=[], steps=steps, phase_s={}, trace=summary,
+                        **kw)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_readings_through_the_window_equal_the_formulas(cell):
+    config = BENCH.config(BENCH.cell(cell))
+    d = model.dims(config)
+    for w in (_mixed_window(d), _mixed_window(d, spec.counts_module(config))):
+        got = {n: BENCH.reader({"name": n}).read(w)
+               for n in ("mfu", "b1_roofline", "moe_roofline")}
+        total = sum(flops.step_flops(d, s.lanes, s.sampled) for s in w.steps)
+        assert got["mfu"] == 100.0 * total / (2.5 * peaks.BF16_FLOPS)
+        bound = 0.0
+        for s in w.steps:
+            bound += b1.step_bound_s(d, s.lanes, 128)[0]
+        assert got["b1_roofline"] == 100.0 * bound / (0.03 + 0.002)
+        if not d.moe:
+            assert got["moe_roofline"] is None
+            continue
+        bound = 0.0
+        for s in w.steps:
+            bound += moe.step_bound_s(d, sum(n for n, _ in s.lanes))[0]
+        assert got["moe_roofline"] == 100.0 * bound / 0.4
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_config_without_the_keys_takes_the_default_model_and_counts(cell):
+    from perfbench.counts import transformer
+    from perfbench.systems import serve
+
+    config = BENCH.config(BENCH.cell(cell))
+    assert not {"model", "counts"} & set(config)
+    assert spec.model_module(config) is model
+    counts = spec.counts_module(config)
+    assert counts is transformer
+    assert (counts.step_flops, counts.b1_step_bound_s,
+            counts.moe_step_bound_s) == (flops.step_flops, b1.step_bound_s,
+                                         moe.step_bound_s)
+    assert _mixed_window(None).counts is transformer
+    assert serve.port_config is model.port_config
